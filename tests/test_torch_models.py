@@ -13,9 +13,11 @@ import torch
 
 import pgtformer_tpu.models.parser as jparser
 import pgtformer_tpu.models.pgtformer as jpgt
+import pgtformer_tpu.models.quantizer as jquant
 import pgtformer_tpu.models.vae as jvae
 import pgtformer_tpu_torch.models.parser as tparser
 import pgtformer_tpu_torch.models.pgtformer as tpgt
+import pgtformer_tpu_torch.models.quantizer as tquant
 import pgtformer_tpu_torch.models.vae as tvae
 from tests.test_torch_common import (close, japply, random_variables, small_configs,  # noqa: F401
                                      small_pgt, t, to_port)
@@ -32,6 +34,25 @@ def test_bisenet():
         out = mod(t(x))
     assert out.shape == (2, 8, 8, 57)
     close(out, japply(jmod, v, x))
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_rq_embed_code(shared):
+    """embed_code with 2x2 space-to-depth and depth 2; code n_embed is the
+    zero padding row."""
+    kw = dict(latent_shape=(8, 8, 16), code_shape=(4, 4, 2), n_embed=32)
+    x = RNG.normal(size=(2, 8, 8, 16)).astype(np.float32)
+    jmod = jquant.RQBottleneck(shared_codebook=shared, **kw)
+    v = random_variables(jmod, jnp.asarray(x), seed=6)
+    mod = to_port(tquant.RQBottleneck(kw["latent_shape"], kw["code_shape"], kw["n_embed"],
+                                      shared_codebook=shared), v)
+    codes = RNG.integers(0, 33, (2, 4, 4, 2))
+    codes[0, 0, 0] = 32
+    with torch.no_grad():
+        out = mod.embed_code(torch.from_numpy(codes))
+    assert out.shape == (2, 8, 8, 16)
+    close(out, japply(jmod, v, codes, method="embed_code"), atol=1e-6, rtol=1e-6)
+    close(mod.to_latent_shape(mod.to_code_shape(t(x))), x, atol=0, rtol=0)
 
 
 @pytest.mark.parametrize("middle_only", [False, True])
