@@ -7,20 +7,35 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 Phases, in order; any failure exits non-zero:
  1. the card's name and power limit, torch/CUDA versions, TF32 off;
- 2. build both hand-written kernels from pgtformer_tpu_torch/csrc/ with nvcc
+ 2. build the hand-written kernels from pgtformer_tpu_torch/csrc/ with nvcc
     (one process per source, in parallel) and print ptxas register/smem use;
  3. each kernel's wrapper against its plain PyTorch version on the card at
-    the serving step's shapes (bf16), with its time, the plain version's
-    time, the bound from shapes and, for K2, scaled_dot_product_attention's
-    time as a yardstick (the port never calls it);
+    the shapes its path gives it, with its time, the plain version's time,
+    the bound from shapes and, where one PyTorch call computes the same
+    function, that call's time as a yardstick (the port never calls it):
+    K1 sw_block, K3 sw_block_tokens, K4 sw_block_pair (also bit-equal to two
+    K1 launches), K2/K6 dense_mha in both layouts, K5 nearest_code (rate of
+    agreement, every disagreement a near-tie in fp64, ragged shapes, a
+    codebook of near-twins, an exact tie);
  4. the serving step at full width: RELEASE_PGTFORMER (512x512, B=8
     windows) with seeded random weights through VideoRestorer, prime + 5
-    chunks; asserts exactly 22 K1 and 9 K2 launches per step, and prints
-    step time, frames/s and peak memory;
- 5. the whole model at a small geometry: CUDA bf16 (kernels) against CPU
-    fp32 (plain versions): lq_feat and logits error, code agreement (held
-    to a CPU bf16 run's), forced-code restoration;
- 6. a JSON line of kernel numbers, then the device JSON as the last line.
+    chunks; asserts exactly 22 K1 and 9 K6 launches per step and no other
+    kernel's, and prints step time, frames/s and peak memory;
+ 5. the same step under its other evaluation plans (SW_KERNEL=tokens: 22 K3;
+    SW_PAIR=1: 11 K4; mha_layout="bhnd": 9 K2), each with exact launch
+    counts, its step time beside the default's, and its uint8 output
+    compared with the default step's on the same frames;
+ 6. the autoencoder / code path at full width: TDCRQVAE3 forward on 2 clips
+    of 3 frames at 512x512 (22 K1 + 1 K5), decode_code(get_codes(x)) against
+    the forward's output, and PGTFormer.get_codes on 8 clips (8 K1 + 1 K5);
+ 7. the whole models at a small geometry: CUDA bf16 (kernels) against CPU
+    fp32 (plain versions): PGTFormer (lq_feat and logits error, code
+    agreement held to a CPU bf16 run's, forced-code restoration) and
+    TDCRQVAE3 (latent error, code agreement, forced-code decode);
+ 8. a JSON line of kernel numbers, then the device JSON as the last line.
+
+Launch counts are set to 0 just before each path is driven and read just
+after it; launches made to compare or time a kernel do not count.
 """
 
 from __future__ import annotations
@@ -31,13 +46,17 @@ import sys
 import time
 
 H100_BF16_FLOPS = 989e12     # dense bf16 tensor-core peak, H100 SXM
+H100_FP32_FLOPS = 67e12      # fp32 peak outside the tensor cores, H100 SXM
 H100_BYTES_PER_S = 3.35e12   # HBM3 bandwidth, H100 SXM
 
 K1_TOL = 2e-2   # max|kernel - plain| <= K1_TOL * max|plain|: bf16 rounding of
                 # every intermediate in the plain version vs fp32 residual/LN
-                # in the kernel, over two GEMM chains
+                # in the kernel, over two GEMM chains (K1, K3 and K4)
 K2_TOL = 1e-2   # max|kernel - plain| <= K2_TOL * max|plain|: bf16 probabilities
                 # rounded before (kernel) vs after (plain) normalization
+K5_AGREE = 0.999        # share of rows on which kernel and plain pick one code
+K5_NEAR_TIE = 1e-5      # on any other row: |d_kernel - d_plain| <= this * d_plain,
+                        # distances recomputed in fp64 (summation order only)
 SMALL_LQ_TOL = 5e-2      # ||lq_cuda - lq_cpu|| / ||lq_cpu|| (bf16 vs fp32 encoder)
 SMALL_LOGIT_TOL = 5e-2   # ||logits_cuda - logits_cpu|| / ||logits_cpu||
 # Code agreement, CUDA bf16 vs CPU fp32.  With random weights the top-2
@@ -48,6 +67,11 @@ SMALL_LOGIT_TOL = 5e-2   # ||logits_cuda - logits_cpu|| / ||logits_cpu||
 SMALL_AGREE = 0.95
 SMALL_AGREE_SLACK = 0.01
 SMALL_OUT_TOL = 5e-2     # mean|out_cuda - out_cpu| / max|out_cpu|, forced codes
+# decode_code(get_codes(x)) vs the forward's output, bf16: the forward
+# decodes x + (q - x) rounded in bf16, decode_code decodes q rounded once,
+# so the decoder inputs differ by up to a bf16 ulp; mean|d| / max|out|.
+VAE_ROUNDTRIP_TOL = 2e-2
+VARIANT_LSB = 1          # max |uint8 difference| between a variant step and the default
 
 
 def log(*a):
@@ -69,10 +93,35 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops = flops / H100_BF16_FLOPS * 1e3
+def bound_ms(flops: float, nbytes: float, peak_flops: float = H100_BF16_FLOPS):
+    t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _wrappers():
+    """Every kernel wrapper that carries a launch count, by its JSON name."""
+    from pgtformer_tpu_torch.ops.dense_mha import dense_mha_bhnd, dense_mha_bnhd
+    from pgtformer_tpu_torch.ops.sw_block import sw_block, sw_block_pair, sw_block_tokens
+    from pgtformer_tpu_torch.ops.vq import nearest_code
+    return {"sw_block": sw_block, "sw_block_tokens": sw_block_tokens,
+            "sw_block_pair": sw_block_pair, "dense_mha_bhnd": dense_mha_bhnd,
+            "dense_mha_bnhd": dense_mha_bnhd, "vq_nearest": nearest_code}
+
+
+def reset_counts():
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def expect_counts(what: str, **want) -> dict:
+    """Read every launch count; exactly the named kernels were launched,
+    each exactly as often as named."""
+    got = {name: fn.launches for name, fn in _wrappers().items()}
+    expected = {name: want.get(name, 0) for name in got}
+    if got != expected:
+        raise SystemExit(f"{what}: launch counts {got}, expected {expected}")
+    return got
 
 
 def phase_device():
@@ -92,7 +141,7 @@ def phase_build():
     from pgtformer_tpu_torch.ops import _build
     t0 = time.perf_counter()
     reports = _build.build(force=True)
-    log(f"[build] {len(reports)} kernels in {time.perf_counter() - t0:.1f} s")
+    log(f"[build] {len(reports)} sources in {time.perf_counter() - t0:.1f} s")
     for name, rep in reports.items():
         for line in rep.splitlines():
             if any(k in line for k in ("Compiling entry", "registers", "spill", "smem")):
@@ -112,10 +161,38 @@ def _sw_block_weights(C: int, heads: int, T: int, seed: int):
     return blk.cuda().kernel_weights(torch.device("cuda"))
 
 
+def _compare(name: str, out, ref, tol: float):
+    """(max|out - ref|, max|ref|); exits unless finite and within tol * max|ref|."""
+    import torch
+    err = (out.float() - ref.float()).abs().max().item()
+    mag = ref.float().abs().max().item()
+    if not (bool(torch.isfinite(out).all().item()) and err <= tol * mag):
+        raise SystemExit(f"{name} disagrees with its plain version: max|d|={err:.3e}, "
+                         f"max|ref|={mag:.3e}, tol {tol}*max|ref|")
+    return err, mag
+
+
 # (shape [B,T,H,W,C], shift, launches of this shape per serving step)
 K1_CASES = [((8, 3, 128, 128, 256), (0, 0), 3), ((8, 3, 128, 128, 256), (2, 2), 3),
             ((8, 3, 64, 64, 256), (0, 0), 3), ((8, 3, 64, 64, 256), (2, 2), 3),
             ((8, 3, 32, 32, 512), (0, 0), 5), ((8, 3, 32, 32, 512), (2, 2), 5)]
+
+
+def _sw_block_bound(shape, blocks: int = 1, mask_bytes: int = 0):
+    """Bound of `blocks` SW blocks in one launch: x read once and written
+    once, each block's weights, bias table (and the mask array) read once."""
+    B, T, H, W, C = shape
+    M = B * T * H * W
+    N = T * 16
+    flops = blocks * M * (12 * C * C + 4 * N * C)
+    nbytes = 2 * M * C * 2 + blocks * (6 * C * C * 2 + 10 * C * 4 + 8 * N * N * 4) + mask_bytes
+    return bound_ms(flops, nbytes)
+
+
+def _case_input(i: int, shape):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(i)
+    return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
 
 
 def phase_k1(iters: int):
@@ -123,77 +200,231 @@ def phase_k1(iters: int):
     from pgtformer_tpu_torch.ops.sw_block import sw_block, sw_block_plain
     rows, worst = [], 0.0
     for i, (shape, shift, per_step) in enumerate(K1_CASES):
-        B, T, H, W, C = shape
-        w = _sw_block_weights(C, 8, T, seed=100 + i)
-        g = torch.Generator(device="cuda").manual_seed(i)
-        x = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+        w = _sw_block_weights(shape[-1], 8, shape[1], seed=100 + i)
+        x = _case_input(i, shape)
         out = sw_block(x, w, shift)
         ref = sw_block_plain(x, w, shift)
         torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        scale = ref.float().abs().max().item()
-        ok = bool(torch.isfinite(out).all().item()) and err <= K1_TOL * scale
+        err, scale = _compare(f"K1 {shape} {shift}", out, ref, K1_TOL)
         ms = time_ms(lambda: sw_block(x, w, shift), iters)
         plain = time_ms(lambda: sw_block_plain(x, w, shift), max(1, iters // 4), warmup=1)
-        M = B * T * H * W
-        N = T * 16
-        flops = M * (12 * C * C + 4 * N * C)
-        nbytes = 2 * M * C * 2 + 6 * C * C * 2 + 10 * C * 4 + 8 * N * N * 4
-        bms, by = bound_ms(flops, nbytes)
+        bms, by = _sw_block_bound(shape)
         log(f"[k1] x{list(shape)} shift{shift}: max|d|={err:.3e} (max|ref|={scale:.3e}, "
             f"tol {K1_TOL}*max|ref|) kernel_ms={ms:.4f} plain_ms={plain:.4f} "
-            f"bound_ms={bms:.4f} ({by}) {'OK' if ok else 'FAIL'}")
-        if not ok:
-            raise SystemExit(f"K1 disagrees with its plain version at {shape} {shift}")
+            f"bound_ms={bms:.4f} ({by}) OK")
         worst = max(worst, err)
         rows.append(dict(shape=list(shape), shift=list(shift), per_step=per_step,
                          ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=err))
     return rows, worst
 
 
-def phase_k2(iters: int):
+def phase_k3(iters: int):
+    """K3 on the six K1 shapes as window-token arrays (rolled and masked for
+    the shifted ones), against sw_block_tokens_plain."""
+    import torch
+    from pgtformer_tpu_torch.ops.sw_block import (
+        sw_block, sw_block_tokens, sw_block_tokens_plain)
+    from pgtformer_tpu_torch.ops.window import shifted_window_mask, window_partition
+    rows, worst = [], 0.0
+    for i, (shape, shift, per_step) in enumerate(K1_CASES):
+        B, T, H, W, C = shape
+        w = _sw_block_weights(C, 8, T, seed=100 + i)
+        x = _case_input(i, shape)
+        shifted = any(shift)
+        rolled = torch.roll(x, (-shift[0], -shift[1]), dims=(2, 3)) if shifted else x
+        tok = window_partition(rolled, (4, 4)).contiguous()
+        nW = (H // 4) * (W // 4)
+        mask = (torch.as_tensor(shifted_window_mask(T, H, W, (4, 4), shift), device="cuda")
+                if shifted else None)
+        out = sw_block_tokens(tok, w, mask, nW)
+        ref = sw_block_tokens_plain(tok, w, mask, nW)
+        torch.cuda.synchronize()
+        err, scale = _compare(f"K3 {shape} {shift}", out, ref, K1_TOL)
+        # the same windows through K1 (one device function): expected equal
+        k1_tok = window_partition(
+            torch.roll(sw_block(x, w, shift), (-shift[0], -shift[1]), dims=(2, 3)), (4, 4))
+        same = bool(torch.equal(out, k1_tok))
+        ms = time_ms(lambda: sw_block_tokens(tok, w, mask, nW), iters)
+        plain = time_ms(lambda: sw_block_tokens_plain(tok, w, mask, nW),
+                        max(1, iters // 4), warmup=1)
+        bms, by = _sw_block_bound(shape, mask_bytes=0 if mask is None else mask.numel() * 4)
+        log(f"[k3] tokens{list(tok.shape)} of x{list(shape)} shift{shift}: max|d|={err:.3e} "
+            f"(max|ref|={scale:.3e}, tol {K1_TOL}*max|ref|) bit_equal_to_k1={same} "
+            f"kernel_ms={ms:.4f} plain_ms={plain:.4f} bound_ms={bms:.4f} ({by}) OK")
+        worst = max(worst, err)
+        rows.append(dict(shape=list(tok.shape), shift=list(shift), per_step=per_step, ms=ms,
+                         plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=err,
+                         bit_equal_to_k1=same))
+    return rows, worst
+
+
+# (shape, [no-shift, shift] pairs of this shape per serving step)
+K4_CASES = [((8, 3, 128, 128, 256), 3), ((8, 3, 64, 64, 256), 3), ((8, 3, 32, 32, 512), 5)]
+
+
+def phase_k4(iters: int):
+    """K4 on the serving step's three layer shapes: bit-equal to two K1
+    launches, within K1's tolerance of the plain pair."""
+    import torch
+    from pgtformer_tpu_torch.ops.sw_block import sw_block, sw_block_pair, sw_block_pair_plain
+    rows, worst = [], 0.0
+    half = (2, 2)
+    for i, (shape, per_step) in enumerate(K4_CASES):
+        w0 = _sw_block_weights(shape[-1], 8, shape[1], seed=200 + i)
+        w1 = _sw_block_weights(shape[-1], 8, shape[1], seed=300 + i)
+        x = _case_input(10 + i, shape)
+        two = lambda: sw_block(sw_block(x, w0, (0, 0)), w1, half)
+        out = sw_block_pair(x, w0, w1, half)
+        ref2 = two()
+        plain_out = sw_block_pair_plain(x, w0, w1, half)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref2):
+            n = int((out != ref2).sum().item())
+            raise SystemExit(f"K4 {shape}: {n} elements differ from two K1 launches")
+        err, scale = _compare(f"K4 {shape}", out, plain_out, K1_TOL)
+        ms = time_ms(lambda: sw_block_pair(x, w0, w1, half), iters)
+        two_ms = time_ms(two, iters)
+        plain = time_ms(lambda: sw_block_pair_plain(x, w0, w1, half),
+                        max(1, iters // 4), warmup=1)
+        bms, by = _sw_block_bound(shape, blocks=2)
+        log(f"[k4] x{list(shape)} pair: bit-equal to two K1 launches; max|d|={err:.3e} "
+            f"(max|ref|={scale:.3e}, tol {K1_TOL}*max|ref|) kernel_ms={ms:.4f} "
+            f"two_k1_launches_ms={two_ms:.4f} plain_ms={plain:.4f} bound_ms={bms:.4f} ({by}) OK")
+        worst = max(worst, err)
+        rows.append(dict(shape=list(shape), per_step=per_step, ms=ms, two_k1_launches_ms=two_ms,
+                         plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=err))
+    return rows, worst
+
+
+def phase_mha(iters: int):
+    """K6 (bnhd) and K2 (bhnd) at the code transformer's shape, each against
+    its plain version; SDPA on the same operands as the yardstick."""
     import torch
     import torch.nn.functional as F
-    from pgtformer_tpu_torch.ops.dense_mha import dense_mha, dense_mha_plain
+    from pgtformer_tpu_torch.ops.dense_mha import (
+        dense_mha, dense_mha_plain, dense_mha_plain_bnhd)
     B, H, N, D = 8, 8, 3072, 64
     C = H * D
     scale = D ** -0.5
     g = torch.Generator(device="cuda").manual_seed(7)
-    # the serving step's layout: q/k are halves of one packed [B, N, 2C]
+    # the serving step's operands: q/k are halves of one packed [B, N, 2C]
     # projection, v its own [B, N, C]
     qk = (torch.randn((B, N, 2 * C), generator=g, device="cuda") * 1.5).to(torch.bfloat16)
-    v = torch.randn((B, N, C), generator=g, device="cuda").to(torch.bfloat16)
-    q, k = qk[..., :C], qk[..., C:]
-    heads = lambda a: a.reshape(B, N, H, D).transpose(1, 2)
-    out = dense_mha(q, k, v, num_heads=H, scale=scale)
-    ref = dense_mha_plain(heads(q), heads(k), heads(v), scale).transpose(1, 2).reshape(B, N, C)
-    torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
-    mag = ref.float().abs().max().item()
-    ok = bool(torch.isfinite(out).all().item()) and err <= K2_TOL * mag
-    ms = time_ms(lambda: dense_mha(q, k, v, num_heads=H, scale=scale), iters)
-    plain = time_ms(lambda: dense_mha_plain(heads(q), heads(k), heads(v), scale),
-                    max(1, iters // 4), warmup=1)
-    lib = time_ms(lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v),
-                                                         scale=scale), iters)
+    vp = torch.randn((B, N, C), generator=g, device="cuda").to(torch.bfloat16)
+    split = lambda a: a.reshape(B, N, H, D)
     flops = 4 * B * H * N * N * D
     nbytes = 4 * B * N * C * 2
     bms, by = bound_ms(flops, nbytes)
-    log(f"[k2] q/k/v [{B},{N},{C}] heads {H}x{D}: max|d|={err:.3e} (max|ref|={mag:.3e}, "
-        f"tol {K2_TOL}*max|ref|) kernel_ms={ms:.4f} plain_ms={plain:.4f} sdpa_ms={lib:.4f} "
-        f"bound_ms={bms:.4f} ({by}) {'OK' if ok else 'FAIL'}")
-    if not ok:
-        raise SystemExit("K2 disagrees with its plain version")
+    res = {}
+    for layout, plain_fn in (("bnhd", dense_mha_plain_bnhd), ("bhnd", dense_mha_plain)):
+        view = split if layout == "bnhd" else (lambda a: split(a).transpose(1, 2))
+        q, k, v = view(qk[..., :C]), view(qk[..., C:]), view(vp)
+        run = lambda: dense_mha(q, k, v, scale=scale, layout=layout)
+        out = run()
+        ref = plain_fn(q, k, v, scale)
+        torch.cuda.synchronize()
+        err, mag = _compare(f"dense_mha {layout}", out, ref, K2_TOL)
+        ms = time_ms(run, iters)
+        plain = time_ms(lambda: plain_fn(q, k, v, scale), max(1, iters // 4), warmup=1)
+        hq, hk, hv = (a if layout == "bhnd" else a.transpose(1, 2) for a in (q, k, v))
+        lib = time_ms(lambda: F.scaled_dot_product_attention(hq, hk, hv, scale=scale), iters)
+        log(f"[mha:{layout}] q/k/v {list(q.shape)} (views of packed projections): "
+            f"max|d|={err:.3e} (max|ref|={mag:.3e}, tol {K2_TOL}*max|ref|) kernel_ms={ms:.4f} "
+            f"plain_ms={plain:.4f} sdpa_ms={lib:.4f} bound_ms={bms:.4f} ({by}) OK")
+        res[layout] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
+                           max_abs_err=err)
+    return res
+
+
+def _fp64_gap(x, codes, a, b):
+    """(absolute, relative) gap of the exact squared distances of choices a
+    and b, per row."""
+    xd = x.double()
+    da = ((xd - codes[a].double()) ** 2).sum(-1)
+    db = ((xd - codes[b].double()) ** 2).sum(-1)
+    return (da - db).abs(), (da - db).abs() / db
+
+
+def phase_k5(iters: int):
+    """K5 at the deployed shape (8 clips x 3 frames x 32x32 latents against
+    the 1024 x 512 codebook), a ragged shape and an exact tie."""
+    import torch
+    from pgtformer_tpu_torch.ops.vq import nearest_code, nearest_code_plain
+    N, n, D = 24576, 1024, 512
+    g = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn((N, D), generator=g, device="cuda")
+    codes = torch.randn((n, D), generator=g, device="cuda")
+
+    def check(what, xs, cs, need_rate=True):
+        out = nearest_code(xs, cs)
+        ref = nearest_code_plain(xs, cs)
+        torch.cuda.synchronize()
+        if out.dtype != torch.int64 or out.shape != (xs.shape[0],):
+            raise SystemExit(f"K5 {what}: output {out.dtype} {tuple(out.shape)}")
+        if int(out.min()) < 0 or int(out.max()) >= cs.shape[0]:
+            raise SystemExit(f"K5 {what}: index out of range")
+        differ = torch.nonzero(out != ref).flatten()
+        agree = 1.0 - len(differ) / xs.shape[0]
+        abs_gap = gap = 0.0
+        if len(differ):
+            ag, rg = _fp64_gap(xs[differ], cs, out[differ], ref[differ])
+            abs_gap, gap = ag.max().item(), rg.max().item()
+        ok = (agree >= K5_AGREE or not need_rate) and gap <= K5_NEAR_TIE
+        log(f"[k5] {what}: x{list(xs.shape)} codes{list(cs.shape)} agreement={agree:.6f} "
+            f"({f'need >= {K5_AGREE}' if need_rate else 'no rate asked'}) rows_differing={len(differ)} worst_fp64_gap={gap:.3e} "
+            f"(need <= {K5_NEAR_TIE}) {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"K5 {what} disagrees with its plain version")
+        return len(differ), abs_gap, gap
+
+    n_diff, abs_gap, gap = check("deployed shape", x, codes)
+    check("ragged N and n", x[:1000], codes[:1000].contiguous())
+    check("ragged D", x[:257, :36].contiguous(), codes[:100, :36].contiguous())
+    # every code has a twin one fp32 ulp away: each row's two best distances
+    # are a near-tie, so kernel and plain may part ways, but only by rounding
+    twins = torch.cat([codes[:n // 2], codes[:n // 2] * (1.0 + 2.0 ** -23)])
+    check("near-tie stress (codebook of twins)", x[:4096], twins, need_rate=False)
+    tied = codes.clone()
+    tied[900] = tied[130]       # a later tile of 128 codes,
+    tied[200] = tied[130]       # another thread of the same tile,
+    tied[131] = tied[130]       # and the same thread's next code
+    near = tied[130][None] + 0.01 * torch.randn((64, D), generator=g, device="cuda")
+    picked = nearest_code(near, tied)
+    if not bool((picked == 130).all()):
+        raise SystemExit(f"K5 exact tie: picked {picked.unique().tolist()}, expected 130")
+    log("[k5] exact tie (codes 130 = 131 = 200 = 900): lowest index wins OK")
+
+    ms = time_ms(lambda: nearest_code(x, codes), iters)
+    plain = time_ms(lambda: nearest_code_plain(x, codes), iters)
+    csq = (codes * codes).sum(-1)
+    lib = time_ms(lambda: torch.addmm(csq, x, codes.T, alpha=-2.0).argmin(-1), iters)
+    bms, by = bound_ms(2.0 * N * n * D, (N * D + n * D) * 4 + N * 8, H100_FP32_FLOPS)
+    log(f"[k5] x[{N},{D}] codes[{n},{D}] fp32: kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+        f"addmm_argmin_ms={lib:.4f} (fp32 matmul, TF32 off) bound_ms={bms:.4f} ({by} at the "
+        f"{H100_FP32_FLOPS / 1e12:.0f} TFLOP/s fp32 peak)")
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
-                max_abs_err=err)
+                max_abs_err=abs_gap, rows_differing=n_diff, worst_fp64_rel_gap=gap)
+
+
+def _serve(r, frames, n_chunks: int, B: int):
+    """prime + n_chunks steps; returns (outputs, steady step ms over the
+    steps after the first)."""
+    import torch
+    r.reset()
+    r.prime(frames[0])
+    outs = [r.restore_chunk(frames[1:1 + B])]        # first step (warm-up)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for c in range(1, n_chunks):
+        outs.append(r.restore_chunk(frames[1 + c * B:1 + (c + 1) * B]))
+    torch.cuda.synchronize()
+    return outs, (time.perf_counter() - t0) * 1e3 / (n_chunks - 1)
 
 
 def phase_serving(n_chunks: int = 5):
     import numpy as np
     import torch
     from pgtformer_tpu_torch.config import RELEASE_PGTFORMER
-    from pgtformer_tpu_torch.ops.dense_mha import dense_mha
-    from pgtformer_tpu_torch.ops.sw_block import sw_block
     from pgtformer_tpu_torch.pipeline import VideoRestorer
 
     B = 8
@@ -203,38 +434,154 @@ def phase_serving(n_chunks: int = 5):
                       dtype=torch.bfloat16, device="cuda", seed=0)
     log(f"[serve] model built in {time.perf_counter() - t0:.1f} s")
     finite = []
-    r.model.decoder.register_forward_hook(
+    hook = r.model.decoder.register_forward_hook(
         lambda m, i, o: finite.append(torch.isfinite(o).all()))
     rng = np.random.default_rng(0)
     frames = rng.integers(0, 256, (n_chunks * B + 1, res, res, 3), dtype=np.uint8)
 
     torch.cuda.reset_peak_memory_stats()
-    sw_block.launches = 0
-    dense_mha.launches = 0
-    r.prime(frames[0])
-    outs = [r.restore_chunk(frames[1:1 + B])]        # first step (warm-up)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for c in range(1, n_chunks):
-        outs.append(r.restore_chunk(frames[1 + c * B:1 + (c + 1) * B]))
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3 / (n_chunks - 1)
-    k1, k2 = sw_block.launches, dense_mha.launches
+    reset_counts()
+    outs, step_ms = _serve(r, frames, n_chunks, B)
+    counts = expect_counts("default serving step", sw_block=22 * n_chunks,
+                           dense_mha_bnhd=9 * n_chunks)
     peak = torch.cuda.max_memory_allocated()
+    hook.remove()
     for o in outs:
         if o.shape != (B, res, res, 3) or o.dtype != torch.uint8:
             raise SystemExit(f"serving output {tuple(o.shape)} {o.dtype}")
     if not all(bool(f.item()) for f in finite) or len(finite) != n_chunks:
         raise SystemExit("serving step produced non-finite values")
-    if k1 != 22 * n_chunks or k2 != 9 * n_chunks:
-        raise SystemExit(f"launch counts K1={k1} K2={k2} over {n_chunks} steps, "
-                         f"expected {22 * n_chunks} and {9 * n_chunks}")
     log(f"[serve] RELEASE_PGTFORMER {res}x{res}, B={B}: {n_chunks} steps, launches "
-        f"K1={k1} ({k1 // n_chunks}/step) K2={k2} ({k2 // n_chunks}/step); steady "
-        f"step_ms={step_ms:.2f} frames_per_s={B * 1e3 / step_ms:.3f} "
-        f"peak_mem_GiB={peak / 2 ** 30:.2f} first_step_s={r._first_chunk_s:.2f} "
-        f"prime_s={r._prime_s:.2f}")
-    return dict(k1=k1, k2=k2, steps=n_chunks, step_ms=step_ms)
+        f"K1={counts['sw_block']} (22/step) K6 dense_mha_bnhd={counts['dense_mha_bnhd']} "
+        f"(9/step), no other kernel; steady step_ms={step_ms:.2f} "
+        f"frames_per_s={B * 1e3 / step_ms:.3f} peak_mem_GiB={peak / 2 ** 30:.2f} "
+        f"first_step_s={r._first_chunk_s:.2f} prime_s={r._prime_s:.2f}")
+    return dict(counts=counts, steps=n_chunks, step_ms=step_ms, restorer=r, frames=frames,
+                outs=outs)
+
+
+def phase_variants(serve: dict, n_chunks: int = 3):
+    """The serving step under its other evaluation plans, on the default
+    run's model and frames: launch counts, step time, uint8 output against
+    the default step's."""
+    import torch
+    from pgtformer_tpu_torch import knobs
+    from pgtformer_tpu_torch.nn.transformer import MultiHeadSelfAttention
+    r, frames, B = serve["restorer"], serve["frames"], 8
+    default_ms = serve["step_ms"]
+
+    def set_layout(layout):
+        for m in r.model.modules():
+            if isinstance(m, MultiHeadSelfAttention):
+                m.mha_layout = layout
+
+    plans = {
+        "tokens": (lambda: knobs.set_knob("SW_KERNEL", "tokens"),
+                   dict(sw_block_tokens=22 * n_chunks, dense_mha_bnhd=9 * n_chunks)),
+        "pair": (lambda: knobs.set_knob("SW_PAIR", "1"),
+                 dict(sw_block_pair=11 * n_chunks, dense_mha_bnhd=9 * n_chunks)),
+        "bhnd": (lambda: set_layout("bhnd"),
+                 dict(sw_block=22 * n_chunks, dense_mha_bhnd=9 * n_chunks)),
+    }
+    res = {}
+    for name, (select, want) in plans.items():
+        try:
+            select()
+            reset_counts()
+            outs, step_ms = _serve(r, frames, n_chunks, B)
+            counts = expect_counts(f"serving step [{name}]", **want)
+        finally:
+            knobs.reset()
+            set_layout("bnhd")
+        diff = torch.stack([(a.to(torch.int16) - b.to(torch.int16)).abs()
+                            for a, b in zip(outs, serve["outs"])])
+        worst, n_diff = int(diff.max().item()), int((diff > 0).sum().item())
+        launched = {k: v for k, v in counts.items() if v}
+        log(f"[variant:{name}] {n_chunks} steps, launches {launched}; steady "
+            f"step_ms={step_ms:.2f} frames_per_s={B * 1e3 / step_ms:.3f} (default "
+            f"{default_ms:.2f} ms, {B * 1e3 / default_ms:.3f} frames/s in this run); uint8 "
+            f"output vs default: max|d|={worst} LSB, {n_diff} of {diff.numel()} values differ "
+            f"(need <= {VARIANT_LSB} LSB) {'OK' if worst <= VARIANT_LSB else 'FAIL'}")
+        if worst > VARIANT_LSB:
+            raise SystemExit(f"serving step [{name}] differs from the default step")
+        res[name] = dict(counts=counts, step_ms=step_ms, max_lsb=worst, n_diff=n_diff)
+    return res
+
+
+def phase_autoencoder(serve: dict):
+    """The autoencoder / code path at full width."""
+    import numpy as np
+    import torch
+    from pgtformer_tpu_torch.config import RELEASE_PGTFORMER
+    from pgtformer_tpu_torch.models.vae import TDCRQVAE3
+    cfg = RELEASE_PGTFORMER.vqvae
+    res = cfg.ddconfig.resolution
+    t0 = time.perf_counter()
+    vae = TDCRQVAE3(cfg, generator=torch.Generator().manual_seed(1))
+    vae = vae.to(device="cuda", dtype=torch.bfloat16).eval()
+    log(f"[vae] TDCRQVAE3 built in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.uniform(-1, 1, (2, cfg.tf, res, res, 3)).astype(np.float32))
+    x = x.cuda().to(torch.bfloat16)
+    n_embed = cfg.n_embed
+    with torch.inference_mode():
+        vae(x)                                       # warm-up (cuDNN plans)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        out, loss, codes = vae(x)
+        torch.cuda.synchronize()
+        counts = expect_counts("TDCRQVAE3 forward", sw_block=22, vq_nearest=1)
+        peak = torch.cuda.max_memory_allocated()
+        if (out.shape != (2 * cfg.tf, res, res, 3) or not bool(torch.isfinite(out).all())
+                or not bool(torch.isfinite(loss))):
+            raise SystemExit(f"TDCRQVAE3 output {tuple(out.shape)} or non-finite values")
+        if (codes.shape != (2 * cfg.tf, 32, 32, 1) or int(codes.min()) < 0
+                or int(codes.max()) >= n_embed):
+            raise SystemExit(f"TDCRQVAE3 codes {tuple(codes.shape)} or out of range")
+        reset_counts()
+        again = vae.get_codes(x)
+        dec = vae.decode_code(again)
+        torch.cuda.synchronize()
+        expect_counts("TDCRQVAE3 get_codes + decode_code", sw_block=22, vq_nearest=1)
+        if not torch.equal(again, codes):
+            raise SystemExit("TDCRQVAE3.get_codes differs from the forward's codes")
+        d = (dec.float() - out.float()).abs()
+        rt_mean = (d.mean() / out.float().abs().max()).item()
+        rt_ok = rt_mean <= VAE_ROUNDTRIP_TOL
+        fwd_ms = time_ms(lambda: vae(x), 3, warmup=0)
+        codes_ms = time_ms(lambda: vae.get_codes(x), 3, warmup=0)
+    log(f"[vae] TDCRQVAE3 {res}x{res}, 2 clips x {cfg.tf} frames, bf16: launches K1=22 K5=1; "
+        f"out {list(out.shape)} finite, codes {list(codes.shape)} in [0,{n_embed}), "
+        f"commitment={loss.item():.4f}; forward_ms={fwd_ms:.2f} get_codes_ms={codes_ms:.2f} "
+        f"peak_mem_GiB={peak / 2 ** 30:.2f}; decode_code(get_codes(x)) vs forward: "
+        f"mean|d|/max|out|={rt_mean:.3e} max|d|={d.max().item():.3e} "
+        f"(tol {VAE_ROUNDTRIP_TOL}) {'OK' if rt_ok else 'FAIL'}")
+    if not rt_ok:
+        raise SystemExit("decode_code(get_codes(x)) is not the forward's reconstruction")
+    del vae, out, dec
+
+    model = serve["restorer"].model
+    x8 = torch.from_numpy(rng.uniform(0, 1, (8, cfg.tf, res, res, 3)).astype(np.float32))
+    x8 = x8.cuda().to(torch.bfloat16)
+    with torch.inference_mode():
+        model.get_codes(x8)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        c8 = model.get_codes(x8)
+        torch.cuda.synchronize()
+        counts8 = expect_counts("PGTFormer.get_codes", sw_block=8, vq_nearest=1)
+        peak8 = torch.cuda.max_memory_allocated()
+        if (c8.shape != (8 * cfg.tf, 32, 32, 1) or int(c8.min()) < 0
+                or int(c8.max()) >= n_embed):
+            raise SystemExit(f"PGTFormer.get_codes {tuple(c8.shape)} or out of range")
+        pgt_ms = time_ms(lambda: model.get_codes(x8), 3, warmup=0)
+    log(f"[vae] PGTFormer.get_codes, 8 clips x {cfg.tf} frames: launches K1=8 K5=1; codes "
+        f"{list(c8.shape)} in [0,{n_embed}), {len(c8.unique())} distinct; "
+        f"get_codes_ms={pgt_ms:.2f} peak_mem_GiB={peak8 / 2 ** 30:.2f}")
+    return dict(vq_launches=counts["vq_nearest"] + counts8["vq_nearest"], forward_ms=fwd_ms,
+                get_codes_ms=codes_ms, pgt_get_codes_ms=pgt_ms)
 
 
 def _small_config():
@@ -283,6 +630,56 @@ def phase_small_model():
         raise SystemExit("small-geometry whole-model check failed")
 
 
+def phase_small_vae():
+    """TDCRQVAE3 at the small geometry: CUDA bf16 (kernels K1 and K5)
+    against CPU fp32 (plain versions, exact argmin)."""
+    import copy
+    import numpy as np
+    import torch
+    from pgtformer_tpu_torch.models.vae import TDCRQVAE3
+    cfg = _small_config().vqvae
+    cpu = TDCRQVAE3(cfg, generator=torch.Generator().manual_seed(5)).eval()
+    gpu = copy.deepcopy(cpu).to(device="cuda", dtype=torch.bfloat16)
+    cpu16 = copy.deepcopy(cpu).to(dtype=torch.bfloat16)
+    x = np.random.default_rng(5).uniform(-1, 1, (2, 3, 32, 32, 3)).astype(np.float32)
+    xc = torch.from_numpy(x)
+    xg = xc.cuda().to(torch.bfloat16)
+    with torch.inference_mode():
+        z_c, z_g = cpu.encode(xc), gpu.encode(xg).float().cpu()
+        codes_c = cpu.get_codes(xc)
+        codes_g = gpu.get_codes(xg).cpu()
+        codes_16 = cpu16.get_codes(xc.to(torch.bfloat16))
+        out_c = cpu.decode_code(codes_c)
+        out_g = gpu.decode_code(codes_c.cuda()).float().cpu()
+    z_err = ((z_g - z_c).norm() / z_c.norm()).item()
+    agree = (codes_g == codes_c).float().mean().item()
+    agree16 = (codes_16 == codes_c).float().mean().item()
+    out_err = ((out_g - out_c).abs().mean() / out_c.abs().max()).item()
+    ok = (z_err <= SMALL_LQ_TOL and agree >= max(SMALL_AGREE, agree16 - SMALL_AGREE_SLACK)
+          and out_err <= SMALL_OUT_TOL and bool(torch.isfinite(out_g).all()))
+    log(f"[model] small TDCRQVAE3 CUDA bf16 vs CPU fp32: z_e_rel_err={z_err:.3e} "
+        f"(tol {SMALL_LQ_TOL}) code_agreement={agree:.4f} (CPU bf16 plain: {agree16:.4f}; "
+        f"need >= max({SMALL_AGREE}, that - {SMALL_AGREE_SLACK})) forced_code_decode "
+        f"mean|d|/max|ref|={out_err:.3e} (tol {SMALL_OUT_TOL}) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("small-geometry TDCRQVAE3 check failed")
+
+
+def _mix(rows, key):
+    """Per-launch average over the serving step's mix of shapes."""
+    return sum(r[key] * r["per_step"] for r in rows) / sum(r["per_step"] for r in rows)
+
+
+def _sw_entry(name, line, rows, err, launches, **extra):
+    return {"name": name, "route": "cuda", "source": "pgtformer_tpu_torch/csrc/sw_block.cu",
+            "replaces": f"pgtformer_tpu/ops/pallas_attn.py:{line}", "launches": launches,
+            "max_abs_err": err, "ms": _mix(rows, "ms"), "plain_ms": _mix(rows, "plain_ms"),
+            "bound_ms": _mix(rows, "bound_ms"),
+            "bound_by": ("operations" if all(r["bound_by"] == "operations" for r in rows)
+                         else "bytes"),
+            "library_ms": None, "cases": rows, **extra}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -293,29 +690,45 @@ def main() -> int:
     phase_device()
     phase_build()
     k1_rows, k1_err = phase_k1(iters=10)
-    k2 = phase_k2(iters=10)
+    k3_rows, k3_err = phase_k3(iters=10)
+    k4_rows, k4_err = phase_k4(iters=10)
+    mha = phase_mha(iters=10)
+    k5 = phase_k5(iters=10)
     serve = phase_serving()
+    variants = phase_variants(serve)
+    vae = phase_autoencoder(serve)
     phase_small_model()
+    phase_small_vae()
 
-    per_step = sum(r["per_step"] for r in k1_rows)
-    mix = lambda key: sum(r[key] * r["per_step"] for r in k1_rows) / per_step
-    k1_bound = mix("bound_ms")
+    step = serve["step_ms"]
+    mha_src = "pgtformer_tpu_torch/csrc/dense_mha.cu"
     kernels = [
-        {"name": "sw_block", "route": "cuda", "source": "pgtformer_tpu_torch/csrc/sw_block.cu",
-         "replaces": "pgtformer_tpu/ops/pallas_attn.py:546",
-         "launches": serve["k1"], "max_abs_err": k1_err, "ms": mix("ms"),
-         "plain_ms": mix("plain_ms"), "bound_ms": k1_bound,
-         "bound_by": "operations" if all(r["bound_by"] == "operations" for r in k1_rows)
-         else "bytes", "library_ms": None,
-         "step_share": mix("ms") * 22 / serve["step_ms"], "cases": k1_rows},
-        {"name": "dense_mha", "route": "cuda", "source": "pgtformer_tpu_torch/csrc/dense_mha.cu",
+        _sw_entry("sw_block", 546, k1_rows, k1_err, serve["counts"]["sw_block"],
+                  step_share=_mix(k1_rows, "ms") * 22 / step),
+        _sw_entry("sw_block_tokens", 306, k3_rows, k3_err,
+                  variants["tokens"]["counts"]["sw_block_tokens"],
+                  step_ms=variants["tokens"]["step_ms"]),
+        _sw_entry("sw_block_pair", 845, k4_rows, k4_err,
+                  variants["pair"]["counts"]["sw_block_pair"],
+                  step_ms=variants["pair"]["step_ms"]),
+        {"name": "dense_mha_bhnd", "route": "cuda", "source": mha_src,
          "replaces": "pgtformer_tpu/ops/flash_attn.py:137",
-         "launches": serve["k2"], "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
-         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
-         "library_ms": k2["library_ms"], "step_share": k2["ms"] * 9 / serve["step_ms"]},
+         "launches": variants["bhnd"]["counts"]["dense_mha_bhnd"], **mha["bhnd"],
+         "step_ms": variants["bhnd"]["step_ms"]},
+        {"name": "dense_mha_bnhd", "route": "cuda", "source": mha_src,
+         "replaces": "pgtformer_tpu/ops/flash_attn.py:171",
+         "launches": serve["counts"]["dense_mha_bnhd"], **mha["bnhd"],
+         "step_share": mha["bnhd"]["ms"] * 9 / step},
+        {"name": "vq_nearest", "route": "cuda",
+         "source": "pgtformer_tpu_torch/csrc/vq_nearest.cu",
+         "replaces": "pgtformer_tpu/ops/pallas_vq.py:61", "launches": vae["vq_launches"],
+         **k5, "max_abs_err_is": "largest fp64 squared-distance gap between the kernel's "
+                                 "and the plain version's code on a row where they differ"},
     ]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "default_step_ms": step,
+                      "variant_step_ms": {k: v["step_ms"] for k, v in variants.items()},
+                      "autoencoder_ms": {k: v for k, v in vae.items() if k.endswith("_ms")}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

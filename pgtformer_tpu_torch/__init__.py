@@ -1,9 +1,9 @@
 """pgtformer_tpu_torch — PGTFormer video face restoration in PyTorch/CUDA.
 
 The PyTorch port of ``pgtformer_tpu``.  It imports nothing of that
-package (nor JAX); plain tensor code is PyTorch and the two kernels of the
-serving step are hand-written CUDA for Hopper (``csrc/``), built at first
-use into ``build/kernels/``.  Entry points run on ``cuda`` unless the
+package (nor JAX); plain tensor code is PyTorch and every kernel that
+package wrote for the TPU is hand-written CUDA for Hopper here (``csrc/``,
+wrappers in ``ops/``), built at first use into ``build/kernels/``.  Entry points run on ``cuda`` unless the
 caller passes ``device="cpu"``.
 """
 

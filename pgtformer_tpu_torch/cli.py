@@ -3,13 +3,15 @@
 Usage:
     python -m pgtformer_tpu_torch.cli -i input.mp4 -o output.mp4 \
         [--weights weights.pth] [--fidelity 1.0] [--batch 8] [--fp32] \
-        [--dump-frames DIR] [--device cuda]
+        [--dump-frames DIR] [--device cuda] \
+        [--sw-kernel 5d|tokens] [--sw-pair 0|1] [--exact-vq 0|1]
 
 Weights: a reference-format checkpoint (.pth with `params_ema`, or
 .safetensors).  Without weights the model runs with seeded random weights
 (pipeline smoke test only) and a warning is printed.  Runs on the card in
 bf16 by default; the hand-written kernels take bf16 only, so `--fp32`
-needs `--device cpu`.
+needs `--device cpu`.  The knob flags (pgtformer_tpu_torch/knobs.py) pick
+among evaluation plans that compute the same function.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import os
 import sys
 
 import torch
+
+from pgtformer_tpu_torch import knobs
 
 
 def main(argv=None) -> int:
@@ -42,7 +46,9 @@ def main(argv=None) -> int:
                         help="Device->host transfer format")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default: cuda; fails without a card)")
+    knobs.add_cli_flags(parser)
     args = parser.parse_args(argv)
+    knobs.apply_cli_args(args)
 
     from pgtformer_tpu_torch import resolve_device
     from pgtformer_tpu_torch.config import RELEASE_PGTFORMER

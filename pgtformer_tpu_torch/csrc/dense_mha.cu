@@ -1,11 +1,13 @@
 // Dense multi-head attention for the code transformer, Hopper (sm_90a), bf16.
 //
-// Replaces the TPU kernel pgtformer_tpu/ops/flash_attn.py:_dense_mha_pallas
-// (reached through dense_mha(layout="bhnd")), and reads the heads-minor
-// layout of _dense_mha_pallas_bnhd as well: q, k, v and the output are
-// addressed through (batch, row) strides with head h at columns h*D, so the
-// packed [B, N, 2C] / [B, N, C] projections are read in place and no head
-// transpose is ever materialized.
+// Replaces two TPU kernels of pgtformer_tpu/ops/flash_attn.py with one
+// strided kernel: _dense_mha_pallas (dense_mha(layout="bhnd"), operands and
+// output [B, H, N, D]) and _dense_mha_pallas_bnhd (layout="bnhd", operands
+// [B, N, H, D] views of the packed projections, output written packed
+// [B, N, H*D]).  q, k, v and the output are addressed through (batch, head,
+// row) strides with unit stride along D, so either layout, and the halves
+// of a packed [B, N, 2C] projection, are read in place and no head transpose
+// is ever materialized.
 //
 //     out = softmax(q * scale . k^T) . v      (scale folded into q)
 //
@@ -44,7 +46,7 @@ struct MhaArgs {
     const bf16* v;
     bf16* o;
     int N;
-    long long q_sb, q_sn, k_sb, k_sn, v_sb, v_sn, o_sb, o_sn;
+    long long q_sb, q_sh, q_sn, k_sb, k_sh, k_sn, v_sb, v_sh, v_sn, o_sb, o_sh, o_sn;
     float scale;
 };
 
@@ -92,9 +94,9 @@ __global__ void __launch_bounds__(MHA_THREADS) dense_mha_kernel(MhaArgs a) {
 
     const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
     const int N = a.N;
-    const bf16* qb = a.q + b * a.q_sb + h * D;
-    const bf16* kb = a.k + b * a.k_sb + h * D;
-    const bf16* vb = a.v + b * a.v_sb + h * D;
+    const bf16* qb = a.q + b * a.q_sb + h * a.q_sh;
+    const bf16* kb = a.k + b * a.k_sb + h * a.k_sh;
+    const bf16* vb = a.v + b * a.v_sb + h * a.v_sh;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int wr0 = warp * 16;
 
@@ -184,7 +186,7 @@ __global__ void __launch_bounds__(MHA_THREADS) dense_mha_kernel(MhaArgs a) {
         __syncwarp();
     }
 
-    bf16* ob = a.o + b * a.o_sb + h * D;
+    bf16* ob = a.o + b * a.o_sb + h * a.o_sh;
     for (int e = lane; e < 16 * (D / 2); e += 32) {
         int r = wr0 + e / (D / 2), c = (e % (D / 2)) * 2;
         if (q0 + r >= N) continue;
@@ -207,27 +209,31 @@ static int launch(MhaArgs a, int B, int H, cudaStream_t stream) {
 }
 
 // Plain C entry point (loaded with ctypes).  q/k/v/o are device pointers to
-// head 0 of batch 0; *_sb and *_sn are the batch and row strides in
-// elements; head h lives at columns [h*D, (h+1)*D).  Returns a cudaError_t
-// code (0 on success).
+// head 0 of batch 0; strides[12] holds the batch, head and row strides in
+// elements of q, k, v and o, in that order (rows and heads must start on
+// 16-byte boundaries; the stride along D is 1).  Returns a cudaError_t code
+// (0 on success).
 extern "C" int dense_mha_launch(const void* q, const void* k, const void* v, void* o, int B,
-                                int H, int N, int D, long long q_sb, long long q_sn,
-                                long long k_sb, long long k_sn, long long v_sb, long long v_sn,
-                                long long o_sb, long long o_sn, float scale, void* stream) {
+                                int H, int N, int D, const long long* strides, float scale,
+                                void* stream) {
     MhaArgs a;
     a.q = (const bf16*)q;
     a.k = (const bf16*)k;
     a.v = (const bf16*)v;
     a.o = (bf16*)o;
     a.N = N;
-    a.q_sb = q_sb;
-    a.q_sn = q_sn;
-    a.k_sb = k_sb;
-    a.k_sn = k_sn;
-    a.v_sb = v_sb;
-    a.v_sn = v_sn;
-    a.o_sb = o_sb;
-    a.o_sn = o_sn;
+    a.q_sb = strides[0];
+    a.q_sh = strides[1];
+    a.q_sn = strides[2];
+    a.k_sb = strides[3];
+    a.k_sh = strides[4];
+    a.k_sn = strides[5];
+    a.v_sb = strides[6];
+    a.v_sh = strides[7];
+    a.v_sn = strides[8];
+    a.o_sb = strides[9];
+    a.o_sh = strides[10];
+    a.o_sn = strides[11];
     a.scale = scale;
     cudaStream_t s = (cudaStream_t)stream;
     switch (D) {

@@ -1,8 +1,18 @@
 // Fused shifted-window transformer block for Hopper (sm_90a), bf16.
 //
-// Replaces the TPU kernel pgtformer_tpu/ops/pallas_attn.py:_pallas_sw_block_5d
-// (reached through fused_sw_block_5d).  One block computes, for every window
-// of T*wh*ww tokens read straight from the [B, T, H, W, C] layout:
+// Three entry points over one device function (sw_block_body):
+//   sw_block_launch        replaces pgtformer_tpu/ops/pallas_attn.py:
+//                          _pallas_sw_block_5d (fused_sw_block_5d): windows
+//                          read straight from [B, T, H, W, C], shift in-kernel;
+//   sw_block_tokens_launch replaces _pallas_sw_block (fused_sw_block_tokens):
+//                          the same math on pre-partitioned window tokens
+//                          [M, N, C], with the caller's additive mask
+//                          [nW, N, N] indexed by window-in-image;
+//   sw_block_pair_launch   replaces _pallas_sw_block_pair_5d
+//                          (fused_sw_block_pair_5d): blocks [no-shift, shift]
+//                          of one layer in one launch (see the pair kernel).
+//
+// One block computes, for every window of T*wh*ww tokens:
 //
 //     x += proj(softmax(q k^T * hd^-1/2 + relbias[h] [+ shift mask]) v)
 //     x += fc2(gelu(fc1(LN2 x)))          (q, k, v from LN1 x)
@@ -26,6 +36,7 @@
 // cross device memory once in and once out.  wgmma/TMA with weights staged
 // in shared memory are left to a later version.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -33,6 +44,7 @@
 #include <stdint.h>
 
 using namespace nvcuda;
+namespace cg = cooperative_groups;
 typedef __nv_bfloat16 bf16;
 
 #define NWARPS 8
@@ -60,6 +72,8 @@ struct SWArgs {
     const bf16* w2;
     const float* b2;
     const float* relb;  // [heads, N, N]
+    const float* mask;  // token entry only: additive [nW, N, N], or null
+    int nW;             // token entry only: windows per image
     int B, T, H, W, C, heads, hd, wh, ww, sh, sw, N, nWh, nWw, nwin;
     int wpc;            // windows per CTA
     float scale;
@@ -84,8 +98,11 @@ __device__ __forceinline__ float warp_max(float v) {
     return v;
 }
 
-// Element offset of token n of window `win` in the [B, T, H, W, C] array.
+// Element offset of token n of window `win`: row win*N+n of the [M*N, C]
+// token array, or the (shifted) pixel of the [B, T, H, W, C] array.
+template <bool TOKENS>
 __device__ __forceinline__ long long pix_offset(const SWArgs& a, int win, int n) {
+    if (TOKENS) return ((long long)win * a.N + n) * a.C;
     int per_img = a.nWh * a.nWw;
     int b = win / per_img;
     int rc = win - b * per_img;
@@ -169,9 +186,12 @@ __device__ __forceinline__ void ln_row(float (&v)[16], int nk, int C, const floa
         }
 }
 
-// Two CTAs per SM at C<=256 (108 KB of shared memory each): cap registers at 128.
-__global__ void __launch_bounds__(NTHREADS, 2) sw_block_kernel(SWArgs a) {
-    extern __shared__ __align__(128) unsigned char smem[];
+// The whole block for the a.wpc windows starting at win0.  TOKENS selects
+// the addressing (token rows vs 5-D pixels) and the mask (the caller's array
+// vs region labels of the shift).
+template <bool TOKENS>
+__device__ __forceinline__ void sw_block_body(const SWArgs& a, const int win0,
+                                              unsigned char* smem) {
     const int C = a.C, N = a.N, hd = a.hd;
     const int ldh = C + 8;   // bf16 row stride of [M, C] tiles
     const int ldf = C + 4;   // fp32 row stride of the residual stream
@@ -194,8 +214,7 @@ __global__ void __launch_bounds__(NTHREADS, 2) sw_block_kernel(SWArgs a) {
 
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     float* stg = reinterpret_cast<float*>(smem + a.off_stg) + warp * 256;
-    const int win0 = blockIdx.x * a.wpc;
-    const bool masked = a.sh > 0 || a.sw > 0;
+    const bool masked = !TOKENS && (a.sh > 0 || a.sw > 0);
     if (masked)
         for (int row = threadIdx.x; row < M; row += NTHREADS)
             lab[row] = region_label(a, win0 + row / N, row % N);
@@ -209,7 +228,7 @@ __global__ void __launch_bounds__(NTHREADS, 2) sw_block_kernel(SWArgs a) {
                 *reinterpret_cast<__nv_bfloat162*>(dst + c) = __floats2bfloat162_rn(0.f, 0.f);
             continue;
         }
-        const bf16* src = a.x + pix_offset(a, win, row % N);
+        const bf16* src = a.x + pix_offset<TOKENS>(a, win, row % N);
         float v[16];
 #pragma unroll
         for (int k = 0; k < 8; ++k)
@@ -269,15 +288,20 @@ __global__ void __launch_bounds__(NTHREADS, 2) sw_block_kernel(SWArgs a) {
             const int* wlab = lab + wi * N;
             const float* srow = sc + row * ldn;
             const float* brow = a.relb + ((long long)hh * N + i) * N;
+            const float* mrow = nullptr;
+            if (TOKENS && a.mask)
+                mrow = a.mask + ((long long)((win0 + wi) % a.nW) * N + i) * N;
             float v0 = -INFINITY, v1 = -INFINITY;
             int j0 = lane, j1 = lane + 32;
             if (j0 < N) {
                 v0 = srow[j0] + brow[j0];
                 if (masked && wlab[j0] != wlab[i]) v0 -= 100.0f;
+                if (TOKENS && mrow) v0 += mrow[j0];
             }
             if (j1 < N) {
                 v1 = srow[j1] + brow[j1];
                 if (masked && wlab[j1] != wlab[i]) v1 -= 100.0f;
+                if (TOKENS && mrow) v1 += mrow[j1];
             }
             float m = warp_max(fmaxf(v0, v1));
             float e0 = j0 < N ? __expf(v0 - m) : 0.f;
@@ -318,7 +342,7 @@ __global__ void __launch_bounds__(NTHREADS, 2) sw_block_kernel(SWArgs a) {
             for (int c = lane * 2; c < C; c += 64) dst[c] = dst[c + 1] = 0.f;
             continue;
         }
-        const bf16* src = a.x + pix_offset(a, win, row % N);
+        const bf16* src = a.x + pix_offset<TOKENS>(a, win, row % N);
         for (int c = lane * 2; c < C; c += 64) {
             float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(src + c));
             dst[c] = f.x;
@@ -383,16 +407,56 @@ __global__ void __launch_bounds__(NTHREADS, 2) sw_block_kernel(SWArgs a) {
     for (int row = warp; row < M; row += NWARPS) {
         int win = win0 + row / N;
         if (win >= a.nwin) continue;
-        bf16* dst = a.out + pix_offset(a, win, row % N);
+        bf16* dst = a.out + pix_offset<TOKENS>(a, win, row % N);
         const float* src = xs + row * ldf;
         for (int c = lane * 2; c < C; c += 64)
             *reinterpret_cast<__nv_bfloat162*>(dst + c) = __floats2bfloat162_rn(src[c], src[c + 1]);
     }
 }
 
+// Two CTAs per SM at C<=256 (108 KB of shared memory each): cap registers at 128.
+__global__ void __launch_bounds__(NTHREADS, 2) sw_block_kernel(SWArgs a) {
+    extern __shared__ __align__(128) unsigned char smem[];
+    sw_block_body<false>(a, blockIdx.x * a.wpc, smem);
+}
+
+__global__ void __launch_bounds__(NTHREADS, 2) sw_block_tokens_kernel(SWArgs a) {
+    extern __shared__ __align__(128) unsigned char smem[];
+    sw_block_body<true>(a, blockIdx.x * a.wpc, smem);
+}
+
+// Blocks [no-shift, shift] of one layer in one cooperative launch.  The TPU
+// kernel carries block 0's stripe in VMEM across sequential grid steps; CUDA
+// CTAs run in no order and at C=512 one window already fills an SM's shared
+// memory, so block 0's result cannot stay on chip beside block 1.  Instead
+// the grid is sized to the CTAs that are resident at once, every CTA walks
+// its share of the windows through block 0 (a0: x -> scratch), the grid
+// meets at a barrier, and the same CTAs walk the shifted windows through
+// block 1 (a1: scratch -> out).  The scratch holds block 0's bf16 output, as
+// two launches would hand it over, so the result is the same bit for bit;
+// what goes away is one launch.
+//
+// The body is inlined once and the argument set picked per phase (inlining it
+// per phase spilled more and ran slower on an H100); __grid_constant__ lets the
+// reference point at the kernel parameters themselves.
+__global__ void __launch_bounds__(NTHREADS, 2)
+sw_block_pair_kernel(const __grid_constant__ SWArgs a0, const __grid_constant__ SWArgs a1) {
+    extern __shared__ __align__(128) unsigned char smem[];
+    const int ngroups = (a0.nwin + a0.wpc - 1) / a0.wpc;
+    for (int phase = 0; phase < 2; ++phase) {
+        const SWArgs& a = phase ? a1 : a0;
+        for (int g = blockIdx.x; g < ngroups; g += gridDim.x) {
+            sw_block_body<false>(a, g * a.wpc, smem);
+            __syncthreads();  // shared memory is reused by the next group
+        }
+        if (phase == 0) cg::this_grid().sync();
+    }
+}
+
 static int align128(int v) { return (v + 127) & ~127; }
 
-static int launch(SWArgs a, cudaStream_t stream) {
+// Fill the shared-memory carve-up; returns the dynamic shared-memory size.
+static int carve(SWArgs& a) {
     const int C = a.C, N = a.N, hd = a.hd;
     int x_bytes = align128(M * (C + 4) * 4);
     int y_bytes = align128(M * (C + 8) * 2);
@@ -409,66 +473,145 @@ static int launch(SWArgs a, cudaStream_t stream) {
     a.off_p = a.off_s + head_s;
     a.off_stg = a.off_z + z_bytes;
     a.off_lab = a.off_stg + NWARPS * 256 * 4;
-    int smem = a.off_lab + align128(M * 4);
+    return a.off_lab + align128(M * 4);
+}
+
+template <typename K>
+static int launch(K kernel, SWArgs a, cudaStream_t stream) {
+    int smem = carve(a);
     if (smem > 232448) return (int)cudaErrorInvalidValue;
-    cudaError_t e = cudaFuncSetAttribute(sw_block_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     int grid = (a.nwin + a.wpc - 1) / a.wpc;
-    sw_block_kernel<<<grid, NTHREADS, smem, stream>>>(a);
+    kernel<<<grid, NTHREADS, smem, stream>>>(a);
     return (int)cudaGetLastError();
 }
 
-// Plain C entry point (loaded with ctypes).  Every pointer is a device
-// pointer; matrices are bf16 (out_features, in_features) row-major, vectors
-// and the [heads, N, N] relative bias fp32.  Returns a cudaError_t code (0 on
-// success).
-extern "C" int sw_block_launch(const void* x, void* out, const void* ln1w, const void* ln1b,
-                               const void* wq, const void* bq, const void* wk, const void* bk,
-                               const void* wv, const void* bv, const void* wp, const void* bp,
-                               const void* ln2w, const void* ln2b, const void* w1, const void* b1,
-                               const void* w2, const void* b2, const void* relb, int B, int T,
-                               int H, int W, int C, int heads, int wh, int ww, int sh, int sw,
-                               float scale, void* stream) {
-    SWArgs a;
-    a.x = (const bf16*)x;
-    a.out = (bf16*)out;
-    a.ln1w = (const float*)ln1w;
-    a.ln1b = (const float*)ln1b;
-    a.wq = (const bf16*)wq;
-    a.bq = (const float*)bq;
-    a.wk = (const bf16*)wk;
-    a.bk = (const float*)bk;
-    a.wv = (const bf16*)wv;
-    a.bv = (const float*)bv;
-    a.wp = (const bf16*)wp;
-    a.bp = (const float*)bp;
-    a.ln2w = (const float*)ln2w;
-    a.ln2b = (const float*)ln2b;
-    a.w1 = (const bf16*)w1;
-    a.b1 = (const float*)b1;
-    a.w2 = (const bf16*)w2;
-    a.b2 = (const float*)b2;
-    a.relb = (const float*)relb;
+static int launch_pair(SWArgs a0, SWArgs a1, cudaStream_t stream) {
+    int smem = carve(a0);
+    carve(a1);
+    if (smem > 232448) return (int)cudaErrorInvalidValue;
+    cudaError_t e = cudaFuncSetAttribute(sw_block_pair_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    // a grid barrier needs every CTA resident: size the grid from the
+    // occupancy at the real dynamic shared-memory size
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+        return (int)e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sw_block_pair_kernel, NTHREADS,
+                                                      smem);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
+    int ngroups = (a0.nwin + a0.wpc - 1) / a0.wpc;
+    int grid = per_sm * sms < ngroups ? per_sm * sms : ngroups;
+    void* params[] = {&a0, &a1};
+    e = cudaLaunchCooperativeKernel((void*)sw_block_pair_kernel, dim3(grid), dim3(NTHREADS),
+                                    params, smem, stream);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+}
+
+// p: x, out, ln1w, ln1b, wq, bq, wk, bk, wv, bv, wp, bp, ln2w, ln2b, w1, b1,
+// w2, b2, relb (19 device pointers).
+static void set_pointers(SWArgs& a, const void* const* p) {
+    a.x = (const bf16*)p[0];
+    a.out = (bf16*)p[1];
+    a.ln1w = (const float*)p[2];
+    a.ln1b = (const float*)p[3];
+    a.wq = (const bf16*)p[4];
+    a.bq = (const float*)p[5];
+    a.wk = (const bf16*)p[6];
+    a.bk = (const float*)p[7];
+    a.wv = (const bf16*)p[8];
+    a.bv = (const float*)p[9];
+    a.wp = (const bf16*)p[10];
+    a.bp = (const float*)p[11];
+    a.ln2w = (const float*)p[12];
+    a.ln2b = (const float*)p[13];
+    a.w1 = (const bf16*)p[14];
+    a.b1 = (const float*)p[15];
+    a.w2 = (const bf16*)p[16];
+    a.b2 = (const float*)p[17];
+    a.relb = (const float*)p[18];
+    a.mask = nullptr;
+    a.nW = 1;
+}
+
+// Width and window-size limits shared by every entry; sets hd, wpc, scale.
+static bool set_width(SWArgs& a, int C, int heads, int N, float scale) {
+    if (heads <= 0 || C % heads) return false;
+    a.C = C;
+    a.heads = heads;
+    a.hd = C / heads;
+    a.N = N;
+    a.scale = scale;
+    if (C % 64 || C > 512 || a.hd % 16 || a.hd > 64 || N <= 0 || N % 16 || N > 64 || M % N)
+        return false;
+    a.wpc = M / N;
+    return true;
+}
+
+static bool set_geometry_5d(SWArgs& a, int B, int T, int H, int W, int C, int heads, int wh,
+                            int ww, int sh, int sw, float scale) {
+    if (wh <= 0 || ww <= 0 || !set_width(a, C, heads, T * wh * ww, scale)) return false;
+    if (H % wh || W % ww || sh < 0 || sh >= wh || sw < 0 || sw >= ww) return false;
     a.B = B;
     a.T = T;
     a.H = H;
     a.W = W;
-    a.C = C;
-    a.heads = heads;
-    a.hd = C / heads;
     a.wh = wh;
     a.ww = ww;
     a.sh = sh;
     a.sw = sw;
-    a.N = T * wh * ww;
     a.nWh = H / wh;
     a.nWw = W / ww;
     a.nwin = B * a.nWh * a.nWw;
-    a.scale = scale;
-    if (C % 64 || C > 512 || a.hd % 16 || a.hd > 64 || a.N % 16 || a.N > 64 ||
-        H % wh || W % ww || sh < 0 || sh >= wh || sw < 0 || sw >= ww || M % a.N)
+    return true;
+}
+
+// Plain C entry points (loaded with ctypes).  p is a host table of 19 device
+// pointers; matrices are bf16 (out_features, in_features) row-major, vectors
+// and the [heads, N, N] relative bias fp32.  Each returns a cudaError_t code
+// (0 on success).
+
+// One block on x [B, T, H, W, C] with shift (sh, sw); p as in set_pointers.
+extern "C" int sw_block_launch(const void* const* p, int B, int T, int H, int W, int C,
+                               int heads, int wh, int ww, int sh, int sw, float scale,
+                               void* stream) {
+    SWArgs a = {};
+    set_pointers(a, p);
+    if (!set_geometry_5d(a, B, T, H, W, C, heads, wh, ww, sh, sw, scale))
         return (int)cudaErrorInvalidValue;
-    a.wpc = M / a.N;
-    return launch(a, (cudaStream_t)stream);
+    return launch(sw_block_kernel, a, (cudaStream_t)stream);
+}
+
+// One block on window tokens [Mwin, N, C] (p as in set_pointers); mask is
+// null or fp32 [nW, N, N], added to the scores of window m as mask[m % nW].
+extern "C" int sw_block_tokens_launch(const void* const* p, const void* mask, int Mwin, int N,
+                                      int C, int heads, int nW, float scale, void* stream) {
+    SWArgs a = {};
+    set_pointers(a, p);
+    if (Mwin <= 0 || nW <= 0 || !set_width(a, C, heads, N, scale))
+        return (int)cudaErrorInvalidValue;
+    a.mask = (const float*)mask;
+    a.nW = nW;
+    a.nwin = Mwin;
+    return launch(sw_block_tokens_kernel, a, (cudaStream_t)stream);
+}
+
+// Blocks [no-shift, shift (sh, sw)] on x [B, T, H, W, C]: p0 = (x, scratch,
+// block 0's weights), p1 = (scratch, out, block 1's weights).
+extern "C" int sw_block_pair_launch(const void* const* p0, const void* const* p1, int B, int T,
+                                    int H, int W, int C, int heads, int wh, int ww, int sh,
+                                    int sw, float scale, void* stream) {
+    SWArgs a0 = {}, a1 = {};
+    set_pointers(a0, p0);
+    set_pointers(a1, p1);
+    if (!set_geometry_5d(a0, B, T, H, W, C, heads, wh, ww, 0, 0, scale) ||
+        !set_geometry_5d(a1, B, T, H, W, C, heads, wh, ww, sh, sw, scale))
+        return (int)cudaErrorInvalidValue;
+    return launch_pair(a0, a1, (cudaStream_t)stream);
 }

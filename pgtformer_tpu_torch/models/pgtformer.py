@@ -91,9 +91,12 @@ class PGTFormer(nn.Module):
 
     forward(x [B, T, H, W, 3] in [0,1]) -> (out [B*T, H, W, 3],
     logits [B*T, h, w, depth, n_embed], lq_feat [B*T, h, w, embed_dim]).
-    With `generator`, every weight is initialized from it."""
+    With `generator`, every weight is initialized from it.  `mha_layout`
+    is the code transformer's attention plan ("bnhd" or "bhnd", see
+    nn/transformer.py)."""
 
-    def __init__(self, cfg: PGTFormerConfig, generator: Optional[torch.Generator] = None):
+    def __init__(self, cfg: PGTFormerConfig, generator: Optional[torch.Generator] = None,
+                 mha_layout: str = "bnhd"):
         super().__init__()
         self.cfg = cfg
         vq = cfg.vqvae
@@ -109,7 +112,7 @@ class PGTFormer(nn.Module):
         self.convpos = nn.Conv2d(3 * cfg.n_parsing_classes, cfg.dim_embd, 1)
         self.feat_emb = nn.Linear(vq.embed_dim, cfg.dim_embd)
         self.ft_layers = nn.ModuleList([
-            TransformerSALayer(cfg.dim_embd, cfg.n_head, cfg.dim_embd * 2)
+            TransformerSALayer(cfg.dim_embd, cfg.n_head, cfg.dim_embd * 2, mha_layout)
             for _ in range(cfg.n_layers)])
         self.codebook_size = vq.n_embed if isinstance(vq.n_embed, int) else vq.n_embed[-1]
         self.quantizer_depth = vq.code_shape[-1]
@@ -211,3 +214,17 @@ class PGTFormer(nn.Module):
         enc_feat_dict = {f: feats[self.fuse_encoder_indices[f]] for f in cfg.connect_list}
         lq_feat = conv_nhwc(self.quant_conv, z)
         return self._decode_restored(codes, lq_feat, enc_feat_dict, w=w, adain=adain)
+
+    # -- the autoencoder's code path (as TDCRQVAE3's methods) ------------------
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B, T, H, W, 3] -> z_e [B*T, h, w, embed_dim]."""
+        return conv_nhwc(self.quant_conv, self.encoder(x))
+
+    def get_codes(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B, T, H, W, 3] -> codes [B*T, h, w, depth]."""
+        return self.quantizer(self.encode(x))[2]
+
+    def decode_code(self, codes: torch.Tensor) -> torch.Tensor:
+        """codes [B*T, h, w, depth] -> frames [B*T, H, W, 3] (no fuse skips)."""
+        z_q = self.quantizer.embed_code(codes).to(self.post_quant_conv.weight.dtype)
+        return self.decoder(conv_nhwc(self.post_quant_conv, z_q))

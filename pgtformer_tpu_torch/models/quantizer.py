@@ -1,19 +1,62 @@
-"""Residual-quantization bottleneck, serving surface (PyTorch port).
+"""Residual-quantization bottleneck, inference surface (PyTorch port).
 
-Holds the codebook buffers under the reference names
-(``codebooks.{i}.weight``, ``cluster_size_ema``, ``embed_ema``) and turns
-code indices back into latents (:meth:`RQBottleneck.embed_code`).  The
-nearest-code search and the EMA update are not part of this port yet.
-Codebook weights are ``[n_embed + 1, D]``; the last row is the zero
-padding code.
+Counterpart of the JAX package's ``models/quantizer.py``.  Holds the
+codebooks under the reference names (``codebooks.{i}.weight``,
+``cluster_size_ema``, ``embed_ema``); codebook weights are
+``[n_embed + 1, D]`` and the last row is the zero padding code.  Entry
+points:
+
+* :func:`compute_distances`, :func:`find_nearest_embedding`, :func:`embed`:
+  the nearest-code search (kernel K5, ``ops/vq.py``, on a CUDA tensor
+  unless ``EXACT_VQ=1``; the exact argmin on the CPU) and the lookup;
+* :class:`RQBottleneck`: ``__call__`` -> (quantized with the straight-through
+  sum, commitment loss, codes), ``quantize``, ``embed_code``,
+  ``embed_code_with_depth``, ``embed_partial_code``, ``get_soft_codes``.
+
+The EMA codebook update (``train=True``) belongs to the training slice and
+raises ``NotImplementedError`` until then.  Codebooks stay fp32 when the
+model is cast to bf16, as the JAX package keeps them.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn as nn
+
+from pgtformer_tpu_torch import knobs
+from pgtformer_tpu_torch.ops.vq import nearest_code
+
+
+def compute_distances(weight: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Squared L2 distances to every (non-padding) code, in fp32.
+    weight [n_embed + 1, D]; x [..., D] -> [..., n_embed]."""
+    c32 = weight[:-1].float()
+    x32 = x.float()
+    x_sq = (x32 * x32).sum(-1, keepdim=True)
+    c_sq = (c32 * c32).sum(-1)
+    return x_sq + c_sq - 2.0 * (x32 @ c32.T)
+
+
+def find_nearest_embedding(weight: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Nearest-code index (int64) per input vector x [..., D].
+
+    On a CUDA tensor this is the fused lookup kernel, whose distance
+    formulation can break a near-tie differently from the exact argmin, so
+    codes are not bit-reproducible between the card and the CPU; knob
+    ``EXACT_VQ=1`` forces ``argmin(compute_distances)`` on every device.
+    On the CPU it is always the exact argmin."""
+    if x.is_cuda and knobs.get("EXACT_VQ") != "1":
+        idx = nearest_code(x.reshape(-1, x.shape[-1]).float().contiguous(),
+                           weight[:-1].float())
+        return idx.reshape(x.shape[:-1])
+    return compute_distances(weight, x).argmin(dim=-1)
+
+
+def embed(weight: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Codebook lookup (the padding index n_embed resolves to the zero row)."""
+    return weight[idx]
 
 
 class VQEmbedding(nn.Module):
@@ -34,8 +77,15 @@ class VQEmbedding(nn.Module):
             self.embed_ema.copy_(w[:-1])
             self.cluster_size_ema.zero_()
 
+    def _apply(self, fn, *args, **kwargs):
+        # moves with the model but keeps its fp32 values under a dtype cast
+        def keep(t):
+            r = fn(t)
+            return t.to(r.device) if r.dtype != t.dtype else r
+        return super()._apply(keep, *args, **kwargs)
+
     def forward(self, idx: torch.Tensor) -> torch.Tensor:
-        return self.weight[idx]
+        return embed(self.weight, idx)
 
 
 class RQBottleneck(nn.Module):
@@ -78,6 +128,43 @@ class RQBottleneck(nn.Module):
         x = x.reshape(B, h, w, rH, rW, D).permute(0, 1, 3, 2, 4, 5)
         return x.reshape(B, h * rH, w * rW, D)
 
+    def quantize(self, x: torch.Tensor, train: bool = False):
+        """Sequential residual quantization of x [B, h, w, embed_dim] ->
+        (list of the aggregated quantized latents per depth (fp32),
+        codes [B, h, w, depth] int64)."""
+        if train:
+            raise NotImplementedError(
+                "RQBottleneck(train=True): the EMA codebook update is ported "
+                "with the training slice")
+        residual = x.detach().float()
+        aggregated = torch.zeros_like(residual)
+        quant_list: List[torch.Tensor] = []
+        code_list: List[torch.Tensor] = []
+        for i in range(self.code_shape[-1]):
+            weight = self._book(i).weight
+            idx = find_nearest_embedding(weight, residual)
+            quant = embed(weight, idx).float()
+            residual = residual - quant
+            aggregated = aggregated + quant
+            quant_list.append(aggregated)
+            code_list.append(idx[..., None])
+        return quant_list, torch.cat(code_list, dim=-1)
+
+    def forward(self, x: torch.Tensor, train: bool = False):
+        """x [B, H, W, D] latents -> (quantized latents with the
+        straight-through sum x + (q - x), commitment loss, codes)."""
+        xr = self.to_code_shape(x)
+        quant_list, codes = self.quantize(xr, train)
+        commitment = self.compute_commitment_loss(xr, quant_list)
+        q = self.to_latent_shape(quant_list[-1].to(x.dtype))
+        q = x + (q - x).detach()
+        return q, commitment, codes
+
+    def compute_commitment_loss(self, x: torch.Tensor,
+                                quant_list: List[torch.Tensor]) -> torch.Tensor:
+        losses = [((x.float() - q.detach()) ** 2).mean() for q in quant_list]
+        return torch.stack(losses).mean()
+
     def embed_code(self, codes: torch.Tensor) -> torch.Tensor:
         """codes [B, h, w, depth] -> latents [B, H, W, D] (sum over depth)."""
         total = None
@@ -85,3 +172,50 @@ class RQBottleneck(nn.Module):
             e = self._book(i)(codes[..., i])
             total = e if total is None else total + e
         return self.to_latent_shape(total)
+
+    def embed_code_with_depth(self, codes: torch.Tensor, to_latent: bool = False):
+        """Per-depth embeddings [B, h, w, depth, D] (second value None, as
+        the JAX package returns it)."""
+        outs = []
+        for i in range(self.code_shape[-1]):
+            e = self._book(i)(codes[..., i])
+            if to_latent:
+                e = self.to_latent_shape(e)
+            outs.append(e[..., None, :])
+        return torch.cat(outs, dim=-2), None
+
+    def embed_partial_code(self, codes: torch.Tensor, code_idx: int,
+                           decode_type: str = "select") -> torch.Tensor:
+        """Latents from depth `code_idx` alone ("select") or from depths
+        0..code_idx ("add")."""
+        embeds = [self._book(i)(codes[..., i]) for i in range(self.code_shape[-1])]
+        if decode_type == "select":
+            out = embeds[code_idx]
+        elif decode_type == "add":
+            out = sum(embeds[:code_idx + 1])
+        else:
+            raise NotImplementedError(decode_type)
+        return self.to_latent_shape(out)
+
+    def get_soft_codes(self, x: torch.Tensor, temp: float = 1.0, stochastic: bool = False,
+                       generator: Optional[torch.Generator] = None):
+        """Soft codes softmax(-dist / temp) [B, h, w, depth, n_embed] and the
+        hard codes that drive the residual: the exact argmin, or with
+        `stochastic` a sample from the soft distribution drawn with
+        `generator` (on x's device)."""
+        residual = self.to_code_shape(x).detach().float()
+        soft_list, code_list = [], []
+        for i in range(self.code_shape[-1]):
+            weight = self._book(i).weight
+            dist = compute_distances(weight, residual)
+            soft = torch.softmax(-dist / temp, dim=-1)
+            if stochastic:
+                flat = soft.reshape(-1, soft.shape[-1]) + 1e-20
+                code = torch.multinomial(flat, 1, generator=generator)
+                code = code.reshape(soft.shape[:-1])
+            else:
+                code = dist.argmin(dim=-1)
+            residual = residual - embed(weight, code).float()
+            code_list.append(code[..., None])
+            soft_list.append(soft[..., None, :])
+        return torch.cat(soft_list, dim=-2), torch.cat(code_list, dim=-1)

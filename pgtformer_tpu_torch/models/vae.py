@@ -1,22 +1,25 @@
-"""Encoder / decoder towers of the temporal RQ-VAE (PyTorch port).
+"""The temporal RQ-VAE and its encoder / decoder towers (PyTorch port).
 
-Counterparts of the JAX package's ``models/vae.py`` ``Encoder3D`` and
-``Decoder3D`` on channels-last video tensors, with the reference module
+Counterparts of the JAX package's ``models/vae.py`` ``Encoder3D``,
+``Decoder3D`` and ``TDCRQVAE3`` (the stage-I autoencoder: encode ->
+residual quantize -> decode, and the code path ``get_codes`` /
+``decode_code``) on channels-last video tensors, with the reference module
 names (``down.{i}.block.{j}``, ``down.{i}.attn.{j}``, ``mid.block_1``,
 ``up.{i}.upsample``, ...).
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from pgtformer_tpu_torch.config import DDConfig
+from pgtformer_tpu_torch.config import DDConfig, VQVAEConfig
+from pgtformer_tpu_torch.models.quantizer import RQBottleneck
 from pgtformer_tpu_torch.nn.blocks import (
-    Downsample, EncoderLayer, GroupNorm, ResnetBlock, Upsample, conv_nhwc)
+    Downsample, EncoderLayer, GroupNorm, ResnetBlock, Upsample, conv_nhwc, init_weights)
 
 
 def _encoder_layer(cfg: DDConfig, dim: int, level: int, num_frames: int) -> EncoderLayer:
@@ -197,3 +200,102 @@ class Decoder3D(nn.Module):
         B5, T5, Hc, Wc, Cc = h.shape
         h = F.silu(self.norm_out(h.reshape(B5 * T5, Hc, Wc, Cc)))
         return conv_nhwc(self.conv_out, h)
+
+
+class TDCRQVAE3(nn.Module):
+    """Temporal RQ-VAE, the stage-I autoencoder.
+
+    forward(x [B, T, H, W, 3], code_only) -> (out [B*T, H, W, 3] | z_q,
+    commitment loss, codes [B*T, h, w, depth]).  With `generator`, every
+    weight is initialized from it."""
+
+    def __init__(self, cfg: VQVAEConfig, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if cfg.loss_type not in ("mse", "l1"):
+            raise ValueError(f"loss_type {cfg.loss_type!r} (choices: mse, l1)")
+        if cfg.bottleneck_type != "rq":
+            raise ValueError("invalid 'bottleneck_type' (must be 'rq')")
+        self.cfg = cfg
+        dd = cfg.ddconfig
+        self.encoder = Encoder3D(dd, num_frames=cfg.tf)
+        self.decoder = Decoder3D(dd, num_frames=cfg.tf)
+        self.quantizer = RQBottleneck(cfg.latent_shape, cfg.code_shape, cfg.n_embed,
+                                      cfg.shared_codebook)
+        self.quant_conv = nn.Conv2d(dd.z_channels, cfg.embed_dim, 1)
+        self.post_quant_conv = nn.Conv2d(cfg.embed_dim, dd.z_channels, 1)
+        if generator is not None:
+            init_weights(self, generator)
+
+    def forward(self, x: torch.Tensor, code_only: bool = False, train: bool = False):
+        z_e = self.encode(x)
+        z_q, quant_loss, codes = self.quantizer(z_e, train=train)
+        if code_only:
+            return z_q, quant_loss, codes
+        return self.decode(z_q), quant_loss, codes
+
+    def encode(self, x: torch.Tensor, return_multi_res_feats: bool = False):
+        """x [B, T, H, W, 3] -> z_e [B*T, h, w, embed_dim] (+ per-level
+        encoder features)."""
+        if return_multi_res_feats:
+            h, feats = self.encoder(x, return_multi_res_feats=True)
+            return conv_nhwc(self.quant_conv, h), feats
+        return conv_nhwc(self.quant_conv, self.encoder(x))
+
+    def decode(self, z_q: torch.Tensor) -> torch.Tensor:
+        """z_q [B*T, h, w, embed_dim] -> [B*T, H, W, out_ch]."""
+        z_q = z_q.to(self.post_quant_conv.weight.dtype)
+        return self.decoder(conv_nhwc(self.post_quant_conv, z_q))
+
+    def get_codes(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B, T, H, W, 3] -> codes [B*T, h, w, depth]."""
+        return self.quantizer(self.encode(x))[2]
+
+    def get_codesbt(self, xs: torch.Tensor) -> torch.Tensor:
+        """Reference-named alias of :meth:`get_codes` for an explicit
+        [B, T, H, W, 3] clip."""
+        return self.get_codes(xs)
+
+    def get_codes_flat(self, x_flat: torch.Tensor) -> torch.Tensor:
+        """Codes for a flattened [B*T, H, W, 3] frame batch, re-folded by
+        the configured window length."""
+        BT, H, W, C = x_flat.shape
+        T = self.cfg.tf
+        return self.get_codes(x_flat.reshape(BT // T, T, H, W, C))
+
+    def get_soft_codes(self, x: torch.Tensor, temp: float = 1.0, stochastic: bool = False,
+                       generator: Optional[torch.Generator] = None):
+        return self.quantizer.get_soft_codes(self.encode(x), temp=temp,
+                                             stochastic=stochastic, generator=generator)
+
+    def decode_code(self, codes: torch.Tensor) -> torch.Tensor:
+        return self.decode(self.quantizer.embed_code(codes))
+
+    def decode_partial_code(self, codes: torch.Tensor, code_idx: int,
+                            decode_type: str = "select") -> torch.Tensor:
+        return self.decode(self.quantizer.embed_partial_code(codes, code_idx, decode_type))
+
+    def forward_partial_code(self, x: torch.Tensor, code_idx: int,
+                             decode_type: str = "select") -> torch.Tensor:
+        """Reconstruct x from the first codebooks only."""
+        return self.decode_partial_code(self.get_codes(x), code_idx, decode_type)
+
+    def get_code_emb_with_depth(self, codes: torch.Tensor):
+        """Per-depth code embeddings."""
+        return self.quantizer.embed_code_with_depth(codes)
+
+    @staticmethod
+    def get_recon_imgs(xs_real: torch.Tensor, xs_recon: torch.Tensor):
+        """[-1,1] -> [0,1] display mapping."""
+        return xs_real * 0.5 + 0.5, (xs_recon * 0.5 + 0.5).clamp(0.0, 1.0)
+
+    def compute_loss(self, out, quant_loss, codes, xs, valid: bool = False) -> Dict:
+        """Reconstruction + weighted commitment loss (forward value)."""
+        diff = out.float() - xs.float()
+        loss_recon = (diff ** 2).mean() if self.cfg.loss_type == "mse" else diff.abs().mean()
+        loss_latent = quant_loss
+        if valid:
+            loss_recon = loss_recon * xs.shape[0] * xs.shape[1]
+            loss_latent = loss_latent * xs.shape[0]
+        total = loss_recon + self.cfg.latent_loss_weight * loss_latent
+        return {"loss_total": total, "loss_recon": loss_recon,
+                "loss_latent": loss_latent, "codes": [codes]}

@@ -7,8 +7,9 @@ run on permuted views (channels_last memory format, no copies).  Parameter
 names follow the reference state_dict (``blocks.1.attn.q.weight``, ...).
 
 On a CUDA tensor, :class:`EncoderLayer` runs every block through the
-hand-written kernel K1 (``ops/sw_block.py``) wherever H and W divide by
-the window, and raises otherwise; on the CPU it runs the same math in
+hand-written kernels of ``ops/sw_block.py`` wherever H and W divide by the
+window (K1 by default; K3 under ``SW_KERNEL=tokens``, K4 under
+``SW_PAIR=1``), and raises otherwise; on the CPU it runs the same math in
 plain PyTorch.
 """
 
@@ -21,7 +22,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from pgtformer_tpu_torch.ops.sw_block import SWBlockWeights, sw_block
+from pgtformer_tpu_torch import knobs
+from pgtformer_tpu_torch.ops.sw_block import (
+    SWBlockWeights, sw_block, sw_block_pair, sw_block_tokens)
 from pgtformer_tpu_torch.ops.window import (
     effective_window_shift, relative_position_index, shifted_window_mask,
     window_partition, window_reverse)
@@ -271,7 +274,15 @@ class SWTransformerBlock(nn.Module):
 
 class EncoderLayer(nn.Module):
     """`depth` SW blocks with alternating shift (0 / window//2) on
-    [B, T, H, W, C]."""
+    [B, T, H, W, C].
+
+    Where H and W divide by the window the blocks run through
+    ``ops/sw_block.py`` under one of three evaluation plans (knobs
+    ``SW_KERNEL`` and ``SW_PAIR``), which all compute the same function:
+    one 5-D block per launch (default); roll -> partition -> token block ->
+    reverse -> unroll (``tokens``); or each [no-shift, shift] pair of
+    blocks in one launch (``SW_PAIR=1`` with ``5d``), any leftover block on
+    its own."""
 
     def __init__(self, dim: int, depth: int, num_heads: int, num_frames: int,
                  window_size: Tuple[int, int] = (8, 8), mlp_ratio: float = 4.0):
@@ -282,15 +293,59 @@ class EncoderLayer(nn.Module):
             SWTransformerBlock(dim, num_heads, num_frames, self.window_size,
                                (0, 0) if i % 2 == 0 else half, mlp_ratio)
             for i in range(depth)])
+        self._masks = {}        # (T, H, W, shift, device) -> fp32 mask tensor
+
+    def _apply(self, *args, **kwargs):
+        self._masks = {}
+        return super()._apply(*args, **kwargs)
+
+    def _mask(self, x: torch.Tensor, shift: Tuple[int, int]) -> torch.Tensor:
+        """The shifted-window mask [nW, N, N] as an fp32 tensor on x's
+        device, uploaded once per geometry."""
+        _, T, H, W, _ = x.shape
+        key = (T, H, W, shift, x.device)
+        if key not in self._masks:
+            self._masks[key] = torch.as_tensor(
+                shifted_window_mask(T, H, W, self.window_size, shift),
+                dtype=torch.float32, device=x.device)
+        return self._masks[key]
+
+    def _block_tokens(self, x: torch.Tensor, w: SWBlockWeights,
+                      shift: Tuple[int, int]) -> torch.Tensor:
+        B, T, H, W, C = x.shape
+        win = self.window_size
+        shifted = any(s > 0 for s in shift)
+        h = torch.roll(x, (-shift[0], -shift[1]), dims=(2, 3)) if shifted else x
+        tok = sw_block_tokens(window_partition(h, win).contiguous(), w,
+                              self._mask(x, shift) if shifted else None,
+                              (H // win[0]) * (W // win[1]))
+        h = window_reverse(tok, win, B, T, H, W)
+        return torch.roll(h, (shift[0], shift[1]), dims=(2, 3)) if shifted else h
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, T, H, W, C = x.shape
         wh, ww = self.window_size
         if H % wh == 0 and W % ww == 0:
             x = x.contiguous()
-            for blk in self.blocks:
-                _, shift = effective_window_shift((H, W), self.window_size, blk.shift_size)
-                x = sw_block(x, blk.kernel_weights(x.device), shift)
+            tokens = knobs.get("SW_KERNEL") == "tokens"
+            pair = not tokens and knobs.get("SW_PAIR") == "1"
+            shifts = [effective_window_shift((H, W), self.window_size, blk.shift_size)[1]
+                      for blk in self.blocks]
+            weights = [blk.kernel_weights(x.device) for blk in self.blocks]
+            i = 0
+            while i < len(self.blocks):
+                # a [no-shift, shift] pair; where H or W equals the window the
+                # shift is clamped to 0 and the two blocks run on their own
+                if (pair and i + 1 < len(self.blocks) and not any(shifts[i])
+                        and any(shifts[i + 1])):
+                    x = sw_block_pair(x, weights[i], weights[i + 1], shifts[i + 1])
+                    i += 2
+                    continue
+                if tokens:
+                    x = self._block_tokens(x, weights[i], shifts[i])
+                else:
+                    x = sw_block(x, weights[i], shifts[i])
+                i += 1
             return x
         if x.is_cuda:
             raise NotImplementedError(

@@ -2,8 +2,9 @@
 
 Counterparts of the JAX package's ``nn/transformer.py`` in batch-first
 ``[B, N, C]`` layout, with torch.nn.MultiheadAttention's parameter names
-(``in_proj_weight``, ``in_proj_bias``, ``out_proj``).  The attention core
-runs through kernel K2 (``ops/dense_mha.py``) on CUDA.
+(``in_proj_weight``, ``in_proj_bias``, ``out_proj``).  On CUDA the attention core
+runs through ``ops/dense_mha.py``: kernel K6 (heads-minor views of the
+packed projections, the default) or K2 (``mha_layout="bhnd"``).
 """
 
 from __future__ import annotations
@@ -20,12 +21,20 @@ from pgtformer_tpu_torch.ops.dense_mha import dense_mha
 
 class MultiHeadSelfAttention(nn.Module):
     """Packed-projection multi-head attention.  When `q is k` (the deployed
-    q = k = x + pos) both projections run as one matmul."""
+    q = k = x + pos) both projections run as one matmul.
 
-    def __init__(self, embed_dim: int, num_heads: int):
+    `mha_layout` picks the attention core's evaluation plan: "bnhd" hands
+    it [B, N, H, D] views of the packed projections and gets the packed
+    output back; "bhnd" hands it their [B, H, N, D] transposed views (no
+    copy) and transposes the output back (one copy)."""
+
+    def __init__(self, embed_dim: int, num_heads: int, mha_layout: str = "bnhd"):
         super().__init__()
+        if mha_layout not in ("bnhd", "bhnd"):
+            raise ValueError(f"mha_layout {mha_layout!r} (choices: bnhd, bhnd)")
         self.embed_dim = embed_dim
         self.num_heads = num_heads
+        self.mha_layout = mha_layout
         self.in_proj_weight = nn.Parameter(torch.zeros(3 * embed_dim, embed_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
         self.out_proj = nn.Linear(embed_dim, embed_dim)
@@ -53,19 +62,27 @@ class MultiHeadSelfAttention(nn.Module):
             raise NotImplementedError(
                 f"MultiHeadSelfAttention on CUDA needs Nq == Nk, N % 8 == 0; "
                 f"got {Nq}, {Nk}")
-        scale = (C // self.num_heads) ** -0.5
-        out = dense_mha(qp, kp, vp, num_heads=self.num_heads, scale=scale)
-        return self.out_proj(out)
+        B, h, hd = q.shape[0], self.num_heads, C // self.num_heads
+        heads = lambda a: a.reshape(B, a.shape[1], h, hd)
+        if self.mha_layout == "bnhd":
+            out = dense_mha(heads(qp), heads(kp), heads(vp), scale=hd ** -0.5,
+                            layout="bnhd")
+        else:
+            t = lambda a: heads(a).transpose(1, 2)
+            out = dense_mha(t(qp), t(kp), t(vp), scale=hd ** -0.5,
+                            layout="bhnd").transpose(1, 2)
+        return self.out_proj(out.reshape(B, Nq, C))
 
 
 class TransformerSALayer(nn.Module):
     """Pre-norm self-attention layer, q = k = LN(x) + pos, v = LN(x), with a
     GELU feed-forward (reference codeformer_arch.py:102-137)."""
 
-    def __init__(self, embed_dim: int, nhead: int = 8, dim_mlp: int = 2048):
+    def __init__(self, embed_dim: int, nhead: int = 8, dim_mlp: int = 2048,
+                 mha_layout: str = "bnhd"):
         super().__init__()
         self.norm1 = layer_norm(embed_dim)
-        self.self_attn = MultiHeadSelfAttention(embed_dim, nhead)
+        self.self_attn = MultiHeadSelfAttention(embed_dim, nhead, mha_layout)
         self.norm2 = layer_norm(embed_dim)
         self.linear1 = nn.Linear(embed_dim, dim_mlp)
         self.linear2 = nn.Linear(dim_mlp, embed_dim)

@@ -1,16 +1,25 @@
-"""Kernel K2: dense multi-head attention of the code transformer.
+"""Kernels K2 and K6: dense multi-head attention of the code transformer.
 
-Replaces the TPU kernel ``pgtformer_tpu/ops/flash_attn.py:
-_dense_mha_pallas`` (via ``dense_mha(layout="bhnd")``) and covers the
-heads-minor layout of ``_dense_mha_pallas_bnhd``: the Hopper kernel
-(``csrc/dense_mha.cu``) reads q/k/v straight from the packed ``[B, N, C]``
-projections through strides and writes the packed ``[B, N, C]`` output.
-The TPU kernel keeps a head's whole K/V in VMEM; a Hopper SM cannot, so
-the kernel runs an online softmax over 64-key tiles.  At N=3072 it is
-compute-bound (~N/2 FLOP per byte).
+Two entry points over the one strided Hopper kernel ``csrc/dense_mha.cu``:
 
-:func:`dense_mha` launches the kernel for CUDA tensors and runs
-:func:`dense_mha_plain` only for tensors on the CPU.
+* :func:`dense_mha_bhnd` (K2) replaces the TPU kernel ``pgtformer_tpu/ops/
+  flash_attn.py:_dense_mha_pallas`` (``dense_mha(layout="bhnd")``): q, k, v
+  and the output are ``[B, H, N, D]``.
+* :func:`dense_mha_bnhd` (K6) replaces ``_dense_mha_pallas_bnhd``
+  (``layout="bnhd"``): q, k, v are ``[B, N, H, D]`` views of the packed
+  projections, and the output is written packed ``[B, N, H*D]`` and
+  returned as its free ``[B, N, H, D]`` view.
+
+:func:`dense_mha` takes the JAX package's ``layout`` argument and
+dispatches.  Either way the kernel reads its operands in place through
+(batch, head, row) strides, so no head transpose is materialized.  The TPU
+kernels keep a head's whole K/V in VMEM; a Hopper SM cannot, so the kernel
+runs an online softmax over 64-key tiles.  At N=3072 it is compute-bound
+(~N/2 FLOP per byte).
+
+Each entry point launches the kernel for CUDA tensors and runs its plain
+version (:func:`dense_mha_plain`, :func:`dense_mha_plain_bnhd`) only for
+tensors on the CPU; each has its own launch counter.
 """
 
 from __future__ import annotations
@@ -31,58 +40,105 @@ def dense_mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", p.float(), v.float()).to(q.dtype)
 
 
+def dense_mha_plain_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         scale: float) -> torch.Tensor:
+    """:func:`dense_mha_plain` on heads-minor [B, N, H, D] operands."""
+    t = lambda a: a.transpose(1, 2)
+    return t(dense_mha_plain(t(q), t(k), t(v), scale))
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_L = ctypes.c_longlong
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("dense_mha")
     fn = lib.dense_mha_launch
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 4 + [_I] * 4 + [_L] * 8 + [ctypes.c_float, _P]
+        fn.argtypes = ([_P] * 4 + [_I] * 4
+                       + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _P])
         fn.restype = _I
     return lib
 
 
-def dense_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              num_heads: int, scale: float) -> torch.Tensor:
-    """Self-attention core on packed projections q, k, v [B, N, C] (any
-    batch/row strides, unit channel stride; head h at columns h*D).
-    Returns the packed [B, N, C] output.
+def _launch(q, k, v, out, B: int, H: int, N: int, D: int, strides, scale: float) -> None:
+    """Check what the kernel needs and launch it.  `strides(t)` gives a
+    tensor's (batch, head, row) strides in elements."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if (t.dtype != torch.bfloat16 or t.shape != q.shape or t.device != q.device
+                or t.stride(3) != 1 or any(s % 8 for s in strides(t))
+                or t.data_ptr() % 16):
+            raise NotImplementedError(
+                f"dense_mha kernel: {name} must be bf16 of q's shape with unit "
+                f"stride along D and 16-byte aligned rows and heads, got "
+                f"{t.dtype} {tuple(t.shape)} strides {t.stride()}")
+    if D not in (16, 32, 64) or N % 8:
+        raise NotImplementedError(f"dense_mha kernel: N={N} D={D}")
+    table = (ctypes.c_longlong * 12)(*strides(q), *strides(k), *strides(v), *strides(out))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = _lib().dense_mha_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                   out.data_ptr(), B, H, N, D, table, float(scale), stream)
+    _build.check(code, "dense_mha launch")
+
+
+def _on_cpu(q: torch.Tensor) -> bool:
+    if q.dim() != 4:
+        raise ValueError(f"dense_mha takes 4-D operands, got {tuple(q.shape)}")
+    if q.device.type == "cpu":
+        return True
+    if not q.is_cuda:
+        raise NotImplementedError(f"dense_mha: device {q.device}")
+    return False
+
+
+def dense_mha_bhnd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   scale: float) -> torch.Tensor:
+    """Attention core on q, k, v [B, H, N, D] (any batch/head/row strides,
+    unit stride along D) -> contiguous [B, H, N, D].
 
     CPU tensors: :func:`dense_mha_plain`.  CUDA tensors: the Hopper kernel;
     raises on any dtype, shape or layout it does not take."""
-    B, N, C = q.shape
-    D = C // num_heads
-    if q.device.type == "cpu":
-        heads = lambda a: a.reshape(B, a.shape[1], num_heads, D).transpose(1, 2)
-        out = dense_mha_plain(heads(q), heads(k), heads(v), scale)
-        return out.transpose(1, 2).reshape(B, N, C)
-    if not q.is_cuda:
-        raise NotImplementedError(f"dense_mha: device {q.device}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if (t.dtype != torch.bfloat16 or tuple(t.shape) != (B, N, C)
-                or t.device != q.device or t.stride(2) != 1
-                or t.stride(0) % 8 or t.stride(1) % 8 or t.data_ptr() % 16):
-            raise NotImplementedError(
-                f"dense_mha kernel: {name} must be bf16 [B,N,C] with unit "
-                f"channel stride and 16-byte aligned rows, got {t.dtype} "
-                f"{tuple(t.shape)} strides {t.stride()}")
-    if C % num_heads or D not in (16, 32, 64) or N % 8:
-        raise NotImplementedError(
-            f"dense_mha kernel: C={C} heads={num_heads} N={N}")
-    out = torch.empty((B, N, C), dtype=q.dtype, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = _lib().dense_mha_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, num_heads, N, D,
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-        float(scale), stream)
-    _build.check(code, "dense_mha launch")
-    dense_mha.launches += 1
+    if _on_cpu(q):
+        return dense_mha_plain(q, k, v, scale)
+    B, H, N, D = q.shape
+    out = torch.empty((B, H, N, D), dtype=q.dtype, device=q.device)
+    _launch(q, k, v, out, B, H, N, D, lambda t: (t.stride(0), t.stride(1), t.stride(2)),
+            scale)
+    dense_mha_bhnd.launches += 1
     return out
 
 
-dense_mha.launches = 0
+dense_mha_bhnd.launches = 0
+
+
+def dense_mha_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   scale: float) -> torch.Tensor:
+    """Attention core on heads-minor q, k, v [B, N, H, D] (views of packed
+    projections: any batch/row/head strides, unit stride along D) ->
+    [B, N, H, D], the view of a packed contiguous [B, N, H*D] buffer.
+
+    CPU tensors: :func:`dense_mha_plain_bnhd`.  CUDA tensors: the Hopper
+    kernel; raises on any dtype, shape or layout it does not take."""
+    if _on_cpu(q):
+        return dense_mha_plain_bnhd(q, k, v, scale)
+    B, N, H, D = q.shape
+    out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
+    _launch(q, k, v, out, B, H, N, D, lambda t: (t.stride(0), t.stride(2), t.stride(1)),
+            scale)
+    dense_mha_bnhd.launches += 1
+    return out
+
+
+dense_mha_bnhd.launches = 0
+
+
+def dense_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
+              layout: str = "bhnd") -> torch.Tensor:
+    """softmax(q k^T * scale) v with the JAX package's signature:
+    layout="bhnd" takes and returns [B, H, N, D] (:func:`dense_mha_bhnd`),
+    layout="bnhd" takes and returns [B, N, H, D] (:func:`dense_mha_bnhd`)."""
+    if layout == "bhnd":
+        return dense_mha_bhnd(q, k, v, scale)
+    if layout == "bnhd":
+        return dense_mha_bnhd(q, k, v, scale)
+    raise ValueError(f"layout {layout!r} (choices: bhnd, bnhd)")

@@ -1,26 +1,36 @@
-"""Kernel K1: one whole shifted-window transformer block.
+"""Kernels K1, K3 and K4: one whole shifted-window transformer block.
 
-Replaces the TPU kernel ``pgtformer_tpu/ops/pallas_attn.py:
-_pallas_sw_block_5d`` (via ``fused_sw_block_5d``).  The Hopper kernel is
-``csrc/sw_block.cu``: windows of T*wh*ww tokens are read straight from the
-``[B, T, H, W, C]`` layout with the half-window roll applied as an address
-change, and LN1, attention (head by head), proj, LN2 and the MLP all run
-in shared memory.  On an H100 the block is compute-bound on paper
-(12*C^2 FLOP per token); this version is held back by wmma fragments whose
-weight operands stream from L2: each 48-row CTA (one window) reuses a
-weight fragment 3 times, and two CTAs share an SM at C<=256.
+Three entry points of ``csrc/sw_block.cu``, one device function:
 
-:func:`sw_block` launches the kernel for a CUDA tensor and runs
-:func:`sw_block_plain`, the same math in plain PyTorch, only for a tensor
-on the CPU.
+* :func:`sw_block` (K1) replaces the TPU kernel ``pgtformer_tpu/ops/
+  pallas_attn.py:_pallas_sw_block_5d`` (via ``fused_sw_block_5d``): windows
+  of T*wh*ww tokens are read straight from the ``[B, T, H, W, C]`` layout
+  with the half-window roll applied as an address change and the shift mask
+  derived from region labels.
+* :func:`sw_block_tokens` (K3) replaces ``_pallas_sw_block`` (via
+  ``fused_sw_block_tokens``): the same math on pre-partitioned window
+  tokens ``[M, N, C]`` with the caller's additive mask ``[nW, N, N]``.
+* :func:`sw_block_pair` (K4) replaces ``_pallas_sw_block_pair_5d`` (via
+  ``fused_sw_block_pair_5d``): blocks [no-shift, shift] of one layer in one
+  cooperative launch; block 0's bf16 output crosses a scratch tensor and a
+  grid-wide barrier instead of a second launch.
+
+LN1, attention (head by head), proj, LN2 and the MLP all run in shared
+memory.  On an H100 the block is compute-bound on paper (12*C^2 FLOP per
+token); this version is held back by wmma fragments whose weight operands
+stream from L2: each 48-row CTA (one window) reuses a weight fragment 3
+times, and two CTAs share an SM at C<=256.
+
+Each wrapper launches its kernel for a CUDA tensor and runs its plain
+PyTorch version (:func:`sw_block_plain`, :func:`sw_block_tokens_plain`,
+:func:`sw_block_pair_plain`) only for a tensor on the CPU.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -73,10 +83,12 @@ def _layer_norm(z: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tens
     return (y * g.float() + b.float()).to(z.dtype)
 
 
-def _block_tokens(x: torch.Tensor, w: SWBlockWeights,
-                  mask: Optional[np.ndarray], n_windows_per_image: int) -> torch.Tensor:
-    """The block on window tokens [M, N, C], in x's dtype with fp32 scores
-    (the math of the JAX package's sw_block_tokens_xla)."""
+def sw_block_tokens_plain(x: torch.Tensor, w: SWBlockWeights, mask,
+                          n_windows_per_image: int) -> torch.Tensor:
+    """Plain PyTorch version of the token kernel: the block on window tokens
+    [M, N, C] with an additive mask [nW, N, N] (numpy or tensor) or None,
+    in x's dtype with fp32 scores (the math of the JAX package's
+    sw_block_tokens_xla)."""
     M, N, C = x.shape
     dt = x.dtype
     h = w.num_heads
@@ -110,23 +122,84 @@ def sw_block_plain(x: torch.Tensor, w: SWBlockWeights,
     tok = window_partition(h, window)
     nW = (H // window[0]) * (W // window[1])
     mask = shifted_window_mask(T, H, W, window, tuple(shift)) if shifted else None
-    tok = _block_tokens(tok, w, mask, nW)
+    tok = sw_block_tokens_plain(tok, w, mask, nW)
     h = window_reverse(tok, window, B, T, H, W)
     return torch.roll(h, (shift[0], shift[1]), dims=(2, 3)) if shifted else h
 
 
+def sw_block_pair_plain(x: torch.Tensor, w0: SWBlockWeights, w1: SWBlockWeights,
+                        shift: Tuple[int, int]) -> torch.Tensor:
+    """Plain PyTorch version of the pair kernel: block 0 unshifted, then
+    block 1 with `shift`."""
+    return sw_block_plain(sw_block_plain(x, w0, (0, 0)), w1, shift)
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_PP = ctypes.POINTER(ctypes.c_void_p)
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("sw_block")
-    fn = lib.sw_block_launch
-    if fn.argtypes is None:
-        # 19 pointers; B T H W C heads wh ww sh sw; scale; stream
-        fn.argtypes = [_P] * 19 + [_I] * 10 + [ctypes.c_float, _P]
-        fn.restype = _I
+    if lib.sw_block_launch.argtypes is None:
+        # pointer table; B T H W C heads wh ww sh sw; scale; stream
+        lib.sw_block_launch.argtypes = [_PP] + [_I] * 10 + [ctypes.c_float, _P]
+        # pointer table, mask; Mwin N C heads nW; scale; stream
+        lib.sw_block_tokens_launch.argtypes = [_PP, _P] + [_I] * 5 + [ctypes.c_float, _P]
+        # two pointer tables; B T H W C heads wh ww sh sw; scale; stream
+        lib.sw_block_pair_launch.argtypes = [_PP, _PP] + [_I] * 10 + [ctypes.c_float, _P]
+        for fn in (lib.sw_block_launch, lib.sw_block_tokens_launch,
+                   lib.sw_block_pair_launch):
+            fn.restype = _I
     return lib
+
+
+def _check_weights(what: str, x: torch.Tensor, w: SWBlockWeights, N: int) -> None:
+    """Raise unless `w` is what the kernels take for x [..., C]: bf16 (C, C)
+    matrices, fp32 (C,) vectors and an fp32 [heads, N, N] bias, contiguous on
+    x's device, at a width and window size the kernel supports."""
+    C = x.shape[-1]
+    heads = w.num_heads
+    hd = C // heads
+    if (C % 64 or C > 512 or C % heads or hd % 16 or hd > 64 or N % 16 or 48 % N):
+        raise NotImplementedError(f"{what} kernel: C={C} heads={heads} N={N}")
+    mats = (w.wq, w.wk, w.wv, w.wp, w.w1, w.w2)
+    vecs = (w.norm1_w, w.norm1_b, w.bq, w.bk, w.bv, w.bp, w.norm2_w,
+            w.norm2_b, w.b1, w.b2)
+    for t in mats:
+        if (t.dtype != torch.bfloat16 or tuple(t.shape) != (C, C)
+                or not t.is_contiguous() or t.device != x.device):
+            raise NotImplementedError(f"{what} kernel: weights must be bf16 "
+                                      "(C, C) contiguous on x's device")
+    for t in vecs:
+        if (t.dtype != torch.float32 or tuple(t.shape) != (C,)
+                or not t.is_contiguous() or t.device != x.device):
+            raise NotImplementedError(f"{what} kernel: vectors must be fp32 (C,)")
+    rb = w.rel_bias
+    if (rb.dtype != torch.float32 or tuple(rb.shape) != (heads, N, N)
+            or not rb.is_contiguous() or rb.device != x.device):
+        raise NotImplementedError(f"{what} kernel: rel_bias must be fp32 [h, N, N]")
+
+
+def _check_5d(what: str, x: torch.Tensor, w: SWBlockWeights, shift) -> None:
+    if x.dtype != torch.bfloat16 or x.dim() != 5 or not x.is_contiguous():
+        raise NotImplementedError(
+            f"{what} kernel takes contiguous bf16 [B,T,H,W,C], got "
+            f"{x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}")
+    B, T, H, W, C = x.shape
+    wh, ww = w.window
+    if H % wh or W % ww or not (0 <= shift[0] < wh and 0 <= shift[1] < ww):
+        raise NotImplementedError(
+            f"{what} kernel: window={w.window} H={H} W={W} shift={shift}")
+    _check_weights(what, x, w, T * wh * ww)
+
+
+def _pointers(x: torch.Tensor, out: torch.Tensor, w: SWBlockWeights):
+    """The kernel's table of 19 device pointers, in the order
+    csrc/sw_block.cu reads it."""
+    return (ctypes.c_void_p * 19)(*(t.data_ptr() for t in (
+        x, out, w.norm1_w, w.norm1_b, w.wq, w.bq, w.wk, w.bk, w.wv, w.bv, w.wp, w.bp,
+        w.norm2_w, w.norm2_b, w.w1, w.b1, w.w2, w.b2, w.rel_bias)))
 
 
 def sw_block(x: torch.Tensor, w: SWBlockWeights,
@@ -140,47 +213,92 @@ def sw_block(x: torch.Tensor, w: SWBlockWeights,
         return sw_block_plain(x, w, shift)
     if not x.is_cuda:
         raise NotImplementedError(f"sw_block: device {x.device}")
-    if x.dtype != torch.bfloat16 or x.dim() != 5 or not x.is_contiguous():
-        raise NotImplementedError(
-            f"sw_block kernel takes contiguous bf16 [B,T,H,W,C], got "
-            f"{x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}")
+    _check_5d("sw_block", x, w, shift)
     B, T, H, W, C = x.shape
     wh, ww = w.window
-    heads = w.num_heads
-    N = T * wh * ww
-    hd = C // heads
-    if (C % 64 or C > 512 or C % heads or hd % 16 or hd > 64
-            or H % wh or W % ww or N % 16 or 48 % N
-            or not (0 <= shift[0] < wh and 0 <= shift[1] < ww)):
-        raise NotImplementedError(
-            f"sw_block kernel: C={C} heads={heads} window={w.window} "
-            f"T={T} H={H} W={W} shift={shift}")
-    mats = (w.wq, w.wk, w.wv, w.wp, w.w1, w.w2)
-    vecs = (w.norm1_w, w.norm1_b, w.bq, w.bk, w.bv, w.bp, w.norm2_w,
-            w.norm2_b, w.b1, w.b2)
-    for t in mats:
-        if (t.dtype != torch.bfloat16 or tuple(t.shape) != (C, C)
-                or not t.is_contiguous() or t.device != x.device):
-            raise NotImplementedError("sw_block kernel: weights must be bf16 "
-                                      "(C, C) contiguous on x's device")
-    for t in vecs:
-        if (t.dtype != torch.float32 or tuple(t.shape) != (C,)
-                or not t.is_contiguous() or t.device != x.device):
-            raise NotImplementedError("sw_block kernel: vectors must be fp32 (C,)")
-    rb = w.rel_bias
-    if (rb.dtype != torch.float32 or tuple(rb.shape) != (heads, N, N)
-            or not rb.is_contiguous() or rb.device != x.device):
-        raise NotImplementedError("sw_block kernel: rel_bias must be fp32 [h, N, N]")
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    ptrs = [x, out, w.norm1_w, w.norm1_b, w.wq, w.bq, w.wk, w.bk, w.wv, w.bv,
-            w.wp, w.bp, w.norm2_w, w.norm2_b, w.w1, w.b1, w.w2, w.b2, rb]
     code = _lib().sw_block_launch(
-        *[t.data_ptr() for t in ptrs], B, T, H, W, C, heads, wh, ww,
-        int(shift[0]), int(shift[1]), float(hd ** -0.5), stream)
+        _pointers(x, out, w), B, T, H, W, C, w.num_heads, wh, ww,
+        int(shift[0]), int(shift[1]), float((C // w.num_heads) ** -0.5), stream)
     _build.check(code, "sw_block launch")
     sw_block.launches += 1
     return out
 
 
 sw_block.launches = 0
+
+
+def sw_block_tokens(x: torch.Tensor, w: SWBlockWeights, mask,
+                    n_windows_per_image: int) -> torch.Tensor:
+    """One SW transformer block on window tokens x [M, N, C] (window m is
+    window m % n_windows_per_image of its image); `mask` is None or an
+    additive [nW, N, N] array added to the scores.
+
+    CPU tensor: :func:`sw_block_tokens_plain` (mask: numpy or tensor).  CUDA
+    tensor: the Hopper kernel, `mask` an fp32 tensor on x's device; raises
+    on anything the kernel does not take."""
+    if x.device.type == "cpu":
+        return sw_block_tokens_plain(x, w, mask, n_windows_per_image)
+    if not x.is_cuda:
+        raise NotImplementedError(f"sw_block_tokens: device {x.device}")
+    if x.dtype != torch.bfloat16 or x.dim() != 3 or not x.is_contiguous():
+        raise NotImplementedError(
+            f"sw_block_tokens kernel takes contiguous bf16 [M,N,C], got "
+            f"{x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}")
+    Mw, N, C = x.shape
+    nW = int(n_windows_per_image)
+    _check_weights("sw_block_tokens", x, w, N)
+    if nW <= 0 or Mw % nW:
+        raise NotImplementedError(f"sw_block_tokens kernel: M={Mw} windows, nW={nW}")
+    if mask is not None and not (
+            isinstance(mask, torch.Tensor) and mask.dtype == torch.float32
+            and tuple(mask.shape) == (nW, N, N) and mask.is_contiguous()
+            and mask.device == x.device):
+        raise NotImplementedError(
+            "sw_block_tokens kernel: mask must be a contiguous fp32 [nW, N, N] "
+            "tensor on x's device")
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = _lib().sw_block_tokens_launch(
+        _pointers(x, out, w), None if mask is None else mask.data_ptr(), Mw, N, C, w.num_heads, nW,
+        float((C // w.num_heads) ** -0.5), stream)
+    _build.check(code, "sw_block_tokens launch")
+    sw_block_tokens.launches += 1
+    return out
+
+
+sw_block_tokens.launches = 0
+
+
+def sw_block_pair(x: torch.Tensor, w0: SWBlockWeights, w1: SWBlockWeights,
+                  shift: Tuple[int, int]) -> torch.Tensor:
+    """Blocks [no-shift with `w0`, `shift` with `w1`] of one layer on
+    x [B, T, H, W, C], in one launch.
+
+    CPU tensor: :func:`sw_block_pair_plain`.  CUDA tensor: the Hopper
+    kernel; the result equals ``sw_block(sw_block(x, w0, (0, 0)), w1,
+    shift)`` bit for bit.  Raises on anything the kernel does not take."""
+    if x.device.type == "cpu":
+        return sw_block_pair_plain(x, w0, w1, shift)
+    if not x.is_cuda:
+        raise NotImplementedError(f"sw_block_pair: device {x.device}")
+    _check_5d("sw_block_pair", x, w0, (0, 0))
+    _check_5d("sw_block_pair", x, w1, shift)
+    if w0.num_heads != w1.num_heads or tuple(w0.window) != tuple(w1.window):
+        raise NotImplementedError("sw_block_pair kernel: the two blocks must share "
+                                  "heads and window")
+    B, T, H, W, C = x.shape
+    wh, ww = w0.window
+    scratch = torch.empty_like(x)
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = _lib().sw_block_pair_launch(
+        _pointers(x, scratch, w0), _pointers(scratch, out, w1), B, T, H, W, C, w0.num_heads, wh, ww, int(shift[0]), int(shift[1]),
+        float((C // w0.num_heads) ** -0.5), stream)
+    _build.check(code, "sw_block_pair launch")
+    sw_block_pair.launches += 1
+    return out
+
+
+sw_block_pair.launches = 0

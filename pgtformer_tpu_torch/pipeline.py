@@ -49,12 +49,13 @@ class VideoRestorer:
     initializes every weight from `seed` (for smoke tests and benchmarks).
     `device`: `cuda` unless given; without a card this raises.
     `readback`: 'rgb' (uint8 [B, H, W, 3]) or 'yuv420' (device-side BT.601
-    planes from :meth:`restore_chunk`; :meth:`restore_video` writes RGB)."""
+    planes from :meth:`restore_chunk`; :meth:`restore_video` writes RGB).
+    `mha_layout`: the code transformer's attention plan ("bnhd" or "bhnd")."""
 
     def __init__(self, weights=None, cfg: PGTFormerConfig = RELEASE_PGTFORMER,
                  w: float = 1.0, batch_windows: int = 8,
                  dtype: torch.dtype = torch.bfloat16, device=None,
-                 readback: str = "rgb", seed: int = 0):
+                 readback: str = "rgb", seed: int = 0, mha_layout: str = "bnhd"):
         if readback not in ("rgb", "yuv420"):
             raise ValueError(f"readback {readback!r}")
         self.device = resolve_device(device)
@@ -64,7 +65,7 @@ class VideoRestorer:
         self.readback = readback
         self.dtype = dtype
         gen = torch.Generator().manual_seed(seed) if weights is None else None
-        model = PGTFormer(cfg, generator=gen)
+        model = PGTFormer(cfg, generator=gen, mha_layout=mha_layout)
         if weights is not None:
             load_into(model, weights)
         self.model = model.to(device=self.device, dtype=dtype).eval()

@@ -4,9 +4,11 @@ Builds RELEASE_PGTFORMER with seeded random weights on the card, runs the
 serving step (B windows of 512x512 frames) a few times to warm up, then
 records `--steps` steps with torch.profiler and prints device time per
 kernel group, the device busy share of the wall time, and the top kernels.
-Optionally writes the same as JSON (`--json PATH`).
+Optionally writes the same as JSON (`--json PATH`).  The knob flags and
+`--mha-layout` profile the step's other evaluation plans.
 
-    python -m pgtformer_tpu_torch.profile_step [--steps 3] [--json out.json]
+    python -m pgtformer_tpu_torch.profile_step [--steps 3] [--json out.json] \
+        [--sw-kernel 5d|tokens] [--sw-pair 0|1] [--mha-layout bnhd|bhnd]
 """
 
 from __future__ import annotations
@@ -19,8 +21,13 @@ import time
 import numpy as np
 import torch
 
-GROUPS = (("sw_block (K1)", ("sw_block_kernel",)),
-          ("dense_mha (K2)", ("dense_mha_kernel",)),
+from pgtformer_tpu_torch import knobs
+
+GROUPS = (("sw_block_pair (K4)", ("sw_block_pair_kernel",)),
+          ("sw_block_tokens (K3)", ("sw_block_tokens_kernel",)),
+          ("sw_block (K1)", ("sw_block_kernel",)),
+          ("dense_mha (K2/K6)", ("dense_mha_kernel",)),
+          ("vq_nearest (K5)", ("vq_nearest_kernel", "code_sqnorm_kernel")),
           ("conv (cuDNN)", ("conv", "cudnn", "implicit", "winograd", "fprop", "dgrad")),
           ("gemm", ("gemm", "cutlass", "cublas")),
           ("norm", ("norm",)),
@@ -41,7 +48,11 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--json", type=str, default=None)
+    ap.add_argument("--mha-layout", type=str, default="bnhd", choices=("bnhd", "bhnd"),
+                    help="attention plan of the code transformer")
+    knobs.add_cli_flags(ap)
     args = ap.parse_args(argv)
+    knobs.apply_cli_args(args)
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
         return 2
@@ -52,7 +63,8 @@ def main(argv=None) -> int:
 
     B = args.batch
     res = RELEASE_PGTFORMER.vqvae.ddconfig.resolution
-    r = VideoRestorer(None, RELEASE_PGTFORMER, batch_windows=B, device="cuda")
+    r = VideoRestorer(None, RELEASE_PGTFORMER, batch_windows=B, device="cuda",
+                      mha_layout=args.mha_layout)
     rng = np.random.default_rng(0)
     frames = rng.integers(0, 256, (B, res, res, 3), dtype=np.uint8)
     r.prime(frames[0])
@@ -81,7 +93,9 @@ def main(argv=None) -> int:
         groups[g] = groups.get(g, 0.0) + ms
     busy = sum(groups.values())
     smi = torch.cuda.get_device_name(0)
-    print(f"device {smi}; serving step B={B} {res}x{res}: wall {wall_ms:.2f} ms/step, "
+    plan = (f"SW_KERNEL={knobs.get('SW_KERNEL')} SW_PAIR={knobs.get('SW_PAIR')} "
+            f"mha_layout={args.mha_layout}")
+    print(f"device {smi}; serving step B={B} {res}x{res} [{plan}]: wall {wall_ms:.2f} ms/step, "
           f"device busy {busy:.2f} ms/step ({100 * busy / wall_ms:.1f}%), "
           f"idle share {100 * (1 - busy / wall_ms):.1f}%")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
@@ -91,7 +105,7 @@ def main(argv=None) -> int:
         print(f"    {ms:8.3f} ms  x{n:<4d} {name[:110]}")
     if args.json:
         with open(args.json, "w") as f:
-            json.dump({"device": smi, "batch": B, "wall_ms": wall_ms, "busy_ms": busy,
+            json.dump({"device": smi, "batch": B, "plan": plan, "wall_ms": wall_ms, "busy_ms": busy,
                        "groups_ms": groups,
                        "top": [[n, ms, c] for n, (ms, c) in top]}, f, indent=1)
     return 0

@@ -105,7 +105,9 @@ def test_dense_mha_wrapper_reads_packed_projections():
     C = H * D
     qk = t(RNG.normal(size=(B, N, 2 * C)))
     v = t(RNG.normal(size=(B, N, C)))
-    out = dense_mha(qk[..., :C], qk[..., C:], v, num_heads=H, scale=D ** -0.5)
+    split = lambda a: a.reshape(B, N, H, D)
+    out = dense_mha(split(qk[..., :C]), split(qk[..., C:]), split(v), scale=D ** -0.5,
+                    layout="bnhd").reshape(B, N, C)
     heads = lambda a: np.asarray(a).reshape(B, N, H, D).transpose(0, 2, 1, 3)
     ref = _dense_mha_ref(jnp.asarray(heads(qk[..., :C])), jnp.asarray(heads(qk[..., C:])),
                          jnp.asarray(heads(v)), D ** -0.5)

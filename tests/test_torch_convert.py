@@ -79,7 +79,10 @@ def test_load_checkpoint(small_pgt, tmp_path, fmt):
 def test_import_with_jax_blocked():
     """The whole package imports with jax, flax and pgtformer_tpu absent."""
     mods = ["pgtformer_tpu_torch", "pgtformer_tpu_torch.pipeline", "pgtformer_tpu_torch.cli",
-            "pgtformer_tpu_torch.convert", "pgtformer_tpu_torch.models.pgtformer"]
+            "pgtformer_tpu_torch.convert", "pgtformer_tpu_torch.models.pgtformer",
+            "pgtformer_tpu_torch.models.vae", "pgtformer_tpu_torch.models.quantizer",
+            "pgtformer_tpu_torch.knobs", "pgtformer_tpu_torch.ops.vq",
+            "pgtformer_tpu_torch.profile_step"]
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'flax', 'pgtformer_tpu'):\n"
             "    sys.modules[m] = None\n"
@@ -105,6 +108,8 @@ def _imported_modules(path: Path):
 def test_no_jax_or_reference_package_imports():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    for new in ("knobs.py", "ops/vq.py", "models/vae.py", "models/quantizer.py"):
+        assert PORT / new in files
     for f in files:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]
