@@ -15,6 +15,10 @@ first:
 * ``SW_KERNEL`` / ``SW_PAIR``: evaluation plans of the shifted-window
   blocks.  All plans compute the same function and are tested against each
   other.
+* ``FUSED_TAIL``: evaluation plan of the decoder's upsamples and per-frame
+  tail (bf16 inference only).  The fused chain rounds to bf16 at other
+  places than the stock modules, so its output agrees with theirs to bf16
+  accuracy, not bit for bit.
 """
 
 from __future__ import annotations
@@ -48,6 +52,14 @@ KNOBS: Dict[str, Knob] = {k.name: k for k in [
          "[B,T,H,W,C] layout with the shift as an address change (default), "
          "'tokens' rolls and partitions in PyTorch and runs the kernel on "
          "the [M,N,C] window-token array with an explicit mask"),
+    Knob("FUSED_TAIL", "0", ("0", "up", "1"),
+         "Decoder tail under bf16 inference: 'up' runs every conv upsample "
+         "whose input has H divisible by 8 and C by 128 as the fused subpixel "
+         "kernel (four 2x2 phase convs, interleaved write); '1' runs the "
+         "middle-frame tail (last upsample, both full-resolution resblocks, "
+         "norm_out and SiLU) as a chain of fused GroupNorm+SiLU+conv3x3 "
+         "kernels that pass GroupNorm statistics along. Default '0' keeps the "
+         "stock modules; under fp32 the knob is ignored"),
 ]}
 
 _overrides: Dict[str, str] = {}

@@ -203,17 +203,19 @@ class PGTFormer(nn.Module):
                             fuse_resolutions=fuse_resolutions)
 
     def restore_from_codes(self, x: torch.Tensor, codes: torch.Tensor,
-                           w: Optional[float] = None,
-                           adain: Optional[bool] = None) -> torch.Tensor:
+                           w: Optional[float] = None, adain: Optional[bool] = None,
+                           middle_only: bool = False) -> torch.Tensor:
         """Restore x [B, T, H, W, 3] with externally supplied codes
-        [B*T, h, w, depth] (the forced-code parity path)."""
+        [B*T, h, w, depth] (the forced-code parity path) -> [B*T, H, W, 3],
+        or the middle frames [B, H, W, 3] with `middle_only`."""
         cfg = self.cfg
         w = cfg.w if w is None else w
         adain = cfg.adain if adain is None else adain
         z, feats = self.encoder(x, return_multi_res_feats=True)
         enc_feat_dict = {f: feats[self.fuse_encoder_indices[f]] for f in cfg.connect_list}
         lq_feat = conv_nhwc(self.quant_conv, z)
-        return self._decode_restored(codes, lq_feat, enc_feat_dict, w=w, adain=adain)
+        return self._decode_restored(codes, lq_feat, enc_feat_dict, w=w, adain=adain,
+                                     middle_only=middle_only)
 
     # -- the autoencoder's code path (as TDCRQVAE3's methods) ------------------
     def encode(self, x: torch.Tensor) -> torch.Tensor:

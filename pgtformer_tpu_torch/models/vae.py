@@ -16,10 +16,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from pgtformer_tpu_torch import knobs
 from pgtformer_tpu_torch.config import DDConfig, VQVAEConfig
 from pgtformer_tpu_torch.models.quantizer import RQBottleneck
 from pgtformer_tpu_torch.nn.blocks import (
     Downsample, EncoderLayer, GroupNorm, ResnetBlock, Upsample, conv_nhwc, init_weights)
+from pgtformer_tpu_torch.ops.fused_conv import fused_decoder_tail, subpixel_up_conv3x3
 
 
 def _encoder_layer(cfg: DDConfig, dim: int, level: int, num_frames: int) -> EncoderLayer:
@@ -115,7 +117,19 @@ class Decoder3D(nn.Module):
     blocks, before its upsample.  With `middle_only`, the non-middle frames
     are dropped after the last stage that mixes frames (attention, or a
     fuse block at one of `fuse_resolutions`), so the later levels run on
-    one frame; the output is then [B, H, W, out_ch]."""
+    one frame; the output is then [B, H, W, out_ch].
+
+    Knob ``FUSED_TAIL`` selects the fused kernels of ``ops/fused_conv.py``
+    for the upsamples (``up``) or for the whole middle-frame tail (``1``).
+    They apply under bf16 inference (no gradient is recorded) to an upsample
+    with a conv whose input has H divisible by 8 and C by 128; ``1`` also
+    needs the level-1 upsample on one frame per window, one resblock per
+    level, H divisible by 16 and no attention or fuse stage at the last
+    resolution.  Anywhere else, and under fp32, the knob is ignored and the
+    stock modules run.  The device of the tensor, not a flag of the model,
+    decides between kernel and plain version inside the wrappers: a bf16
+    model on the CPU with the knob set runs the same chain through the plain
+    versions."""
 
     def __init__(self, cfg: DDConfig, num_frames: int = 3):
         super().__init__()
@@ -194,6 +208,34 @@ class Decoder3D(nn.Module):
                 h = h[:, T // 2:T // 2 + 1]
                 t_cur = 1
             if i_level != 0:
+                tail_mode = knobs.get("FUSED_TAIL")
+                B5, T5, H5, W5, C5 = h.shape
+                # bf16 only: the kernels round to bf16 inside, which under
+                # fp32 would silently lower the tail's precision
+                kernels_ok = (tail_mode != "0" and h.dtype == torch.bfloat16
+                              and not torch.is_grad_enabled() and cfg.resamp_with_conv
+                              and H5 % 8 == 0 and C5 % 128 == 0)
+                if kernels_ok and tail_mode == "up":
+                    # a view where the middle frame was just sliced out: the
+                    # kernel takes the batch stride, no copy is made
+                    y, _ = subpixel_up_conv3x3(h.reshape(B5 * T5, H5, W5, C5),
+                                               *level.upsample.kernel_weights(),
+                                               emit_stats=False)
+                    h = y.reshape(B5, T5, 2 * H5, 2 * W5, C5)
+                    curr_res *= 2
+                    continue
+                if (kernels_ok and tail_mode == "1" and i_level == 1 and t_cur == 1
+                        and cfg.num_res_blocks == 1 and H5 % 16 == 0
+                        and 2 * curr_res not in cfg.attn_resolutions
+                        and 2 * curr_res not in fuse_set):
+                    # upsample, both level-0 resblocks, norm_out and SiLU as
+                    # one chain of fused kernels
+                    tail = self.up[0]
+                    y = fused_decoder_tail(
+                        h.reshape(B5 * T5, H5, W5, C5), level.upsample.kernel_weights(),
+                        tail.block[0].kernel_weights(), tail.block[1].kernel_weights(),
+                        (self.norm_out.weight.float(), self.norm_out.bias.float()))
+                    return conv_nhwc(self.conv_out, y)
                 h = level.upsample(h)
                 curr_res *= 2
 

@@ -23,6 +23,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from pgtformer_tpu_torch import knobs
+from pgtformer_tpu_torch.ops.fused_conv import (
+    ResBlockKernelWeights, conv_kernel_hwio, phase_kernels_2x2)
 from pgtformer_tpu_torch.ops.sw_block import (
     SWBlockWeights, sw_block, sw_block_pair, sw_block_tokens)
 from pgtformer_tpu_torch.ops.window import (
@@ -63,7 +65,25 @@ def _unfold(x: torch.Tensor, lead) -> torch.Tensor:
     return x if lead is None else x.reshape(*lead, *x.shape[1:])
 
 
-class ResnetBlock(nn.Module):
+class _KernelWeightCache(nn.Module):
+    """A module that keeps a derived copy of its weights in the layout of a
+    hand-written kernel.  The copy is made at first use and dropped whenever
+    the parameters move, change dtype or are loaded."""
+
+    def __init__(self):
+        super().__init__()
+        self._kernel_cache = None
+
+    def _apply(self, *args, **kwargs):
+        self._kernel_cache = None
+        return super()._apply(*args, **kwargs)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self._kernel_cache = None
+        return super()._load_from_state_dict(*args, **kwargs)
+
+
+class ResnetBlock(_KernelWeightCache):
     """GroupNorm -> SiLU -> conv3x3, twice, with a 1x1 shortcut on a channel
     change (named `nin_shortcut`, or `conv_out` in the Fuse-SFT block)."""
 
@@ -87,8 +107,23 @@ class ResnetBlock(nn.Module):
             x = conv_nhwc(getattr(self, self.shortcut_name), x)
         return _unfold(x + h, lead)
 
+    def kernel_weights(self) -> ResBlockKernelWeights:
+        """This block's weights for ``ops/fused_conv.py:fused_resblock``
+        (cached): fp32 norm affines and biases, bf16 [3, 3, C, Co] kernels."""
+        if self._kernel_cache is None:
+            f32 = lambda p: p.detach().float().contiguous()
+            sc = getattr(self, self.shortcut_name) if self.shortcut_name else None
+            self._kernel_cache = ResBlockKernelWeights(
+                f32(self.norm1.weight), f32(self.norm1.bias),
+                conv_kernel_hwio(self.conv1.weight), f32(self.conv1.bias),
+                f32(self.norm2.weight), f32(self.norm2.bias),
+                conv_kernel_hwio(self.conv2.weight), f32(self.conv2.bias),
+                conv_kernel_hwio(sc.weight)[0, 0] if sc is not None else None,
+                f32(sc.bias) if sc is not None else None)
+        return self._kernel_cache
 
-class Upsample(nn.Module):
+
+class Upsample(_KernelWeightCache):
     """Nearest-2x upsample, then conv3x3."""
 
     def __init__(self, channels: int, with_conv: bool = True):
@@ -103,6 +138,16 @@ class Upsample(nn.Module):
         if self.with_conv:
             y = self.conv(y)
         return _unfold(y.permute(0, 2, 3, 1), lead)
+
+    def kernel_weights(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(bf16 phase kernels [2, 2, 2, 2, C, C], fp32 bias) for
+        ``ops/fused_conv.py:subpixel_up_conv3x3`` (cached): the 3x3 kernel
+        pre-summed in fp32 into the four 2x2 phase kernels, then rounded."""
+        if self._kernel_cache is None:
+            k2 = phase_kernels_2x2(self.conv.weight.detach().permute(2, 3, 1, 0))
+            self._kernel_cache = (k2.to(torch.bfloat16).contiguous(),
+                                  self.conv.bias.detach().float().contiguous())
+        return self._kernel_cache
 
 
 class Downsample(nn.Module):
@@ -192,7 +237,7 @@ class WindowAttention3D(nn.Module):
         return self.proj(out.reshape(Bn, N, C).to(x.dtype))
 
 
-class SWTransformerBlock(nn.Module):
+class SWTransformerBlock(_KernelWeightCache):
     """(Shifted-)window self-attention block on [B, T, H, W, C]:
     LN -> (shift) -> W-MSA -> LN -> MLP (the reference encoder block)."""
 
@@ -207,15 +252,6 @@ class SWTransformerBlock(nn.Module):
         self.attn = WindowAttention3D(dim, num_frames, window_size, num_heads)
         self.norm2 = layer_norm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
-        self._kernel_cache = None
-
-    def _apply(self, *args, **kwargs):
-        self._kernel_cache = None
-        return super()._apply(*args, **kwargs)
-
-    def _load_from_state_dict(self, *args, **kwargs):
-        self._kernel_cache = None
-        return super()._load_from_state_dict(*args, **kwargs)
 
     def kernel_weights(self, device: torch.device) -> SWBlockWeights:
         """This block's weights for :func:`sw_block`: the live parameters for

@@ -17,7 +17,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("sw_block", "dense_mha", "vq_nearest")
+SOURCES = ("sw_block", "dense_mha", "vq_nearest", "fused_conv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -8,7 +8,8 @@ Optionally writes the same as JSON (`--json PATH`).  The knob flags and
 `--mha-layout` profile the step's other evaluation plans.
 
     python -m pgtformer_tpu_torch.profile_step [--steps 3] [--json out.json] \
-        [--sw-kernel 5d|tokens] [--sw-pair 0|1] [--mha-layout bnhd|bhnd]
+        [--sw-kernel 5d|tokens] [--sw-pair 0|1] [--fused-tail 0|up|1] \
+        [--mha-layout bnhd|bhnd]
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ GROUPS = (("sw_block_pair (K4)", ("sw_block_pair_kernel",)),
           ("sw_block (K1)", ("sw_block_kernel",)),
           ("dense_mha (K2/K6)", ("dense_mha_kernel",)),
           ("vq_nearest (K5)", ("vq_nearest_kernel", "code_sqnorm_kernel")),
+          ("gn_silu_conv3x3 (K7)", ("gn_silu_conv3x3_kernel",)),
+          ("subpixel_up_conv3x3 (K8)", ("subpixel_up_conv3x3_kernel",)),
           ("conv (cuDNN)", ("conv", "cudnn", "implicit", "winograd", "fprop", "dgrad")),
           ("gemm", ("gemm", "cutlass", "cublas")),
           ("norm", ("norm",)),
@@ -94,7 +97,7 @@ def main(argv=None) -> int:
     busy = sum(groups.values())
     smi = torch.cuda.get_device_name(0)
     plan = (f"SW_KERNEL={knobs.get('SW_KERNEL')} SW_PAIR={knobs.get('SW_PAIR')} "
-            f"mha_layout={args.mha_layout}")
+            f"FUSED_TAIL={knobs.get('FUSED_TAIL')} mha_layout={args.mha_layout}")
     print(f"device {smi}; serving step B={B} {res}x{res} [{plan}]: wall {wall_ms:.2f} ms/step, "
           f"device busy {busy:.2f} ms/step ({100 * busy / wall_ms:.1f}%), "
           f"idle share {100 * (1 - busy / wall_ms):.1f}%")

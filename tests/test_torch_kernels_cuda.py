@@ -15,7 +15,11 @@ version), both layouts.  K3 (token entry) is held to K1's tolerance and to
 bit-equality with K1 on the same windows; K4 (pair) to bit-equality with two
 K1 launches.  K5 (nearest code, fp32) must agree with its plain version on
 >= 0.999 of rows, and wherever it differs the two choices' fp64 distances
-must lie within 1e-5 relative of each other.
+must lie within 1e-5 relative of each other.  K7 (gn_silu_conv3x3) and K8
+(subpixel_up_conv3x3): max|kernel - plain| <= 1e-2 * max|plain| (one bf16 ulp
+of the output where fp32 sums in another order round the other way), the
+emitted statistics within 1e-3 of the largest per-channel value of their
+kind; the plain versions multiply in fp32, so TF32 is switched off for them.
 """
 
 import numpy as np
@@ -26,6 +30,9 @@ from pgtformer_tpu_torch.nn.blocks import EncoderLayer, SWTransformerBlock, init
 from pgtformer_tpu_torch import knobs
 from pgtformer_tpu_torch.ops.dense_mha import (
     dense_mha, dense_mha_bhnd, dense_mha_bnhd, dense_mha_plain)
+from pgtformer_tpu_torch.ops.fused_conv import (
+    channel_stats, gn_affine_from_stats, gn_silu_conv3x3, gn_silu_conv3x3_plain,
+    subpixel_up_conv3x3, subpixel_up_conv3x3_plain)
 from pgtformer_tpu_torch.ops.sw_block import (
     sw_block, sw_block_pair, sw_block_pair_plain, sw_block_plain, sw_block_tokens,
     sw_block_tokens_plain)
@@ -265,3 +272,136 @@ def test_quantizer_on_the_card_uses_the_kernel_unless_exact():
         knobs.reset()
     assert q.dtype == torch.bfloat16 and bool(torch.isfinite(loss))
     assert (codes == codes2).float().mean().item() >= 0.999
+
+
+def _exact_fp32():
+    """The plain versions of K7/K8 multiply bf16 values in fp32."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _close_conv(out, st, ref, ref_st):
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    assert torch.isfinite(out).all()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 1e-2 * ref.float().abs().max().item(), err
+    if ref_st is None:
+        assert st is None
+        return
+    rel = (st - ref_st).abs().amax(dim=(0, 2)) / ref_st.abs().amax(dim=(0, 2))
+    assert rel.max().item() <= 1e-3, rel
+
+
+@pytest.mark.parametrize("N,H,W", [(2, 512, 512), (1, 37, 53)])
+@pytest.mark.parametrize("C,Cs,residual,act,emit", [
+    (128, 0, False, True, True), (64, 128, False, True, True), (64, 0, False, True, True),
+    (64, 0, True, True, True), (128, 0, False, False, False)])
+def test_gn_silu_conv3x3_kernel(N, H, W, C, Cs, residual, act, emit):
+    """K7 in the fused tail's four forms and as a plain conv, at the serving
+    step's frame size and at a ragged one."""
+    dev = _card()
+    _exact_fp32()
+    g = torch.Generator().manual_seed(11)
+    rnd = lambda *shape: torch.randn(shape, generator=g)
+    bf = torch.bfloat16
+    x = (rnd(N, H, W, C) * 0.7 + 0.2).to(dev, bf)
+    ab = None
+    if act:
+        ab = gn_affine_from_stats(channel_stats(x), (1.0 + 0.1 * rnd(C)).to(dev),
+                                  (0.1 * rnd(C)).to(dev), H * W)
+    k = (rnd(3, 3, C, 64) * (9 * C) ** -0.5).to(dev, bf)
+    bias = (0.1 * rnd(64)).to(dev)
+    kw = {}
+    if Cs:
+        kw["shortcut"] = ((rnd(N, H, W, Cs) * 0.7).to(dev, bf),
+                          (rnd(Cs, 64) * Cs ** -0.5).to(dev, bf), (0.1 * rnd(64)).to(dev))
+    if residual:
+        kw["residual"] = (rnd(N, H, W, 64) * 0.7).to(dev, bf)
+    before = gn_silu_conv3x3.launches
+    out, st = gn_silu_conv3x3(x, ab, k, bias, emit_stats=emit, **kw)
+    assert gn_silu_conv3x3.launches == before + 1
+    ref, ref_st = gn_silu_conv3x3_plain(x, ab, k, bias, emit_stats=emit, **kw)
+    _close_conv(out, st, ref, ref_st)
+    again, st2 = gn_silu_conv3x3(x, ab, k, bias, emit_stats=emit, **kw)
+    assert torch.equal(again, out) and (st is None or torch.equal(st2, st))   # no atomics
+
+
+@pytest.mark.parametrize("emit", [True, False])
+@pytest.mark.parametrize("shape", [(2, 256, 256, 128), (3, 32, 32, 512), (3, 64, 64, 256),
+                                   (3, 128, 128, 256), (1, 13, 21, 128), (1, 9, 37, 64)])
+def test_subpixel_up_conv3x3_kernel(shape, emit):
+    """K8 at the serving step's four upsample widths and at ragged shapes."""
+    dev = _card()
+    _exact_fp32()
+    C = shape[-1]
+    g = torch.Generator().manual_seed(12)
+    x = (torch.randn(shape, generator=g) * 0.7).to(dev, torch.bfloat16)
+    k3 = (torch.randn((3, 3, C, C), generator=g) * (9 * C) ** -0.5).to(dev, torch.bfloat16)
+    bias = (0.1 * torch.randn((C,), generator=g)).to(dev)
+    before = subpixel_up_conv3x3.launches
+    out, st = subpixel_up_conv3x3(x, k3, bias, emit_stats=emit)
+    assert subpixel_up_conv3x3.launches == before + 1
+    assert out.shape == (shape[0], 2 * shape[1], 2 * shape[2], C)
+    ref, ref_st = subpixel_up_conv3x3_plain(x, k3, bias, emit_stats=emit)
+    _close_conv(out, st, ref, ref_st)
+    # the middle frame of a clip as a view: the launch takes the batch stride
+    clip = torch.stack([x + 1, x, x - 1], dim=1)
+    mid = clip[:, 1:2].reshape(shape)
+    assert not mid.is_contiguous() or shape[0] == 1
+    assert torch.equal(subpixel_up_conv3x3(mid, k3, bias, emit_stats=False)[0], out)
+
+
+def test_fused_conv_kernels_refuse_instead_of_falling_back():
+    dev = _card()
+    bf = torch.bfloat16
+    x = torch.zeros((1, 8, 16, 64), device=dev, dtype=bf)
+    k = torch.zeros((3, 3, 64, 64), device=dev, dtype=bf)
+    bias = torch.zeros((64,), device=dev)
+    gn_silu_conv3x3(x, None, k, bias)                                   # taken
+    for bad in (dict(x=x.float()), dict(k=k.float()), dict(bias=bias.to(bf)),
+                dict(x=x[:, :, ::2]), dict(x=x.transpose(1, 2)),
+                dict(x=x[..., :32].contiguous(), k=k[:, :, :32].contiguous()),    # C = 32
+                dict(k=k[..., :32].contiguous(), bias=bias[:32].contiguous())):   # Co = 32
+        args = {**dict(x=x, k=k, bias=bias), **bad}
+        with pytest.raises((NotImplementedError, ValueError)):
+            gn_silu_conv3x3(args["x"], None, args["k"], args["bias"])
+    with pytest.raises(NotImplementedError):                            # Cs = 64
+        gn_silu_conv3x3(x, None, k, bias, shortcut=(x, k[0, 0], bias))
+    with pytest.raises(NotImplementedError):
+        gn_silu_conv3x3(x, None, k, bias, residual=x.float())
+    subpixel_up_conv3x3(x, k, bias)                                     # taken
+    for bad in (dict(x=x.float()), dict(bias=bias.to(bf)), dict(x=x[:, :, ::2]),
+                dict(x=x[..., :32].contiguous(), k=k[:, :, :32, :32].contiguous(),
+                     bias=bias[:32].contiguous())):                              # C = 32
+        args = {**dict(x=x, k=k, bias=bias), **bad}
+        with pytest.raises(NotImplementedError):
+            subpixel_up_conv3x3(args["x"], args["k"], args["bias"])
+
+
+@pytest.mark.parametrize("mode,k8,k7", [("1", 1, 4), ("up", 1, 0)])
+def test_decoder3d_fused_tail_on_the_card(mode, k8, k7):
+    """Decoder3D under FUSED_TAIL on the card (kernels) against the same
+    model on the CPU (the plain chain), bf16, middle frames."""
+    dev = _card()
+    from pgtformer_tpu_torch.config import DDConfig
+    from pgtformer_tpu_torch.models.vae import Decoder3D
+    dd = DDConfig(z_channels=32, resolution=32, ch=64, ch_mult=(1, 2), depths=(2, 2),
+                  num_heads=(4, 4), window_sizes=((4, 4), (4, 4)), attn_resolutions=(16,))
+    cpu = init_weights(Decoder3D(dd), torch.Generator().manual_seed(13)).to(torch.bfloat16).eval()
+    gpu = Decoder3D(dd).to(torch.bfloat16)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu = gpu.to(dev).eval()
+    z = torch.randn((6, 16, 16, 32), generator=torch.Generator().manual_seed(14))
+    z = (z * 0.5).to(torch.bfloat16)
+    try:
+        knobs.set_knob("FUSED_TAIL", mode)
+        with torch.no_grad():
+            ref = cpu(z, middle_only=True).float()
+            n8, n7 = subpixel_up_conv3x3.launches, gn_silu_conv3x3.launches
+            out = gpu(z.to(dev), middle_only=True).float().cpu()
+        assert (subpixel_up_conv3x3.launches, gn_silu_conv3x3.launches) == (n8 + k8, n7 + k7)
+    finally:
+        knobs.reset()
+    assert out.shape == (2, 32, 32, 3)
+    err = (out - ref).abs()
+    assert err.mean().item() <= 2e-2 * ref.abs().max().item(), err.mean()

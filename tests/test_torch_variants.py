@@ -195,7 +195,7 @@ def test_mhsa_layouts_agree(same_qk):
 # -- knobs ---------------------------------------------------------------------
 
 def test_knob_registry_is_a_subset_of_the_jax_packages():
-    assert set(knobs.KNOBS) == {"EXACT_VQ", "SW_KERNEL", "SW_PAIR"}
+    assert set(knobs.KNOBS) == {"EXACT_VQ", "SW_KERNEL", "SW_PAIR", "FUSED_TAIL"}
     for name, knob in knobs.KNOBS.items():
         ref = jknobs.KNOBS[name]
         assert (knob.default, knob.choices) == (ref.default, ref.choices), name
@@ -205,7 +205,8 @@ def test_knob_registry_is_a_subset_of_the_jax_packages():
 
 
 @pytest.mark.parametrize("name,value", [("SW_KERNEL", "tokens"), ("SW_PAIR", "1"),
-                                        ("EXACT_VQ", "1")])
+                                        ("EXACT_VQ", "1"), ("FUSED_TAIL", "up"),
+                                        ("FUSED_TAIL", "1")])
 def test_knob_resolution_order(monkeypatch, name, value):
     default = knobs.KNOBS[name].default
     assert knobs.get(name) == default
@@ -221,7 +222,7 @@ def test_knob_resolution_order(monkeypatch, name, value):
     with pytest.raises(ValueError):
         knobs.set_knob(name, "bogus")
     with pytest.raises(KeyError):
-        knobs.get("FUSED_TAIL")
+        knobs.get("SW_RPS")
 
 
 def test_knob_cli_flags():
@@ -230,11 +231,14 @@ def test_knob_cli_flags():
     jparser = argparse.ArgumentParser()
     jknobs.add_cli_flags(jparser)
     flags = lambda p: {s for a in p._actions for s in a.option_strings}
-    assert {"--sw-kernel", "--sw-pair", "--exact-vq"} <= flags(parser) <= flags(jparser)
-    args = parser.parse_args(["--sw-kernel", "tokens", "--exact-vq", "1"])
+    assert ({"--sw-kernel", "--sw-pair", "--exact-vq", "--fused-tail"} <= flags(parser)
+            <= flags(jparser))
+    args = parser.parse_args(["--sw-kernel", "tokens", "--exact-vq", "1", "--fused-tail", "up"])
     knobs.apply_cli_args(args)
     assert knobs.get("SW_KERNEL") == "tokens" and knobs.get("EXACT_VQ") == "1"
-    assert knobs.get("SW_PAIR") == "0"
+    assert knobs.get("SW_PAIR") == "0" and knobs.get("FUSED_TAIL") == "up"
+    with pytest.raises(SystemExit):
+        parser.parse_args(["--fused-tail", "2"])
     with pytest.raises(SystemExit):
         parser.parse_args(["--sw-pair", "2"])
     assert "PGT_SW_PAIR" in parser.format_help()
