@@ -14,9 +14,11 @@ Phases, in order; any failure exits non-zero:
     the bound from shapes and, where one PyTorch call computes the same
     function, that call's time as a yardstick (the port never calls it):
     K1 sw_block, K3 sw_block_tokens, K4 sw_block_pair (also bit-equal to two
-    K1 launches), K2/K6 dense_mha in both layouts, K5 nearest_code (rate of
-    agreement, every disagreement a near-tie in fp64, ragged shapes, a
-    codebook of near-twins, an exact tie), K7 gn_silu_conv3x3 in its four
+    K1 launches), K2/K6 dense_mha in both layouts (two launches and the two
+    layouts bit-equal, achieved TFLOP/s and share of the bound; edge cases:
+    partial tiles, D=32 and 16, strongly negative and sharp logits), K5
+    nearest_code (rate of agreement, every disagreement a near-tie in fp64,
+    ragged shapes, a codebook of near-twins, an exact tie), K7 gn_silu_conv3x3 in its four
     forms at 8 x 512 x 512 and K8 subpixel_up_conv3x3 at its four shapes
     (output and emitted statistics, ragged shapes, a strided batch), each
     beside the stock PyTorch sequence for the same function;
@@ -323,43 +325,103 @@ def phase_k4(iters: int):
     return rows, worst
 
 
+# (label, B, H, N, D, kind) held to K2_TOL in both layouts besides the
+# deployed shape: partial query and key tiles (N not a multiple of 128, and
+# N=8: one partial tile of each), D=32 (scale 2^-2.5 is no power of two) and
+# D=16; "negative" makes every logit about -9*sqrt(D), so an unmasked
+# zero-filled key (logit 0) would take the softmax; "sharp" multiplies the
+# logits by 30, so the running max moves by far from tile to tile.
+MHA_EDGE_CASES = [("N=200", 1, 2, 200, 64, "normal"), ("N=136", 2, 2, 136, 64, "normal"),
+                  ("N=8", 1, 2, 8, 64, "normal"), ("D=32", 2, 4, 768, 32, "normal"),
+                  ("D=16", 2, 4, 768, 16, "normal"), ("negative", 1, 2, 200, 64, "negative"),
+                  ("sharp", 2, 2, 520, 64, "sharp")]
+
+
+def mha_operands(B: int, H: int, N: int, D: int, kind: str, seed: int):
+    """The serving step's operands on the card: q/k are halves of one packed
+    [B, N, 2C] projection, v its own [B, N, C]; returned as that packed
+    projection and v."""
+    import torch
+    C = H * D
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qk = torch.randn((B, N, 2 * C), generator=g, device="cuda") * 1.5
+    if kind == "negative":
+        qk = qk * 0.2
+        qk[..., :C] += 3.0
+        qk[..., C:] -= 3.0
+    elif kind == "sharp":
+        qk[..., :C] *= 30.0
+    vp = torch.randn((B, N, C), generator=g, device="cuda")
+    return qk.to(torch.bfloat16), vp.to(torch.bfloat16)
+
+
+def _mha_views(qk, vp, H: int, layout: str):
+    B, N, C = vp.shape
+    split = lambda a: a.reshape(B, N, H, C // H)
+    view = split if layout == "bnhd" else (lambda a: split(a).transpose(1, 2))
+    return view(qk[..., :C]), view(qk[..., C:]), view(vp)
+
+
+def _mha_check(label: str, qk, vp, H: int):
+    """Both layouts against their plain versions; two launches bit-equal;
+    bnhd bit-equal to bhnd.  Returns {layout: (out, max|d|, max|ref|)}."""
+    import torch
+    from pgtformer_tpu_torch.ops.dense_mha import (
+        dense_mha, dense_mha_plain, dense_mha_plain_bnhd)
+    scale = (qk.shape[-1] // 2 // H) ** -0.5
+    res = {}
+    for layout, plain_fn in (("bnhd", dense_mha_plain_bnhd), ("bhnd", dense_mha_plain)):
+        q, k, v = _mha_views(qk, vp, H, layout)
+        out = dense_mha(q, k, v, scale=scale, layout=layout)
+        again = dense_mha(q, k, v, scale=scale, layout=layout)
+        ref = plain_fn(q, k, v, scale)
+        torch.cuda.synchronize()
+        err, mag = _compare(f"dense_mha {layout} {label}", out, ref, K2_TOL)
+        if not torch.equal(out, again):
+            raise SystemExit(f"dense_mha {layout} {label}: two launches differ")
+        res[layout] = (out, err, mag)
+    if not torch.equal(res["bnhd"][0].transpose(1, 2), res["bhnd"][0]):
+        raise SystemExit(f"dense_mha {label}: bnhd and bhnd outputs differ")
+    return res
+
+
 def phase_mha(iters: int):
     """K6 (bnhd) and K2 (bhnd) at the code transformer's shape, each against
-    its plain version; SDPA on the same operands as the yardstick."""
-    import torch
+    its plain version, bit-equal across two launches and across the two
+    layouts; SDPA on the same operands as the yardstick; then the edge
+    cases of MHA_EDGE_CASES."""
     import torch.nn.functional as F
     from pgtformer_tpu_torch.ops.dense_mha import (
         dense_mha, dense_mha_plain, dense_mha_plain_bnhd)
     B, H, N, D = 8, 8, 3072, 64
     C = H * D
     scale = D ** -0.5
-    g = torch.Generator(device="cuda").manual_seed(7)
-    # the serving step's operands: q/k are halves of one packed [B, N, 2C]
-    # projection, v its own [B, N, C]
-    qk = (torch.randn((B, N, 2 * C), generator=g, device="cuda") * 1.5).to(torch.bfloat16)
-    vp = torch.randn((B, N, C), generator=g, device="cuda").to(torch.bfloat16)
-    split = lambda a: a.reshape(B, N, H, D)
+    qk, vp = mha_operands(B, H, N, D, "normal", seed=7)
     flops = 4 * B * H * N * N * D
     nbytes = 4 * B * N * C * 2
     bms, by = bound_ms(flops, nbytes)
+    checked = _mha_check("[8, 3072, 8, 64]", qk, vp, H)
     res = {}
     for layout, plain_fn in (("bnhd", dense_mha_plain_bnhd), ("bhnd", dense_mha_plain)):
-        view = split if layout == "bnhd" else (lambda a: split(a).transpose(1, 2))
-        q, k, v = view(qk[..., :C]), view(qk[..., C:]), view(vp)
-        run = lambda: dense_mha(q, k, v, scale=scale, layout=layout)
-        out = run()
-        ref = plain_fn(q, k, v, scale)
-        torch.cuda.synchronize()
-        err, mag = _compare(f"dense_mha {layout}", out, ref, K2_TOL)
-        ms = time_ms(run, iters)
+        q, k, v = _mha_views(qk, vp, H, layout)
+        _, err, mag = checked[layout]
+        ms = time_ms(lambda: dense_mha(q, k, v, scale=scale, layout=layout), iters)
         plain = time_ms(lambda: plain_fn(q, k, v, scale), max(1, iters // 4), warmup=1)
         hq, hk, hv = (a if layout == "bhnd" else a.transpose(1, 2) for a in (q, k, v))
         lib = time_ms(lambda: F.scaled_dot_product_attention(hq, hk, hv, scale=scale), iters)
         log(f"[mha:{layout}] q/k/v {list(q.shape)} (views of packed projections): "
-            f"max|d|={err:.3e} (max|ref|={mag:.3e}, tol {K2_TOL}*max|ref|) kernel_ms={ms:.4f} "
-            f"plain_ms={plain:.4f} sdpa_ms={lib:.4f} bound_ms={bms:.4f} ({by}) OK")
+            f"max|d|={err:.3e} (max|ref|={mag:.3e}, tol {K2_TOL}*max|ref|), two launches "
+            f"bit-equal, bnhd == bhnd; kernel_ms={ms:.4f} ({flops / ms / 1e9:.1f} TFLOP/s, "
+            f"{bms / ms:.3f} of the bound) plain_ms={plain:.4f} sdpa_ms={lib:.4f} "
+            f"bound_ms={bms:.4f} ({by}) OK")
         res[layout] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
-                           max_abs_err=err)
+                           max_abs_err=err, tflops=flops / ms / 1e9)
+    for i, (label, b, h, n, d, kind) in enumerate(MHA_EDGE_CASES):
+        checked = _mha_check(label, *mha_operands(b, h, n, d, kind, seed=20 + i), h)
+        log(f"[mha:edge] {label} [B={b}, H={h}, N={n}, D={d}] ({kind}): "
+            + ", ".join(f"{lay} max|d|={e:.3e} (max|ref|={m:.3e})"
+                        for lay, (_, e, m) in checked.items())
+            + f", tol {K2_TOL}*max|ref|, two launches bit-equal, bnhd == bhnd OK")
     return res
 
 

@@ -11,11 +11,14 @@ Two entry points over the one strided Hopper kernel ``csrc/dense_mha.cu``:
   returned as its free ``[B, N, H, D]`` view.
 
 :func:`dense_mha` takes the JAX package's ``layout`` argument and
-dispatches.  Either way the kernel reads its operands in place through
-(batch, head, row) strides, so no head transpose is materialized.  The TPU
-kernels keep a head's whole K/V in VMEM; a Hopper SM cannot, so the kernel
-runs an online softmax over 64-key tiles.  At N=3072 it is compute-bound
-(~N/2 FLOP per byte).
+dispatches.  Either way the kernel reads its operands in place through 4-D
+TMA tensor maps whose geometry (:func:`tma_geometry`: dims, byte strides,
+box, swizzle) comes from each tensor's own strides, so no head transpose is
+materialized.  The TPU kernels keep a head's whole K/V in VMEM; a Hopper SM
+cannot, so the kernel streams 128-key tiles through a TMA ring and runs an
+online softmax on ``wgmma`` scores kept in registers, with P fed back from
+registers into the P.V product (see the note at the top of the source).  At
+N=3072 it is bound by operations (~N/2 FLOP per byte).
 
 Each entry point launches the kernel for CUDA tensors and runs its plain
 version (:func:`dense_mha_plain`, :func:`dense_mha_plain_bnhd`) only for
@@ -25,6 +28,7 @@ tensors on the CPU; each has its own launch counter.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -47,37 +51,77 @@ def dense_mha_plain_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return t(dense_mha_plain(t(q), t(k), t(v), scale))
 
 
+BOX_ROWS = 128    # rows of one TMA box: the kernel's query tile and key tile
+
+
+class TmaGeometry(NamedTuple):
+    """One operand's 4-D TMA tensor map, innermost dimension first."""
+    dims: Tuple[int, int, int, int]      # (D, rows N, heads H, batch B)
+    strides: Tuple[int, int, int]        # bytes between rows, heads, batches
+    box: Tuple[int, int, int, int]       # (D, BOX_ROWS, 1, 1)
+    swizzle: int                         # bytes: one row of D (32, 64 or 128)
+
+    def flat(self) -> Tuple[int, ...]:
+        return (*self.dims, *self.strides, *self.box, self.swizzle)
+
+
+def tma_geometry(t: torch.Tensor, layout: str) -> TmaGeometry:
+    """The TMA geometry of one operand ([B, H, N, D] for layout="bhnd",
+    [B, N, H, D] for "bnhd"), read from the tensor's own strides.  Raises
+    NotImplementedError on what TMA and the kernel do not take: a dtype
+    other than bf16, D not in (16, 32, 64), a stride along D other than 1,
+    another stride that is not a multiple of 16 bytes, a base address that is
+    not 16-byte aligned."""
+    if t.dim() != 4:
+        raise ValueError(f"dense_mha takes 4-D operands, got {tuple(t.shape)}")
+    if layout == "bhnd":
+        (B, H, N, D), (sb, sh, sn, sd) = t.shape, t.stride()
+    elif layout == "bnhd":
+        (B, N, H, D), (sb, sn, sh, sd) = t.shape, t.stride()
+    else:
+        raise ValueError(f"layout {layout!r} (choices: bhnd, bnhd)")
+    e = t.element_size()
+    strides = (sn * e, sh * e, sb * e)
+    if (t.dtype != torch.bfloat16 or D not in (16, 32, 64) or sd != 1
+            or any(s % 16 for s in strides) or t.data_ptr() % 16):
+        raise NotImplementedError(
+            f"dense_mha kernel: operands must be bf16 with D in (16, 32, 64), unit "
+            f"stride along D, rows, heads and batches 16-byte aligned; got {t.dtype} "
+            f"{tuple(t.shape)} strides {t.stride()} at {t.data_ptr()}")
+    return TmaGeometry((D, N, H, B), strides, (D, BOX_ROWS, 1, 1), 2 * D)
+
+
 _P = ctypes.c_void_p
-_I = ctypes.c_int
+_LL = ctypes.POINTER(ctypes.c_longlong)
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("dense_mha")
     fn = lib.dense_mha_launch
     if fn.argtypes is None:
-        fn.argtypes = ([_P] * 4 + [_I] * 4
-                       + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _P])
-        fn.restype = _I
+        fn.argtypes = [_P] * 4 + [_LL, _LL, ctypes.c_float, _P]
+        fn.restype = ctypes.c_int
     return lib
 
 
-def _launch(q, k, v, out, B: int, H: int, N: int, D: int, strides, scale: float) -> None:
-    """Check what the kernel needs and launch it.  `strides(t)` gives a
-    tensor's (batch, head, row) strides in elements."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if (t.dtype != torch.bfloat16 or t.shape != q.shape or t.device != q.device
-                or t.stride(3) != 1 or any(s % 8 for s in strides(t))
-                or t.data_ptr() % 16):
+def _launch(q, k, v, out, layout: str, out_strides, scale: float) -> None:
+    """Check what the kernel needs and launch it.  `out_strides` are the
+    output's (batch, head, row) strides in elements."""
+    geom = [tma_geometry(t, layout) for t in (q, k, v)]
+    for name, t in (("k", k), ("v", v)):
+        if t.shape != q.shape or t.device != q.device:
             raise NotImplementedError(
-                f"dense_mha kernel: {name} must be bf16 of q's shape with unit "
-                f"stride along D and 16-byte aligned rows and heads, got "
-                f"{t.dtype} {tuple(t.shape)} strides {t.stride()}")
-    if D not in (16, 32, 64) or N % 8:
+                f"dense_mha kernel: {name} {tuple(t.shape)} on {t.device}, "
+                f"q {tuple(q.shape)} on {q.device}")
+    D, N = geom[0].dims[:2]
+    if N % 8:
         raise NotImplementedError(f"dense_mha kernel: N={N} D={D}")
-    table = (ctypes.c_longlong * 12)(*strides(q), *strides(k), *strides(v), *strides(out))
+    table = (ctypes.c_longlong * 36)(*(x for g in geom for x in g.flat()))
+    ostr = (ctypes.c_longlong * 3)(*out_strides)
+    lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = _lib().dense_mha_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                   out.data_ptr(), B, H, N, D, table, float(scale), stream)
+    code = lib.dense_mha_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                table, ostr, float(scale), stream)
     _build.check(code, "dense_mha launch")
 
 
@@ -102,8 +146,7 @@ def dense_mha_bhnd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dense_mha_plain(q, k, v, scale)
     B, H, N, D = q.shape
     out = torch.empty((B, H, N, D), dtype=q.dtype, device=q.device)
-    _launch(q, k, v, out, B, H, N, D, lambda t: (t.stride(0), t.stride(1), t.stride(2)),
-            scale)
+    _launch(q, k, v, out, "bhnd", (out.stride(0), out.stride(1), out.stride(2)), scale)
     dense_mha_bhnd.launches += 1
     return out
 
@@ -123,8 +166,7 @@ def dense_mha_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dense_mha_plain_bnhd(q, k, v, scale)
     B, N, H, D = q.shape
     out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
-    _launch(q, k, v, out, B, H, N, D, lambda t: (t.stride(0), t.stride(2), t.stride(1)),
-            scale)
+    _launch(q, k, v, out, "bnhd", (out.stride(0), out.stride(2), out.stride(1)), scale)
     dense_mha_bnhd.launches += 1
     return out
 

@@ -11,7 +11,8 @@ Tolerances: max|kernel - plain| <= 2e-2 * max|plain| for K1 (the plain
 version rounds every intermediate to bf16, the kernel keeps the residual
 and LayerNorm in fp32) and <= 1e-2 * max|plain| for K2 (probabilities are
 rounded to bf16 before normalization in the kernel, after it in the plain
-version), both layouts.  K3 (token entry) is held to K1's tolerance and to
+version), both layouts, at the cases of MHA_CASES; two launches and the
+two layouts bit-equal.  K3 (token entry) is held to K1's tolerance and to
 bit-equality with K1 on the same windows; K4 (pair) to bit-equality with two
 K1 launches.  K5 (nearest code, fp32) must agree with its plain version on
 >= 0.999 of rows, and wherever it differs the two choices' fp64 distances
@@ -78,13 +79,39 @@ def test_sw_block_kernel_matches_plain(shape, shift):
     assert err <= 2e-2 * ref.float().abs().max().item(), err
 
 
-@pytest.mark.parametrize("B,H,N,D", [(8, 8, 3072, 64), (2, 4, 768, 16), (1, 2, 200, 32)])
-def test_dense_mha_kernel_matches_plain(B, H, N, D):
+# (B, H, N, D, kind) of the attention kernel's cases: the code transformer's
+# shape, partial query and key tiles (N not a multiple of 128; N=8, one
+# partial tile of each), D=32 (its scale 2^-2.5 is no power of two) and
+# D=16; "negative" makes every logit about -9*sqrt(D), so an unmasked
+# zero-filled key (logit 0) would take the softmax; "sharp" multiplies the
+# logits by 30, so the running max moves by far from tile to tile.
+MHA_CASES = [(8, 8, 3072, 64, "normal"), (2, 4, 768, 16, "normal"), (1, 2, 200, 32, "normal"),
+             (1, 2, 200, 64, "normal"), (2, 2, 136, 64, "normal"), (1, 2, 8, 64, "normal"),
+             (2, 4, 768, 32, "normal"), (1, 2, 200, 64, "negative"), (2, 2, 520, 64, "sharp")]
+
+
+def mha_operands(B, H, N, D, kind):
+    """fp32 CPU operands, made with numpy from a seed, as the serving step
+    lays them out: q and k are the halves of one packed [B, N, 2C]
+    projection, v its own [B, N, C]."""
+    C = H * D
+    rng = np.random.default_rng(3)
+    qk = rng.standard_normal((B, N, 2 * C), dtype=np.float32) * 1.5
+    v = rng.standard_normal((B, N, C), dtype=np.float32)
+    if kind == "negative":
+        qk = qk * 0.2
+        qk[..., :C] += 3.0
+        qk[..., C:] -= 3.0
+    elif kind == "sharp":
+        qk[..., :C] *= 30.0
+    return torch.from_numpy(qk), torch.from_numpy(v)
+
+
+@pytest.mark.parametrize("B,H,N,D,kind", MHA_CASES)
+def test_dense_mha_kernel_matches_plain(B, H, N, D, kind):
     dev = _card()
     C = H * D
-    g = torch.Generator().manual_seed(3)
-    qk = (torch.randn((B, N, 2 * C), generator=g) * 1.5).to(dev, torch.bfloat16)
-    v = torch.randn((B, N, C), generator=g).to(dev, torch.bfloat16)
+    qk, v = (a.to(dev, torch.bfloat16) for a in mha_operands(B, H, N, D, kind))
     split = lambda a: a.reshape(B, N, H, D)
     q, k, v = split(qk[..., :C]), split(qk[..., C:]), split(v)
     heads = lambda a: a.transpose(1, 2)
@@ -95,7 +122,9 @@ def test_dense_mha_kernel_matches_plain(B, H, N, D):
     out = dense_mha(heads(q), heads(k), heads(v), scale=D ** -0.5, layout="bhnd")
     assert out.shape == (B, H, N, D) and out.is_contiguous()
     assert (dense_mha_bnhd.launches, dense_mha_bhnd.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.isfinite(out).all()
     assert torch.equal(heads(packed), out)          # one kernel, two layouts
+    assert torch.equal(dense_mha(q, k, v, scale=D ** -0.5, layout="bnhd"), packed)  # no atomics
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= 1e-2 * ref.float().abs().max().item(), err
 
