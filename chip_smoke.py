@@ -205,6 +205,15 @@ def _compare(name: str, out, ref, tol: float):
 K1_CASES = [((8, 3, 128, 128, 256), (0, 0), 3), ((8, 3, 128, 128, 256), (2, 2), 3),
             ((8, 3, 64, 64, 256), (0, 0), 3), ((8, 3, 64, 64, 256), (2, 2), 3),
             ((8, 3, 32, 32, 512), (0, 0), 5), ((8, 3, 32, 32, 512), (2, 2), 5)]
+# 3 windows at C=256: 3 slabs at two per CTA, so the last CTA's second slab
+# lies past the input; and 7 windows of N=16 at C=512: 3 slabs of three
+# windows (one per CTA), the last slab holding one window
+K1_RAGGED = [((1, 3, 4, 12, 256), (2, 2)), ((1, 1, 4, 28, 512), (2, 2))]
+
+
+def _sw_block_flops(shape, blocks: int = 1) -> float:
+    B, T, H, W, C = shape
+    return blocks * B * T * H * W * (12 * C * C + 4 * T * 16 * C)
 
 
 def _sw_block_bound(shape, blocks: int = 1, mask_bytes: int = 0):
@@ -213,7 +222,7 @@ def _sw_block_bound(shape, blocks: int = 1, mask_bytes: int = 0):
     B, T, H, W, C = shape
     M = B * T * H * W
     N = T * 16
-    flops = blocks * M * (12 * C * C + 4 * N * C)
+    flops = _sw_block_flops(shape, blocks)
     nbytes = 2 * M * C * 2 + blocks * (6 * C * C * 2 + 10 * C * 4 + 8 * N * N * 4) + mask_bytes
     return bound_ms(flops, nbytes)
 
@@ -238,12 +247,24 @@ def phase_k1(iters: int):
         ms = time_ms(lambda: sw_block(x, w, shift), iters)
         plain = time_ms(lambda: sw_block_plain(x, w, shift), max(1, iters // 4), warmup=1)
         bms, by = _sw_block_bound(shape)
+        tflops = _sw_block_flops(shape) / ms / 1e9
         log(f"[k1] x{list(shape)} shift{shift}: max|d|={err:.3e} (max|ref|={scale:.3e}, "
-            f"tol {K1_TOL}*max|ref|) kernel_ms={ms:.4f} plain_ms={plain:.4f} "
-            f"bound_ms={bms:.4f} ({by}) OK")
+            f"tol {K1_TOL}*max|ref|) kernel_ms={ms:.4f} ({tflops:.1f} TFLOP/s, "
+            f"{bms / ms:.3f} of the bound) plain_ms={plain:.4f} bound_ms={bms:.4f} ({by}) OK")
         worst = max(worst, err)
         rows.append(dict(shape=list(shape), shift=list(shift), per_step=per_step,
-                         ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=err))
+                         ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=err,
+                         tflops=tflops))
+    for i, (shape, shift) in enumerate(K1_RAGGED):
+        w = _sw_block_weights(shape[-1], 8, shape[1], seed=150 + i)
+        x = _case_input(50 + i, shape)
+        out = sw_block(x, w, shift)
+        err, scale = _compare(f"K1 ragged {shape}", out, sw_block_plain(x, w, shift), K1_TOL)
+        if not torch.equal(sw_block(x, w, shift), out):
+            raise SystemExit(f"K1 ragged {shape}: two launches differ")
+        log(f"[k1] ragged x{list(shape)} shift{shift}: max|d|={err:.3e} "
+            f"(max|ref|={scale:.3e}, tol {K1_TOL}*max|ref|), two launches bit-equal OK")
+        worst = max(worst, err)
     return rows, worst
 
 
@@ -488,7 +509,8 @@ def phase_k5(iters: int):
     csq = (codes * codes).sum(-1)
     lib = time_ms(lambda: torch.addmm(csq, x, codes.T, alpha=-2.0).argmin(-1), iters)
     bms, by = bound_ms(2.0 * N * n * D, (N * D + n * D) * 4 + N * 8, H100_FP32_FLOPS)
-    log(f"[k5] x[{N},{D}] codes[{n},{D}] fp32: kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+    log(f"[k5] x[{N},{D}] codes[{n},{D}] fp32: kernel_ms={ms:.4f} ("
+        f"{2.0 * N * n * D / ms / 1e9:.1f} TFLOP/s, {bms / ms:.3f} of the bound) plain_ms={plain:.4f} "
         f"addmm_argmin_ms={lib:.4f} (fp32 matmul, TF32 off) bound_ms={bms:.4f} ({by} at the "
         f"{H100_FP32_FLOPS / 1e12:.0f} TFLOP/s fp32 peak)")
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,

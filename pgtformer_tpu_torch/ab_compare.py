@@ -1,5 +1,5 @@
-"""Time the attention kernels and the serving step of several source trees
-on one card, in turns, and compare their restored frames.
+"""Time the kernels K1, K2/K6 and K5 and the serving step of several source
+trees on one card, in turns, and compare their restored frames.
 
 Each tree is a checkout of the repo (for example the parent commit unpacked
 with ``git archive <commit> | tar -x -C build/parent``).  Every turn runs in
@@ -11,6 +11,11 @@ same seeded inputs:
   both layouts (K6 ``bnhd`` on views of the packed projections, K2
   ``bhnd``), CUDA events over repeated launches: the best and the median of
   ``--repeats`` runs of ``--iters`` launches;
+* K1 ``sw_block`` at the serving step's three layer shapes ([8, 3, 128, 128,
+  256], [8, 3, 64, 64, 256], [8, 3, 32, 32, 512]), unshifted and shifted, and
+  K5 ``nearest_code`` at the deployed shape (x [24576, 512] against codes
+  [1024, 512], fp32) beside ``addmm`` + ``argmin`` on the same operands,
+  timed the same way;
 * the default serving step (RELEASE_PGTFORMER, 512x512, B=8 windows, seeded
   random weights): prime + ``--chunks`` steps, steady ms per step.
 
@@ -53,6 +58,43 @@ def _time_ms(fn, iters: int, repeats: int):
     return min(runs), float(np.median(runs))
 
 
+K1_SHAPES = [(8, 3, 128, 128, 256), (8, 3, 64, 64, 256), (8, 3, 32, 32, 512)]
+
+
+def _time_k1_k5(iters: int, repeats: int) -> dict:
+    """K1 per layer shape (both shifts) and K5 at the deployed shape, on
+    seeded operands: {name: best ms}, medians beside them."""
+    import torch
+    from pgtformer_tpu_torch.nn.blocks import SWTransformerBlock, init_weights
+    from pgtformer_tpu_torch.ops.sw_block import sw_block
+    from pgtformer_tpu_torch.ops.vq import nearest_code
+    out = {}
+    for i, shape in enumerate(K1_SHAPES):
+        B, T, H, W, C = shape
+        g = torch.Generator().manual_seed(100 + i)
+        blk = init_weights(SWTransformerBlock(C, 8, T, (4, 4), (0, 0), mlp_ratio=1.0), g)
+        with torch.no_grad():
+            for p in blk.parameters():
+                if p.dim() == 1:
+                    p.add_(torch.randn(p.shape, generator=g) * 0.1)
+        w = blk.cuda().kernel_weights(torch.device("cuda"))
+        x = torch.randn(shape, generator=torch.Generator(device="cuda").manual_seed(i),
+                        device="cuda").to(torch.bfloat16)
+        for shift in ((0, 0), (2, 2)):
+            key = f"k1_{H}x{W}x{C}_shift{shift[0]}"
+            out[f"{key}_ms"], out[f"{key}_median_ms"] = _time_ms(
+                lambda: sw_block(x, w, shift), iters, repeats)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn((24576, 512), generator=g, device="cuda")
+    codes = torch.randn((1024, 512), generator=g, device="cuda")
+    out["k5_ms"], out["k5_median_ms"] = _time_ms(lambda: nearest_code(x, codes), iters, repeats)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    csq = (codes * codes).sum(-1)
+    out["addmm_argmin_ms"], out["addmm_argmin_median_ms"] = _time_ms(
+        lambda: torch.addmm(csq, x, codes.T, alpha=-2.0).argmin(-1), iters, repeats)
+    return out
+
+
 def _worker(frames_path: str, iters: int, repeats: int, chunks: int) -> dict:
     """One turn, inside the tree: the tree's package is first on sys.path."""
     import torch
@@ -75,6 +117,8 @@ def _worker(frames_path: str, iters: int, repeats: int, chunks: int) -> dict:
         best, med = _time_ms(lambda: dense_mha(q, k, v, scale=D ** -0.5, layout=layout),
                              iters, repeats)
         out[f"{layout}_ms"], out[f"{layout}_median_ms"] = best, med
+
+    out.update(_time_k1_k5(iters, repeats))
 
     Bw = 8
     res = RELEASE_PGTFORMER.vqvae.ddconfig.resolution
@@ -149,6 +193,11 @@ def main(argv=None) -> int:
         print(f"[turn {i}] {tree}: K6 bnhd {turn['bnhd_ms']:.4f} ms (median "
               f"{turn['bnhd_median_ms']:.4f}), K2 bhnd {turn['bhnd_ms']:.4f} ms (median "
               f"{turn['bhnd_median_ms']:.4f}), serving step {turn['step_ms']:.2f} ms", flush=True)
+        print(f"[turn {i}] {tree}: K1 "
+              + ", ".join(f"{k[3:-3]} {v:.4f}" for k, v in turn.items()
+                          if k.startswith("k1_") and not k.endswith("median_ms"))
+              + f" ms; K5 {turn['k5_ms']:.4f} ms (median {turn['k5_median_ms']:.4f}), "
+              f"addmm+argmin {turn['addmm_argmin_ms']:.4f} ms", flush=True)
     first = np.load(frames[args.trees[0]])
     diffs = {}
     for tree, path in frames.items():

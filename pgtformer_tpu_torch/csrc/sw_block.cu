@@ -23,34 +23,58 @@
 // fp32 statistics, exact erf GELU, fp32 softmax, bf16 GEMM operands with
 // fp32 accumulation, and an fp32 residual stream.
 //
-// What bounds it on an H100: the block is 12*C^2 + O(N*C) FLOP per token, so
+// What bounds it on an H100: the block is 12*C^2 + 4*N*C FLOP per token, so
 // at C=256/512 it is compute-bound on paper (~295 FLOP/byte needed; the
-// kernel does >1000 per byte of activations).  In practice this first
-// version is bound by its weight traffic and tensor-core feed: it uses
-// nvcuda::wmma 16x16x16 fragments with B operands (the weights, 6*C^2 bf16
-// per block) loaded straight from L2 by every CTA.  What the design does
-// about it: a CTA holds 48 token rows (one T=3 window), so each weight
-// fragment feeds 3 MMAs, and at C<=256 two CTAs share an SM to hide the L2
-// latency (96-row CTAs, one per SM, were slower); the whole block
-// (LN, attention per head, proj, MLP) stays in shared memory, so activations
-// cross device memory once in and once out.  wgmma/TMA with weights staged
-// in shared memory are left to a later version.
+// kernel does >1000 per byte of activations).  The first version (wmma,
+// every warp loading weight fragments straight from L2, 6*C^2 weights re-read
+// per 48 rows) was bound by that weight feed at ~1.1 TB/s.  This design:
+//
+//  * A slab is 48 token rows (one T=3 window, or three T=1 windows), padded
+//    to a 64-row wgmma tile.  A consumer warpgroup owns one slab; a CTA holds
+//    nw slabs (2 at C <= 256, 1 at C=512 and in the pair kernel) and one
+//    producer warpgroup (ops/sw_block.py:sw_plan lays it out).
+//  * Weights reach shared memory only by TMA, as 64 x 64 bf16 tiles (128-byte
+//    swizzle) through a ring of `stages` slots with full/empty mbarriers, so
+//    a tile leaves L2 once per nw slabs.  (Clusters of 2 and 4 CTAs sharing
+//    each tile by TMA multicast were slower at every serving shape on an
+//    H100; PERF.md keeps the times.)
+//  * The four GEMMs (q/k/v as column slices of one GEMM with N = 3C, proj,
+//    fc1, fc2) run on wgmma m64n64k16: A (LN1 output, attention output, LN2
+//    output, GELU output) from shared memory in the 128-byte swizzle, B from
+//    the ring, the accumulator in registers.  Bias, q scale, erf GELU and the
+//    fp32 residual adds are applied from registers in the epilogue, with the
+//    bias and residual values requested before the chunk's products.
+//  * q/k/v are produced a head group at a time (lcm(hd, 64) columns of each)
+//    and the window attention of those heads runs right after on mma.sync
+//    m16n8k16, one warp per 16 query rows: scores, softmax and P stay in
+//    registers; only q/k/v of the group and the output pass shared memory.
+//  * The slab's input rows arrive by 16-byte cp.async through a per-slab row
+//    table (pixel offsets, shift-region labels) computed once; the fp32
+//    residual x1 = x + proj(...) is kept in shared memory (where q/k/v
+//    lived); the final residual add writes bf16 straight to the output.
+//  * Slabs past the input (a ragged last CTA) run on zeros and write
+//    nothing.
+// Built with -DSW_PROBE, CTA 0 counts the clock cycles of each phase
+// (pgtformer_tpu_torch/probe_sw_block.py).
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
 namespace cg = cooperative_groups;
 typedef __nv_bfloat16 bf16;
 
-#define NWARPS 8
-#define NTHREADS (NWARPS * 32)
-constexpr int MT = 3;       // 16-row tiles per CTA
-constexpr int M = 16 * MT;  // token rows per CTA: one T=3 window of 4x4
+namespace {
+
+constexpr int SLAB = 48;                  // token rows per consumer warpgroup
+constexpr int TILE = 64;                  // weight tile: 64 output x 64 input
+constexpr int TILE_BYTES = TILE * TILE * 2;
+constexpr int CHUNK_BYTES = SLAB * 128;   // one 64-column chunk of an A buffer
+constexpr int MAX_NW = 2;
+constexpr int ROW_TABLE = 768;            // per slab: 64 int labels, 64 int64 row offsets
 
 struct SWArgs {
     const bf16* x;
@@ -75,16 +99,164 @@ struct SWArgs {
     const float* mask;  // token entry only: additive [nW, N, N], or null
     int nW;             // token entry only: windows per image
     int B, T, H, W, C, heads, hd, wh, ww, sh, sw, N, nWh, nWw, nwin;
-    int wpc;            // windows per CTA
+    int nslab;          // slabs of SLAB rows: ceil(nwin * N / SLAB)
     float scale;
-    // shared-memory carve-up (bytes)
-    int off_y, off_z, off_k, off_v, off_s, off_p, off_stg, off_lab;
+    // plan (ops/sw_block.py:sw_plan): slabs per CTA, ring slots, head-group width, and the shared-memory carve-up in bytes from
+    // the 1024-aligned base: slab s's A, B and X regions at off_slab + s *
+    // slab_bytes + {0, off_b, off_x}; row tables and barriers at off_lab, off_bar
+    int nw, stages, gw, off_slab, slab_bytes, off_b, off_x, off_lab, off_bar, smem;
 };
 
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> AccFrag;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> AFrag;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> BColFrag;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> BRowFrag;
+struct Maps {
+    CUtensorMap w[6];   // wq, wk, wv, wp, w1, w2: (C, C) bf16, box (64, 64)
+};
+
+// ---------------------------------------------------------------- PTX helpers
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+                 "r"(bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+    uint64_t t;
+    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+    return t;
+}
+
+// Wait until the phase of the given parity has completed.  A wait that
+// lasts 10 s can only be a broken protocol: trap, so the launch fails
+// instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    const uint32_t addr = smem_u32(bar);
+    uint32_t done = 0;
+    // start of the wait in units of 2^20 ns (9537 of them are 10 s), 0 before
+    // it is read: a 32-bit clock keeps K3 within the register cap unspilled
+    uint32_t t0 = 0;
+    for (uint32_t spin = 0; !done; ++spin) {
+        asm volatile(
+            "{\n .reg .pred p;\n"
+            " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            " selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done)
+            : "r"(addr), "r"(parity)
+            : "memory");
+        if (!done && (spin & 1023) == 1023) {
+            const uint32_t now = (uint32_t)(global_ns() >> 20) | 1u;
+            if (t0 == 0) t0 = now;
+            else if (now - t0 > 9537u) __trap();
+        }
+    }
+}
+
+// Rows [row, row + 64) x columns [col, col + 64) of a weight into dst.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int col, int row) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row)
+        : "memory");
+}
+
+// wgmma descriptor of a K-major operand in the 128-byte swizzle: rows of
+// 128 bytes, 8-row atoms 1024 bytes apart.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+    uint64_t d = (addr & 0x3FFFF) >> 4;
+    d |= (uint64_t)1 << 16;
+    d |= (uint64_t)(1024 >> 4) << 32;
+    d |= (uint64_t)1 << 62;
+    return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D[64 x 64] += A.B^T, A and B K-major from shared memory.
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+        "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+        "%30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void fence_async_smem() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// mma.sync m16n8k16 bf16 -> fp32, and the ldmatrix loads that feed it.
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1, const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+                 : "=r"(r0), "=r"(r1)
+                 : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t& r0, uint32_t& r1, const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+                 : "=r"(r0), "=r"(r1)
+                 : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -92,11 +264,29 @@ __device__ __forceinline__ float warp_sum(float v) {
     return v;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-    return v;
-}
+// ------------------------------------------------------- optional probe
+// Built with -DSW_PROBE (pgtformer_tpu_torch/probe_sw_block.py), thread 0 of CTA 0 adds
+// the clock cycles of each phase of its slab passes to g_probe; the normal
+// build has none of it.
+#ifdef SW_PROBE
+__device__ unsigned long long g_probe[16];
+#define PROBE_DECL unsigned long long probe_t = clock64();
+#define PROBE(i)                                                   \
+    do {                                                           \
+        if (blockIdx.x == 0 && threadIdx.x == 0) {                 \
+            const unsigned long long t = clock64();                \
+            g_probe[i] += t - probe_t;                             \
+            probe_t = t;                                           \
+        }                                                          \
+    } while (0)
+#else
+#define PROBE_DECL
+#define PROBE(i) \
+    do {         \
+    } while (0)
+#endif
+
+// ------------------------------------------------------------ addressing
 
 // Element offset of token n of window `win`: row win*N+n of the [M*N, C]
 // token array, or the (shifted) pixel of the [B, T, H, W, C] array.
@@ -129,40 +319,143 @@ __device__ __forceinline__ int region_label(const SWArgs& a, int win, int n) {
     return hl * 3 + wl;
 }
 
-// acc[mt] = A[mt*16 .. +16, 0:K] @ W[n0 .. n0+16, 0:K]^T  (W is (O, I) row-major)
-__device__ __forceinline__ void gemm_strip(AccFrag (&acc)[MT], const bf16* A, int lda,
-                                           const bf16* wrow, int K) {
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) wmma::fill_fragment(acc[mt], 0.0f);
-    for (int k0 = 0; k0 < K; k0 += 16) {
-        BColFrag b;
-        wmma::load_matrix_sync(b, wrow + k0, K);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-            AFrag a;
-            wmma::load_matrix_sync(a, A + mt * 16 * lda + k0, lda);
-            wmma::mma_sync(acc[mt], a, b, acc[mt]);
-        }
-    }
+// Byte offset of (row, col) in an A buffer: 64-column chunks of 48 rows x
+// 128 bytes in the 128-byte swizzle (16-byte unit (col/8) ^ (row%8)).  A
+// 64-row wgmma tile of chunk k reads rows 48..63 from chunk k+1 (or, after
+// the last chunk, from the slab's next region): rows of padding, whose
+// products are dropped.
+__device__ __forceinline__ int aoff(int row, int col) {
+    return (col >> 6) * CHUNK_BYTES + row * 128 + ((((col >> 3) & 7) ^ (row & 7)) << 4) +
+           (col & 7) * 2;
 }
 
-// Stage one 16x16 accumulator through this warp's fp32 tile and hand each
-// element to f(row, col, value).
+// Float offset of (row, col) in the fp32 residual [48, C]: pairs of columns
+// XOR-swizzled by row so that the accumulator layout stores conflict-free.
+__device__ __forceinline__ int xoff(int row, int col, int C) {
+    return row * C + ((((col >> 1) ^ ((row & 7) << 2))) << 1) + (col & 1);
+}
+
+// ------------------------------------------------------------- weight ring
+
+struct Ring {
+    unsigned char* slots;   // stages x TILE_BYTES, 1024-aligned
+    uint64_t* full;
+    uint64_t* empty;
+    int stages;
+    uint32_t it;            // tiles consumed (consumer) or issued (producer)
+};
+
+// Every weight tile of one slab pass, in the order the consumers use them:
+// q, k, v of head group 0, ..., of the last group; then proj, fc1, fc2.
+// f(matrix 0..5, first output row, first input column).
 template <typename F>
-__device__ __forceinline__ void epilogue(float* stg, const AccFrag& acc, int lane, F f) {
-    wmma::store_matrix_sync(stg, acc, 16, wmma::mem_row_major);
-    __syncwarp();
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-        int e = lane * 8 + i;
-        f(e >> 4, e & 15, stg[e]);
-    }
-    __syncwarp();
+__device__ __forceinline__ void for_each_tile(const SWArgs& a, F f) {
+    const int nk = a.C / TILE;
+    for (int g = 0; g < a.C / a.gw; ++g)
+        for (int m = 0; m < 3; ++m)
+            for (int nc = 0; nc < a.gw / TILE; ++nc)
+                for (int kc = 0; kc < nk; ++kc) f(m, g * a.gw + nc * TILE, kc * TILE);
+    for (int m = 3; m < 6; ++m)
+        for (int nc = 0; nc < nk; ++nc)
+            for (int kc = 0; kc < nk; ++kc) f(m, nc * TILE, kc * TILE);
 }
 
-// LayerNorm of one C-wide row held as 2 values per lane per 64 channels.
-__device__ __forceinline__ void ln_row(float (&v)[16], int nk, int C, const float* w,
-                                       const float* b, bf16* dst, int lane) {
+// The producer's share of one slab pass: every tile into the ring.
+__device__ __forceinline__ void produce_pass(const SWArgs& a, const Maps& maps, Ring& ring) {
+    for_each_tile(a, [&](int m, int n0, int k0) {
+        const int s = ring.it % ring.stages;
+        mbar_wait(&ring.empty[s], ((ring.it / ring.stages) & 1) ^ 1);
+        mbar_expect_tx(&ring.full[s], TILE_BYTES);
+        tma_load(ring.slots + s * TILE_BYTES, &maps.w[m], &ring.full[s], k0, n0);
+        ++ring.it;
+    });
+}
+
+// This warp is done with slot s.
+__device__ __forceinline__ void release(Ring& ring, int s, int lane) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&ring.empty[s]);
+}
+
+// acc[64 x 64] = A[64 x C] . W[n0 : n0 + 64, :]^T with the next C/64 tiles
+// of the ring as W.  `abase` is the A buffer's shared address.
+__device__ __forceinline__ void gemm_chunk(float (&acc)[32], uint32_t abase, Ring& ring, int nk,
+                                           int lane) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    const uint32_t slots = smem_u32(ring.slots);
+    int s = ring.it % ring.stages;
+    PROBE_DECL
+    mbar_wait(&ring.full[s], (ring.it / ring.stages) & 1);
+    PROBE(8);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+        wgmma_n64(acc, smem_desc(abase + kk * 32), smem_desc(slots + s * TILE_BYTES + kk * 32));
+    wgmma_commit();
+    ++ring.it;
+    for (int kc = 1; kc < nk; ++kc) {
+        const int sp = s;
+        s = ring.it % ring.stages;
+        PROBE(9);
+        mbar_wait(&ring.full[s], (ring.it / ring.stages) & 1);
+        PROBE(8);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+            wgmma_n64(acc, smem_desc(abase + kc * CHUNK_BYTES + kk * 32),
+                      smem_desc(slots + s * TILE_BYTES + kk * 32));
+        wgmma_commit();
+        ++ring.it;
+        wgmma_wait<1>();
+        release(ring, sp, lane);
+    }
+    PROBE(9);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release(ring, s, lane);
+    PROBE(10);
+}
+
+// Hand every element of this thread's accumulator rows (r0 and r0 + 8,
+// both < SLAB or neither) to f(row, 0 or 1, j, col, v0, v1) as pairs of
+// adjacent columns col = 8j + 2*(lane%4) of the chunk.
+template <typename F>
+__device__ __forceinline__ void epilogue(const float (&acc)[32], int warp, int lane, F f) {
+    const int r0 = warp * 16 + (lane >> 2);
+    const int c0 = 2 * (lane & 3);
+    if (r0 >= SLAB) return;   // warp 3: rows of padding only
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+        f(r0, 0, j, 8 * j + c0, acc[4 * j], acc[4 * j + 1]);
+        f(r0 + 8, 1, j, 8 * j + c0, acc[4 * j + 2], acc[4 * j + 3]);
+    }
+}
+
+// A vector's values at this thread's epilogue columns of the chunk at c0,
+// loaded before the chunk's GEMM so that their latency hides behind it.
+__device__ __forceinline__ void chunk_vec(float2 (&v)[8], const float* p, int c0, int lane) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+        v[j] = *reinterpret_cast<const float2*>(p + c0 + 8 * j + 2 * (lane & 3));
+}
+
+// A LayerNorm's weight and bias at this lane's columns k*64 + 2*lane.
+__device__ __forceinline__ void ln_params(float2 (&w)[8], float2 (&b)[8], const float* pw,
+                                          const float* pb, int nk, int lane) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+        if (k < nk) {
+            w[k] = *reinterpret_cast<const float2*>(pw + k * 64 + lane * 2);
+            b[k] = *reinterpret_cast<const float2*>(pb + k * 64 + lane * 2);
+        }
+}
+
+// LayerNorm of one C-wide row held as 2 values per lane per 64 channels,
+// written as bf16 pairs at dst + aoff(row, c).
+__device__ __forceinline__ void ln_row(float (&v)[16], int nk, int C, const float2 (&w)[8],
+                                       const float2 (&b)[8], unsigned char* dst, int row,
+                                       int lane) {
     float s = 0.f;
 #pragma unroll
     for (int k = 0; k < 8; ++k)
@@ -180,55 +473,191 @@ __device__ __forceinline__ void ln_row(float (&v)[16], int nk, int C, const floa
     for (int k = 0; k < 8; ++k)
         if (k < nk) {
             int c = k * 64 + lane * 2;
-            float y0 = (v[2 * k] - mean) * rstd * w[c] + b[c];
-            float y1 = (v[2 * k + 1] - mean) * rstd * w[c + 1] + b[c + 1];
-            *reinterpret_cast<__nv_bfloat162*>(dst + c) = __floats2bfloat162_rn(y0, y1);
+            float y0 = (v[2 * k] - mean) * rstd * w[k].x + b[k].x;
+            float y1 = (v[2 * k + 1] - mean) * rstd * w[k].y + b[k].y;
+            *reinterpret_cast<__nv_bfloat162*>(dst + aoff(row, c)) =
+                __floats2bfloat162_rn(y0, y1);
         }
 }
 
-// The whole block for the a.wpc windows starting at win0.  TOKENS selects
-// the addressing (token rows vs 5-D pixels) and the mask (the caller's array
-// vs region labels of the shift).
-template <bool TOKENS>
-__device__ __forceinline__ void sw_block_body(const SWArgs& a, const int win0,
-                                              unsigned char* smem) {
-    const int C = a.C, N = a.N, hd = a.hd;
-    const int ldh = C + 8;   // bf16 row stride of [M, C] tiles
-    const int ldf = C + 4;   // fp32 row stride of the residual stream
-    const int ldd = hd + 8;  // bf16 row stride of per-head q/k/v
-    const int ldn = N + 4;   // fp32 row stride of scores
-    const int ldp = N + 8;   // bf16 row stride of probabilities
-    const int nk = C / 64;
-
-    bf16* h1 = reinterpret_cast<bf16*>(smem);             // phase A: LN1 x
-    float* xs = reinterpret_cast<float*>(smem);           // phases B-D: residual
-    bf16* ybuf = reinterpret_cast<bf16*>(smem + a.off_y); // attn out, then LN2 x
-    bf16* zbuf = reinterpret_cast<bf16*>(smem + a.off_z); // fc1 out
-    bf16* qh = zbuf;                                      // phase A per-head scratch
-    bf16* kh = reinterpret_cast<bf16*>(smem + a.off_k);
-    bf16* vh = reinterpret_cast<bf16*>(smem + a.off_v);
-    float* sc = reinterpret_cast<float*>(smem + a.off_s);
-    bf16* pr = reinterpret_cast<bf16*>(smem + a.off_p);
-
-    int* lab = reinterpret_cast<int*>(smem + a.off_lab);  // shift-region label per row
-
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    float* stg = reinterpret_cast<float*>(smem + a.off_stg) + warp * 256;
+// Window attention of the heads of group g, one warp per 16 query rows
+// (warps 0..2; a 16-row tile lies in one window since N is 16 or 48).  q, k
+// and v of the group are [SLAB, ld] bf16 (q already scaled); the output
+// goes into the A buffer `ybuf` at columns h*HD.. of each head.
+template <int N, int HD, bool TOKENS>
+__device__ __forceinline__ void attend_group(const SWArgs& a, int slab, int g, const bf16* qs,
+                                             const bf16* ks, const bf16* vs, int ld,
+                                             unsigned char* ybuf, const int* lab, int warp,
+                                             int lane) {
+    constexpr int NT = N / 8;     // key tiles of 8
+    constexpr int DT = HD / 8;    // output tiles of 8
+    if (warp >= SLAB / 16) return;
+    const int kb = (16 * warp / N) * N;            // first row of this tile's window
+    const int win = slab * (SLAB / N) + 16 * warp / N;
     const bool masked = !TOKENS && (a.sh > 0 || a.sw > 0);
-    if (masked)
-        for (int row = threadIdx.x; row < M; row += NTHREADS)
-            lab[row] = region_label(a, win0 + row / N, row % N);
-
-    // ---- LN1 straight from the 5-D input -----------------------------------
-    for (int row = warp; row < M; row += NWARPS) {
-        int win = win0 + row / N;
-        bf16* dst = h1 + row * ldh;
-        if (win >= a.nwin) {
-            for (int c = lane * 2; c < C; c += 64)
-                *reinterpret_cast<__nv_bfloat162*>(dst + c) = __floats2bfloat162_rn(0.f, 0.f);
-            continue;
+    const float* mwin =
+        (TOKENS && a.mask) ? a.mask + (long long)(win % a.nW) * N * N : nullptr;
+    const int g4 = lane >> 2, c2 = 2 * (lane & 3);
+    const int i0 = 16 * warp + g4 - kb;            // query rows i0 and i0 + 8 of the window
+    for (int h = g * a.gw / HD; h < (g + 1) * a.gw / HD; ++h) {
+        const int hoff = h * HD - g * a.gw;
+        // relative bias (and the caller's mask) of this thread's scores,
+        // requested before the products that hide their latency
+        const float* brow = a.relb + ((long long)h * N + i0) * N;
+        float add[NT][4];
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) add[t][e] = brow[8 * (e >> 1) * N + 8 * t + c2 + (e & 1)];
+        float s[NT][4];
+#pragma unroll
+        for (int t = 0; t < NT; ++t) s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
+#pragma unroll
+        for (int kq = 0; kq < HD / 16; ++kq) {
+            uint32_t qa[4];
+            ldsm_x4(qa, qs + (16 * warp + (lane & 15)) * ld + hoff + kq * 16 + (lane >> 4) * 8);
+#pragma unroll
+            for (int t = 0; t < NT; ++t) {
+                uint32_t b0, b1;
+                ldsm_x2(b0, b1,
+                        ks + (kb + 8 * t + (lane & 7)) * ld + hoff + kq * 16 + ((lane >> 3) & 1) * 8);
+                mma16816(s[t], qa, b0, b1);
+            }
         }
-        const bf16* src = a.x + pix_offset<TOKENS>(a, win, row % N);
+        // fp32 softmax of rows i0 (s[t][0..1]) and i0 + 8 (s[t][2..3])
+        float m[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int i = i0 + 8 * (e >> 1), j = 8 * t + c2 + (e & 1);
+                float v = s[t][e] + add[t][e];
+                if (masked && lab[kb + j] != lab[kb + i]) v -= 100.0f;
+                if (TOKENS && mwin) v += mwin[i * N + j];
+                s[t][e] = v;
+                m[e >> 1] = fmaxf(m[e >> 1], v);
+            }
+        float l[2] = {0.f, 0.f};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
+            m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
+        }
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                s[t][e] = __expf(s[t][e] - m[e >> 1]);
+                l[e >> 1] += s[t][e];
+            }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+            l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+            l[r] = 1.0f / l[r];
+        }
+        // normalized probabilities in bf16: the accumulator layout of two
+        // key tiles is the A fragment of 16 keys
+        uint32_t pa[N / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < N / 16; ++kk) {
+            pa[kk][0] = pack_bf16(s[2 * kk][0] * l[0], s[2 * kk][1] * l[0]);
+            pa[kk][1] = pack_bf16(s[2 * kk][2] * l[1], s[2 * kk][3] * l[1]);
+            pa[kk][2] = pack_bf16(s[2 * kk + 1][0] * l[0], s[2 * kk + 1][1] * l[0]);
+            pa[kk][3] = pack_bf16(s[2 * kk + 1][2] * l[1], s[2 * kk + 1][3] * l[1]);
+        }
+        float o[DT][4];
+#pragma unroll
+        for (int d = 0; d < DT; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+            for (int d = 0; d < DT; ++d) {
+                uint32_t b0, b1;
+                ldsm_x2_trans(b0, b1, vs + (kb + 16 * kk + (lane & 15)) * ld + hoff + d * 8);
+                mma16816(o[d], pa[kk], b0, b1);
+            }
+        const int r = 16 * warp + g4;
+#pragma unroll
+        for (int d = 0; d < DT; ++d) {
+            const int col = h * HD + d * 8 + c2;
+            *reinterpret_cast<__nv_bfloat162*>(ybuf + aoff(r, col)) =
+                __floats2bfloat162_rn(o[d][0], o[d][1]);
+            *reinterpret_cast<__nv_bfloat162*>(ybuf + aoff(r + 8, col)) =
+                __floats2bfloat162_rn(o[d][2], o[d][3]);
+        }
+    }
+}
+
+template <bool TOKENS>
+__device__ __forceinline__ void attend(const SWArgs& a, int slab, int g, const bf16* qs,
+                                       const bf16* ks, const bf16* vs, int ld,
+                                       unsigned char* ybuf, const int* lab, int warp, int lane) {
+#define SW_ATTEND(NN, HH)                                                                     \
+    if (a.N == NN && a.hd == HH)                                                              \
+        return attend_group<NN, HH, TOKENS>(a, slab, g, qs, ks, vs, ld, ybuf, lab, warp, lane);
+    SW_ATTEND(48, 64) SW_ATTEND(48, 32) SW_ATTEND(48, 16) SW_ATTEND(48, 48)
+    SW_ATTEND(16, 64) SW_ATTEND(16, 32) SW_ATTEND(16, 16) SW_ATTEND(16, 48)
+#undef SW_ATTEND
+}
+
+// 16-byte asynchronous copy; an invalid source fills the 16 bytes with zero.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+                 "l"(src), "r"(valid ? 16 : 0)
+                 : "memory");
+}
+
+// The whole block for slab `slab` (SLAB token rows), by consumer warpgroup
+// w, whose regions start at `reg`.  TOKENS selects the addressing (token
+// rows vs 5-D pixels) and the mask (the caller's array vs region labels of
+// the shift).  Slabs past the input run on zeros and write nothing.  Every
+// global operand of a phase (the slab's rows, LayerNorm and bias vectors,
+// the proj residual) is requested before the work that hides its latency.
+template <bool TOKENS>
+__device__ __forceinline__ void slab_pass(const SWArgs& a, int slab, unsigned char* reg, int* lab,
+                                          Ring& ring, int w) {
+    const int C = a.C, N = a.N, nk = C / TILE;
+    const int tid = threadIdx.x - w * 128, warp = tid >> 5, lane = tid & 31;
+    const int bar = 1 + w;
+    unsigned char* ra = reg;                                     // LN1 out, then GELU out
+    unsigned char* rb = reg + a.off_b;                           // x rows, attn out, LN2 out
+    float* x1 = reinterpret_cast<float*>(reg + a.off_x);         // fp32 residual
+    const int ld = a.gw + 8;
+    bf16* qkv = reinterpret_cast<bf16*>(reg + a.off_x);          // q/k/v of a head group
+    const uint32_t abase_a = smem_u32(ra), abase_b = smem_u32(rb);
+    const int per = SLAB / N;
+    auto win_of = [&](int row) { return slab * per + row / N; };
+    PROBE_DECL
+
+    // the row table: each row's element offset in x / out (-1 past the
+    // input) and its shift-region label
+    long long* pix = reinterpret_cast<long long*>(lab + 64);
+    if (tid < SLAB) {
+        const int win = win_of(tid);
+        pix[tid] = win < a.nwin ? pix_offset<TOKENS>(a, win, tid % N) : -1;
+        if (!TOKENS && (a.sh > 0 || a.sw > 0)) lab[tid] = region_label(a, win, tid % N);
+    }
+    named_sync(bar, 128);
+
+    // the slab's input rows, raw bf16 [SLAB, C] into rb (zeros past the input)
+    const int row_chunks = C / 8;   // 16-byte pieces of a row
+    for (int e = tid; e < SLAB * row_chunks; e += 128) {
+        const int row = e / row_chunks, piece = e - row * row_chunks;
+        const long long off = pix[row];
+        cp_async16(rb + (row * C + piece * 8) * 2, off >= 0 ? a.x + off + piece * 8 : a.x,
+                   off >= 0);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+    // ---- LN1 ------------------------------------------------------------------
+    float2 lw[8], lb[8];
+    ln_params(lw, lb, a.ln1w, a.ln1b, nk, lane);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    named_sync(bar, 128);
+#pragma unroll 2
+    for (int row = warp; row < SLAB; row += 4) {
+        const bf16* src = reinterpret_cast<const bf16*>(rb) + row * C;
         float v[16];
 #pragma unroll
         for (int k = 0; k < 8; ++k)
@@ -238,285 +667,322 @@ __device__ __forceinline__ void sw_block_body(const SWArgs& a, const int win0,
                 v[2 * k] = f.x;
                 v[2 * k + 1] = f.y;
             }
-        ln_row(v, nk, C, a.ln1w, a.ln1b, dst, lane);
+        ln_row(v, nk, C, lw, lb, ra, row, lane);
     }
-    __syncthreads();
+    fence_async_smem();
+    named_sync(bar, 128);
+    PROBE(0);
 
-    // ---- attention, one head at a time ------------------------------------
-    const int nsh = hd / 16;      // 16-wide strips per projection of one head
-    const int nt = N / 16;        // 16-row tiles per window
-    for (int hh = 0; hh < a.heads; ++hh) {
-        for (int s = warp; s < 3 * nsh; s += NWARPS) {
-            int which = s / nsh, col0 = (s % nsh) * 16;
-            int n0 = hh * hd + col0;
-            const bf16* w = which == 0 ? a.wq : (which == 1 ? a.wk : a.wv);
-            const float* bias = which == 0 ? a.bq : (which == 1 ? a.bk : a.bv);
-            bf16* dst = which == 0 ? qh : (which == 1 ? kh : vh);
-            float mul = which == 0 ? a.scale : 1.0f;
-            AccFrag acc[MT];
-            gemm_strip(acc, h1, ldh, w + (long long)n0 * C, C);
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt)
-                epilogue(stg, acc[mt], lane, [&](int rr, int cc, float val) {
-                    dst[(mt * 16 + rr) * ldd + col0 + cc] =
-                        __float2bfloat16((val + bias[n0 + cc]) * mul);
+    // ---- q/k/v a head group at a time, each group's attention right after ----
+    float acc[32];
+    float2 bv[8];
+    for (int g = 0; g < C / a.gw; ++g) {
+        for (int m = 0; m < 3; ++m) {
+            const float* bias = m == 0 ? a.bq : (m == 1 ? a.bk : a.bv);
+            const float mul = m == 0 ? a.scale : 1.0f;
+            bf16* dst = qkv + m * SLAB * ld;
+            for (int nc = 0; nc < a.gw / TILE; ++nc) {
+                chunk_vec(bv, bias, g * a.gw + nc * TILE, lane);
+                gemm_chunk(acc, abase_a, ring, nk, lane);
+                epilogue(acc, warp, lane, [&](int r, int hh, int j, int c, float v0, float v1) {
+                    *reinterpret_cast<__nv_bfloat162*>(dst + r * ld + nc * TILE + c) =
+                        __floats2bfloat162_rn((v0 + bv[j].x) * mul, (v1 + bv[j].y) * mul);
                 });
-        }
-        __syncthreads();
-
-        // scores S_w = q_w k_w^T for every window of the CTA
-        for (int t = warp; t < a.wpc * nt * nt; t += NWARPS) {
-            int wi = t / (nt * nt), rem = t % (nt * nt);
-            int ti = rem / nt, tj = rem % nt;
-            AccFrag acc;
-            wmma::fill_fragment(acc, 0.0f);
-            for (int k0 = 0; k0 < hd; k0 += 16) {
-                AFrag fa;
-                BColFrag fb;
-                wmma::load_matrix_sync(fa, qh + (wi * N + ti * 16) * ldd + k0, ldd);
-                wmma::load_matrix_sync(fb, kh + (wi * N + tj * 16) * ldd + k0, ldd);
-                wmma::mma_sync(acc, fa, fb, acc);
             }
-            wmma::store_matrix_sync(sc + (wi * N + ti * 16) * ldn + tj * 16, acc, ldn,
-                                    wmma::mem_row_major);
         }
-        __syncthreads();
-
-        // softmax rows (fp32) -> bf16 probabilities
-        for (int row = warp; row < a.wpc * N; row += NWARPS) {
-            int wi = row / N, i = row % N;
-            const int* wlab = lab + wi * N;
-            const float* srow = sc + row * ldn;
-            const float* brow = a.relb + ((long long)hh * N + i) * N;
-            const float* mrow = nullptr;
-            if (TOKENS && a.mask)
-                mrow = a.mask + ((long long)((win0 + wi) % a.nW) * N + i) * N;
-            float v0 = -INFINITY, v1 = -INFINITY;
-            int j0 = lane, j1 = lane + 32;
-            if (j0 < N) {
-                v0 = srow[j0] + brow[j0];
-                if (masked && wlab[j0] != wlab[i]) v0 -= 100.0f;
-                if (TOKENS && mrow) v0 += mrow[j0];
-            }
-            if (j1 < N) {
-                v1 = srow[j1] + brow[j1];
-                if (masked && wlab[j1] != wlab[i]) v1 -= 100.0f;
-                if (TOKENS && mrow) v1 += mrow[j1];
-            }
-            float m = warp_max(fmaxf(v0, v1));
-            float e0 = j0 < N ? __expf(v0 - m) : 0.f;
-            float e1 = j1 < N ? __expf(v1 - m) : 0.f;
-            float inv = 1.0f / warp_sum(e0 + e1);
-            bf16* prow = pr + row * ldp;
-            if (j0 < N) prow[j0] = __float2bfloat16(e0 * inv);
-            if (j1 < N) prow[j1] = __float2bfloat16(e1 * inv);
-        }
-        __syncthreads();
-
-        // o_w = p_w v_w, written into this head's columns of the attn output
-        for (int t = warp; t < a.wpc * nt * nsh; t += NWARPS) {
-            int wi = t / (nt * nsh), rem = t % (nt * nsh);
-            int ti = rem / nsh, tj = rem % nsh;
-            AccFrag acc;
-            wmma::fill_fragment(acc, 0.0f);
-            for (int k0 = 0; k0 < N; k0 += 16) {
-                AFrag fa;
-                BRowFrag fb;
-                wmma::load_matrix_sync(fa, pr + (wi * N + ti * 16) * ldp + k0, ldp);
-                wmma::load_matrix_sync(fb, vh + (wi * N + k0) * ldd + tj * 16, ldd);
-                wmma::mma_sync(acc, fa, fb, acc);
-            }
-            int r0 = wi * N + ti * 16, c0 = hh * hd + tj * 16;
-            epilogue(stg, acc, lane, [&](int rr, int cc, float val) {
-                ybuf[(r0 + rr) * ldh + c0 + cc] = __float2bfloat16(val);
-            });
-        }
-        __syncthreads();
+        named_sync(bar, 128);
+        PROBE(1);
+        attend<TOKENS>(a, slab, g, qkv, qkv + SLAB * ld, qkv + 2 * SLAB * ld, ld, rb, lab, warp,
+                       lane);
+        fence_async_smem();
+        named_sync(bar, 128);
+        PROBE(2);
     }
 
-    // ---- residual stream in fp32, proj -------------------------------------
-    for (int row = warp; row < M; row += NWARPS) {
-        int win = win0 + row / N;
-        float* dst = xs + row * ldf;
-        if (win >= a.nwin) {
-            for (int c = lane * 2; c < C; c += 64) dst[c] = dst[c + 1] = 0.f;
-            continue;
-        }
-        const bf16* src = a.x + pix_offset<TOKENS>(a, win, row % N);
-        for (int c = lane * 2; c < C; c += 64) {
-            float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(src + c));
-            dst[c] = f.x;
-            dst[c + 1] = f.y;
-        }
-    }
-    __syncthreads();
-
-    for (int s = warp; s < C / 16; s += NWARPS) {
-        int n0 = s * 16;
-        AccFrag acc[MT];
-        gemm_strip(acc, ybuf, ldh, a.wp + (long long)n0 * C, C);
+    // ---- x1 = x + proj(attn) in fp32 (over the q/k/v scratch) ---------------
+    for (int nc = 0; nc < nk; ++nc) {
+        const int c0 = nc * TILE;
+        chunk_vec(bv, a.bp, c0, lane);
+        uint32_t xr[2][8];
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-            epilogue(stg, acc[mt], lane, [&](int rr, int cc, float val) {
-                xs[(mt * 16 + rr) * ldf + n0 + cc] += val + a.bp[n0 + cc];
-            });
+        for (int hh = 0; hh < 2; ++hh) {
+            const int row = warp * 16 + (lane >> 2) + 8 * hh;
+            const long long off = row < SLAB ? pix[row] : -1;
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+                xr[hh][j] = off < 0 ? 0u
+                                    : *reinterpret_cast<const uint32_t*>(
+                                          a.x + off + c0 + 8 * j + 2 * (lane & 3));
+        }
+        gemm_chunk(acc, abase_b, ring, nk, lane);
+        epilogue(acc, warp, lane, [&](int r, int hh, int j, int c, float v0, float v1) {
+            const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xr[hh][j]));
+            *reinterpret_cast<float2*>(x1 + xoff(r, c0 + c, C)) =
+                make_float2(xv.x + (v0 + bv[j].x), xv.y + (v1 + bv[j].y));
+        });
     }
-    __syncthreads();
+    ln_params(lw, lb, a.ln2w, a.ln2b, nk, lane);
+    named_sync(bar, 128);
+    PROBE(3);
 
-    // ---- MLP ----------------------------------------------------------------
-    for (int row = warp; row < M; row += NWARPS) {
-        const float* src = xs + row * ldf;
+    // ---- LN2 -----------------------------------------------------------------
+#pragma unroll 2
+    for (int row = warp; row < SLAB; row += 4) {
         float v[16];
 #pragma unroll
         for (int k = 0; k < 8; ++k)
             if (k < nk) {
-                v[2 * k] = src[k * 64 + lane * 2];
-                v[2 * k + 1] = src[k * 64 + lane * 2 + 1];
+                float2 f = *reinterpret_cast<const float2*>(x1 + xoff(row, k * 64 + lane * 2, C));
+                v[2 * k] = f.x;
+                v[2 * k + 1] = f.y;
             }
-        ln_row(v, nk, C, a.ln2w, a.ln2b, ybuf + row * ldh, lane);
+        ln_row(v, nk, C, lw, lb, rb, row, lane);
+    }
+    fence_async_smem();
+    named_sync(bar, 128);
+    PROBE(4);
+
+    // ---- fc1 + erf GELU --------------------------------------------------------
+    for (int nc = 0; nc < nk; ++nc) {
+        const int c0 = nc * TILE;
+        chunk_vec(bv, a.b1, c0, lane);
+        gemm_chunk(acc, abase_b, ring, nk, lane);
+        epilogue(acc, warp, lane, [&](int r, int hh, int j, int c, float v0, float v1) {
+            float u0 = v0 + bv[j].x, u1 = v1 + bv[j].y;
+            u0 = 0.5f * u0 * (1.0f + erff(u0 * 0.70710678118654752f));
+            u1 = 0.5f * u1 * (1.0f + erff(u1 * 0.70710678118654752f));
+            *reinterpret_cast<__nv_bfloat162*>(ra + aoff(r, c0 + c)) =
+                __floats2bfloat162_rn(u0, u1);
+        });
+    }
+    fence_async_smem();
+    named_sync(bar, 128);
+    PROBE(5);
+
+    // ---- out = x1 + fc2(.), written to the same (shifted) pixels --------------
+    for (int nc = 0; nc < nk; ++nc) {
+        const int c0 = nc * TILE;
+        chunk_vec(bv, a.b2, c0, lane);
+        gemm_chunk(acc, abase_a, ring, nk, lane);
+        epilogue(acc, warp, lane, [&](int r, int hh, int j, int c, float v0, float v1) {
+            const long long off = pix[r];
+            if (off < 0) return;
+            const float2 xr = *reinterpret_cast<const float2*>(x1 + xoff(r, c0 + c, C));
+            *reinterpret_cast<__nv_bfloat162*>(a.out + off + c0 + c) =
+                __floats2bfloat162_rn(xr.x + (v0 + bv[j].x), xr.y + (v1 + bv[j].y));
+        });
+    }
+    named_sync(bar, 128);   // the regions are reused by the next pass
+    PROBE(6);
+}
+
+struct Smem {
+    unsigned char* base;   // 1024-aligned
+    Ring ring;
+};
+
+// Align the dynamic shared memory, set up the ring and its barriers (every
+// consumer warp releases a slot).
+__device__ __forceinline__ Smem setup(const SWArgs& a, unsigned char* raw) {
+    Smem sm;
+    sm.base = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
+                                               ~static_cast<uintptr_t>(1023));
+    uint64_t* bars = reinterpret_cast<uint64_t*>(sm.base + a.off_bar);
+    sm.ring = Ring{sm.base, bars, bars + a.stages, a.stages, 0};
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < a.stages; ++s) {
+            mbar_init(&sm.ring.full[s], 1);
+            mbar_init(&sm.ring.empty[s], a.nw * 4);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
     __syncthreads();
+    return sm;
+}
 
-    for (int s = warp; s < C / 16; s += NWARPS) {
-        int n0 = s * 16;
-        AccFrag acc[MT];
-        gemm_strip(acc, ybuf, ldh, a.w1 + (long long)n0 * C, C);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-            epilogue(stg, acc[mt], lane, [&](int rr, int cc, float val) {
-                float u = val + a.b1[n0 + cc];
-                u = 0.5f * u * (1.0f + erff(u * 0.70710678118654752f));
-                zbuf[(mt * 16 + rr) * ldh + n0 + cc] = __float2bfloat16(u);
-            });
-    }
-    __syncthreads();
-
-    for (int s = warp; s < C / 16; s += NWARPS) {
-        int n0 = s * 16;
-        AccFrag acc[MT];
-        gemm_strip(acc, zbuf, ldh, a.w2 + (long long)n0 * C, C);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-            epilogue(stg, acc[mt], lane, [&](int rr, int cc, float val) {
-                xs[(mt * 16 + rr) * ldf + n0 + cc] += val + a.b2[n0 + cc];
-            });
-    }
-    __syncthreads();
-
-    // ---- write back to the same (shifted) pixels ---------------------------
-    for (int row = warp; row < M; row += NWARPS) {
-        int win = win0 + row / N;
-        if (win >= a.nwin) continue;
-        bf16* dst = a.out + pix_offset<TOKENS>(a, win, row % N);
-        const float* src = xs + row * ldf;
-        for (int c = lane * 2; c < C; c += 64)
-            *reinterpret_cast<__nv_bfloat162*>(dst + c) = __floats2bfloat162_rn(src[c], src[c + 1]);
+// One slab pass of CTA-group `grp`: the last warpgroup produces, the others
+// consume one slab each.
+template <bool TOKENS>
+__device__ __forceinline__ void cta_pass(const SWArgs& a, const Maps& maps, Smem& sm, int grp) {
+    const int wg = threadIdx.x / 128;
+    if (wg == a.nw) {
+        if (threadIdx.x == a.nw * 128) produce_pass(a, maps, sm.ring);
+        __syncwarp();
+    } else {
+        slab_pass<TOKENS>(a, grp * a.nw + wg, sm.base + a.off_slab + wg * a.slab_bytes,
+                          reinterpret_cast<int*>(sm.base + a.off_lab + wg * ROW_TABLE), sm.ring,
+                          wg);
     }
 }
 
-// Two CTAs per SM at C<=256 (108 KB of shared memory each): cap registers at 128.
-__global__ void __launch_bounds__(NTHREADS, 2) sw_block_kernel(SWArgs a) {
-    extern __shared__ __align__(128) unsigned char smem[];
-    sw_block_body<false>(a, blockIdx.x * a.wpc, smem);
-}
-
-__global__ void __launch_bounds__(NTHREADS, 2) sw_block_tokens_kernel(SWArgs a) {
-    extern __shared__ __align__(128) unsigned char smem[];
-    sw_block_body<true>(a, blockIdx.x * a.wpc, smem);
+// K1 / K3: CTA b of the grid takes slabs b*nw .. b*nw + nw - 1.
+template <bool TOKENS>
+__global__ void __launch_bounds__(128 * (MAX_NW + 1), 1)
+    sw_block_kernel(const __grid_constant__ SWArgs a, const __grid_constant__ Maps maps) {
+    extern __shared__ unsigned char smem_raw[];
+    Smem sm = setup(a, smem_raw);
+    cta_pass<TOKENS>(a, maps, sm, blockIdx.x);
 }
 
 // Blocks [no-shift, shift] of one layer in one cooperative launch.  The TPU
 // kernel carries block 0's stripe in VMEM across sequential grid steps; CUDA
-// CTAs run in no order and at C=512 one window already fills an SM's shared
+// CTAs run in no order and at C=512 one slab already fills an SM's shared
 // memory, so block 0's result cannot stay on chip beside block 1.  Instead
 // the grid is sized to the CTAs that are resident at once, every CTA walks
-// its share of the windows through block 0 (a0: x -> scratch), the grid
-// meets at a barrier, and the same CTAs walk the shifted windows through
-// block 1 (a1: scratch -> out).  The scratch holds block 0's bf16 output, as
-// two launches would hand it over, so the result is the same bit for bit;
-// what goes away is one launch.
-//
-// The body is inlined once and the argument set picked per phase (inlining it
-// per phase spilled more and ran slower on an H100); __grid_constant__ lets the
-// reference point at the kernel parameters themselves.
-__global__ void __launch_bounds__(NTHREADS, 2)
-sw_block_pair_kernel(const __grid_constant__ SWArgs a0, const __grid_constant__ SWArgs a1) {
-    extern __shared__ __align__(128) unsigned char smem[];
-    const int ngroups = (a0.nwin + a0.wpc - 1) / a0.wpc;
+// its share of the slabs through block 0 (a0: x -> scratch), the grid meets
+// at a barrier, and the same CTAs walk the shifted slabs through block 1
+// (a1: scratch -> out).  The scratch holds block 0's bf16 output, as two
+// launches would hand it over, and the arithmetic is K1's, so the result is
+// the same bit for bit; what goes away is one launch.  One slab per CTA:
+// with two, the persistent loop's state spilled under the register cap of
+// 384 threads.
+__global__ void __launch_bounds__(128 * 2, 1)
+    sw_block_pair_kernel(const __grid_constant__ SWArgs a0, const __grid_constant__ SWArgs a1,
+                         const __grid_constant__ Maps m0, const __grid_constant__ Maps m1) {
+    extern __shared__ unsigned char smem_raw[];
+    // the phase's arguments live in shared memory: read there as needed, so
+    // that the pass keeps no more registers than K1's (K1's copy is in the
+    // constant bank)
+    __shared__ SWArgs sa;
+    Smem sm = setup(a0, smem_raw);
+    const int ngroups = (a0.nslab + a0.nw - 1) / a0.nw;
     for (int phase = 0; phase < 2; ++phase) {
-        const SWArgs& a = phase ? a1 : a0;
-        for (int g = blockIdx.x; g < ngroups; g += gridDim.x) {
-            sw_block_body<false>(a, g * a.wpc, smem);
-            __syncthreads();  // shared memory is reused by the next group
-        }
+        if (threadIdx.x == 0) sa = phase ? a1 : a0;
+        __syncthreads();
+        for (int g = blockIdx.x; g < ngroups; g += gridDim.x)
+            cta_pass<false>(sa, phase ? m1 : m0, sm, g);
         if (phase == 0) cg::this_grid().sync();
     }
 }
 
-static int align128(int v) { return (v + 127) & ~127; }
+// ------------------------------------------------------------------- host
 
-// Fill the shared-memory carve-up; returns the dynamic shared-memory size.
-static int carve(SWArgs& a) {
-    const int C = a.C, N = a.N, hd = a.hd;
-    int x_bytes = align128(M * (C + 4) * 4);
-    int y_bytes = align128(M * (C + 8) * 2);
-    int head_q = align128(M * (hd + 8) * 2);
-    int head_s = align128(a.wpc * N * (N + 4) * 4);
-    int head_p = align128(a.wpc * N * (N + 8) * 2);
-    int head_bytes = 3 * head_q + head_s + head_p;
-    int z_bytes = y_bytes > head_bytes ? y_bytes : head_bytes;
-    a.off_y = x_bytes;
-    a.off_z = x_bytes + y_bytes;
-    a.off_k = a.off_z + head_q;
-    a.off_v = a.off_k + head_q;
-    a.off_s = a.off_v + head_q;
-    a.off_p = a.off_s + head_s;
-    a.off_stg = a.off_z + z_bytes;
-    a.off_lab = a.off_stg + NWARPS * 256 * 4;
-    return a.off_lab + align128(M * 4);
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of libcuda, found through the runtime's entry-point
+// query so that the library needs no -lcuda.
+EncodeTiled encode_tiled() {
+    static EncodeTiled fn = nullptr;
+    if (fn == nullptr) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+        cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                         cudaEnableDefault, &found);
+#else
+        cudaError_t e =
+            cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+        if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+            fn = reinterpret_cast<EncodeTiled>(p);
+    }
+    return fn;
+}
+
+// Error codes beyond cudaError_t's range.
+constexpr int ERR_NO_ENCODER = 10000;
+constexpr int ERR_PLAN = 10001;
+constexpr int ERR_ENCODE = 20000;   // + CUresult
+
+// The six (C, C) weights as 2-D tensor maps, box 64 columns x 64 rows.
+int encode_maps(Maps& m, const SWArgs& a) {
+    EncodeTiled fn = encode_tiled();
+    if (fn == nullptr) return ERR_NO_ENCODER;
+    const bf16* w[6] = {a.wq, a.wk, a.wv, a.wp, a.w1, a.w2};
+    const cuuint64_t dims[2] = {(cuuint64_t)a.C, (cuuint64_t)a.C};
+    const cuuint64_t strides[1] = {(cuuint64_t)a.C * 2};
+    const cuuint32_t box[2] = {(cuuint32_t)TILE, (cuuint32_t)TILE};
+    const cuuint32_t estride[2] = {1, 1};
+    for (int i = 0; i < 6; ++i) {
+        CUresult r = fn(&m.w[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(w[i]),
+                        dims, strides, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+        if (r != CUDA_SUCCESS) return ERR_ENCODE + (int)r;
+    }
+    return 0;
+}
+
+// plan[11] (ops/sw_block.py:sw_plan): nw, stages, gw, off_slab, slab_bytes,
+// off_b, off_x, off_lab, off_bar, smem, grid.  Returns the grid
+// or -1 if the plan does not fit these limits.
+int apply_plan(SWArgs& a, const int* plan) {
+    a.nw = plan[0];
+    a.stages = plan[1];
+    a.gw = plan[2];
+    a.off_slab = plan[3];
+    a.slab_bytes = plan[4];
+    a.off_b = plan[5];
+    a.off_x = plan[6];
+    a.off_lab = plan[7];
+    a.off_bar = plan[8];
+    a.smem = plan[9];
+    const int grid = plan[10];
+    const bool ok =
+        a.nw >= 1 && a.nw <= MAX_NW && a.stages >= 2 &&
+        a.gw % TILE == 0 && a.gw % a.hd == 0 && a.C % a.gw == 0 && a.off_slab % 1024 == 0 &&
+        a.off_slab >= a.stages * TILE_BYTES && a.slab_bytes % 1024 == 0 &&
+        a.off_b >= SLAB * a.C * 2 && a.off_b % 1024 == 0 &&
+        a.off_x >= 2 * a.off_b && a.off_x % 1024 == 0 && a.slab_bytes - a.off_x >= 2048 &&
+        a.slab_bytes >= a.off_x + SLAB * a.C * 4 &&
+        a.slab_bytes >= a.off_x + 3 * SLAB * (a.gw + 8) * 2 &&
+        a.off_lab >= a.off_slab + a.nw * a.slab_bytes && a.off_bar >= a.off_lab + a.nw * ROW_TABLE &&
+        a.off_bar % 8 == 0 && a.smem >= a.off_bar + 16 * a.stages + 1023 && a.smem <= 232448 &&
+        grid >= 1 && (long long)grid * a.nw >= a.nslab;
+    return ok ? grid : -1;
 }
 
 template <typename K>
-static int launch(K kernel, SWArgs a, cudaStream_t stream) {
-    int smem = carve(a);
-    if (smem > 232448) return (int)cudaErrorInvalidValue;
-    cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+int launch(K kernel, SWArgs a, const int* plan, cudaStream_t stream) {
+    const int grid = apply_plan(a, plan);
+    if (grid < 0) return ERR_PLAN;
+    Maps maps;
+    int err = encode_maps(maps, a);
+    if (err) return err;
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         a.smem);
     if (e != cudaSuccess) return (int)e;
-    int grid = (a.nwin + a.wpc - 1) / a.wpc;
-    kernel<<<grid, NTHREADS, smem, stream>>>(a);
+    kernel<<<grid, 128 * (a.nw + 1), a.smem, stream>>>(a, maps);
     return (int)cudaGetLastError();
 }
 
-static int launch_pair(SWArgs a0, SWArgs a1, cudaStream_t stream) {
-    int smem = carve(a0);
-    carve(a1);
-    if (smem > 232448) return (int)cudaErrorInvalidValue;
+int launch_pair(SWArgs a0, SWArgs a1, const int* plan, cudaStream_t stream) {
+    if (apply_plan(a0, plan) < 0 || apply_plan(a1, plan) < 0 || a0.nw != 1 ||
+        a0.smem + (int)sizeof(SWArgs) > 232448)
+        return ERR_PLAN;
+    Maps m0, m1;
+    int err = encode_maps(m0, a0);
+    if (!err) err = encode_maps(m1, a1);
+    if (err) return err;
     cudaError_t e = cudaFuncSetAttribute(sw_block_pair_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, a0.smem);
     if (e != cudaSuccess) return (int)e;
     // a grid barrier needs every CTA resident: size the grid from the
-    // occupancy at the real dynamic shared-memory size
+    // occupancy at the real block and dynamic shared-memory size
+    const int threads = 128 * (a0.nw + 1);
     int dev = 0, sms = 0, per_sm = 0;
     if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
     if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
         return (int)e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sw_block_pair_kernel, NTHREADS,
-                                                      smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sw_block_pair_kernel, threads,
+                                                      a0.smem);
     if (e != cudaSuccess) return (int)e;
     if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
-    int ngroups = (a0.nwin + a0.wpc - 1) / a0.wpc;
-    int grid = per_sm * sms < ngroups ? per_sm * sms : ngroups;
-    void* params[] = {&a0, &a1};
-    e = cudaLaunchCooperativeKernel((void*)sw_block_pair_kernel, dim3(grid), dim3(NTHREADS),
-                                    params, smem, stream);
+    const int ngroups = (a0.nslab + a0.nw - 1) / a0.nw;
+    const int grid = per_sm * sms < ngroups ? per_sm * sms : ngroups;
+    void* params[] = {&a0, &a1, &m0, &m1};
+    e = cudaLaunchCooperativeKernel((void*)sw_block_pair_kernel, dim3(grid), dim3(threads),
+                                    params, a0.smem, stream);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
 }
 
 // p: x, out, ln1w, ln1b, wq, bq, wk, bk, wv, bv, wp, bp, ln2w, ln2b, w1, b1,
 // w2, b2, relb (19 device pointers).
-static void set_pointers(SWArgs& a, const void* const* p) {
+void set_pointers(SWArgs& a, const void* const* p) {
     a.x = (const bf16*)p[0];
     a.out = (bf16*)p[1];
     a.ln1w = (const float*)p[2];
@@ -540,22 +1006,24 @@ static void set_pointers(SWArgs& a, const void* const* p) {
     a.nW = 1;
 }
 
-// Width and window-size limits shared by every entry; sets hd, wpc, scale.
-static bool set_width(SWArgs& a, int C, int heads, int N, float scale) {
+// Width and window-size limits shared by every entry; sets hd and scale.
+bool set_width(SWArgs& a, int C, int heads, int N, float scale) {
     if (heads <= 0 || C % heads) return false;
     a.C = C;
     a.heads = heads;
     a.hd = C / heads;
     a.N = N;
     a.scale = scale;
-    if (C % 64 || C > 512 || a.hd % 16 || a.hd > 64 || N <= 0 || N % 16 || N > 64 || M % N)
-        return false;
-    a.wpc = M / N;
-    return true;
+    return !(C % 64 || C > 512 || a.hd % 16 || a.hd > 64 || (N != 16 && N != 48));
 }
 
-static bool set_geometry_5d(SWArgs& a, int B, int T, int H, int W, int C, int heads, int wh,
-                            int ww, int sh, int sw, float scale) {
+void set_count(SWArgs& a, int nwin) {
+    a.nwin = nwin;
+    a.nslab = (int)(((long long)nwin * a.N + SLAB - 1) / SLAB);
+}
+
+bool set_geometry_5d(SWArgs& a, int B, int T, int H, int W, int C, int heads, int wh, int ww,
+                     int sh, int sw, float scale) {
     if (wh <= 0 || ww <= 0 || !set_width(a, C, heads, T * wh * ww, scale)) return false;
     if (H % wh || W % ww || sh < 0 || sh >= wh || sw < 0 || sw >= ww) return false;
     a.B = B;
@@ -568,50 +1036,64 @@ static bool set_geometry_5d(SWArgs& a, int B, int T, int H, int W, int C, int he
     a.sw = sw;
     a.nWh = H / wh;
     a.nWw = W / ww;
-    a.nwin = B * a.nWh * a.nWw;
+    set_count(a, B * a.nWh * a.nWw);
     return true;
 }
 
-// Plain C entry points (loaded with ctypes).  p is a host table of 19 device
-// pointers; matrices are bf16 (out_features, in_features) row-major, vectors
-// and the [heads, N, N] relative bias fp32.  Each returns a cudaError_t code
-// (0 on success).
+}  // namespace
 
-// One block on x [B, T, H, W, C] with shift (sh, sw); p as in set_pointers.
-extern "C" int sw_block_launch(const void* const* p, int B, int T, int H, int W, int C,
-                               int heads, int wh, int ww, int sh, int sw, float scale,
+#ifdef SW_PROBE
+// Copy the probe's 16 counters to host[16] and clear them.
+extern "C" int sw_block_probe_read(unsigned long long* host) {
+    cudaError_t e = cudaMemcpyFromSymbol(host, g_probe, sizeof(g_probe));
+    if (e != cudaSuccess) return (int)e;
+    unsigned long long zero[16] = {};
+    return (int)cudaMemcpyToSymbol(g_probe, zero, sizeof(g_probe));
+}
+#endif
+
+// Plain C entry points (loaded with ctypes).  p is a host table of 19 device
+// pointers (set_pointers); matrices are bf16 (out_features, in_features)
+// row-major with 16-byte aligned rows, vectors and the [heads, N, N] relative
+// bias fp32.  plan is the host array of ops/sw_block.py:sw_plan.  Each
+// returns 0 on success, a cudaError_t code or one of the ERR_ codes above.
+
+// One block on x [B, T, H, W, C] with shift (sh, sw).
+extern "C" int sw_block_launch(const void* const* p, const int* plan, int B, int T, int H, int W,
+                               int C, int heads, int wh, int ww, int sh, int sw, float scale,
                                void* stream) {
     SWArgs a = {};
     set_pointers(a, p);
     if (!set_geometry_5d(a, B, T, H, W, C, heads, wh, ww, sh, sw, scale))
         return (int)cudaErrorInvalidValue;
-    return launch(sw_block_kernel, a, (cudaStream_t)stream);
+    return launch(sw_block_kernel<false>, a, plan, (cudaStream_t)stream);
 }
 
-// One block on window tokens [Mwin, N, C] (p as in set_pointers); mask is
-// null or fp32 [nW, N, N], added to the scores of window m as mask[m % nW].
-extern "C" int sw_block_tokens_launch(const void* const* p, const void* mask, int Mwin, int N,
-                                      int C, int heads, int nW, float scale, void* stream) {
+// One block on window tokens [Mwin, N, C]; mask is null or fp32 [nW, N, N],
+// added to the scores of window m as mask[m % nW].
+extern "C" int sw_block_tokens_launch(const void* const* p, const int* plan, const void* mask,
+                                      int Mwin, int N, int C, int heads, int nW, float scale,
+                                      void* stream) {
     SWArgs a = {};
     set_pointers(a, p);
     if (Mwin <= 0 || nW <= 0 || !set_width(a, C, heads, N, scale))
         return (int)cudaErrorInvalidValue;
     a.mask = (const float*)mask;
     a.nW = nW;
-    a.nwin = Mwin;
-    return launch(sw_block_tokens_kernel, a, (cudaStream_t)stream);
+    set_count(a, Mwin);
+    return launch(sw_block_kernel<true>, a, plan, (cudaStream_t)stream);
 }
 
 // Blocks [no-shift, shift (sh, sw)] on x [B, T, H, W, C]: p0 = (x, scratch,
 // block 0's weights), p1 = (scratch, out, block 1's weights).
-extern "C" int sw_block_pair_launch(const void* const* p0, const void* const* p1, int B, int T,
-                                    int H, int W, int C, int heads, int wh, int ww, int sh,
-                                    int sw, float scale, void* stream) {
+extern "C" int sw_block_pair_launch(const void* const* p0, const void* const* p1,
+                                    const int* plan, int B, int T, int H, int W, int C, int heads,
+                                    int wh, int ww, int sh, int sw, float scale, void* stream) {
     SWArgs a0 = {}, a1 = {};
     set_pointers(a0, p0);
     set_pointers(a1, p1);
     if (!set_geometry_5d(a0, B, T, H, W, C, heads, wh, ww, 0, 0, scale) ||
         !set_geometry_5d(a1, B, T, H, W, C, heads, wh, ww, sh, sw, scale))
         return (int)cudaErrorInvalidValue;
-    return launch_pair(a0, a1, (cudaStream_t)stream);
+    return launch_pair(a0, a1, plan, (cudaStream_t)stream);
 }

@@ -11,22 +11,31 @@
 // operands would move near-ties), and the lowest index wins a tie, as
 // argmin does.
 //
-// The TPU kernel keeps the whole codebook (2 MB at 1024 x 512) in VMEM and
-// streams 1024-row blocks past it.  An SM has 227 KB of shared memory, so
-// here a CTA owns 64 rows and walks the codebook in tiles of 128 codes,
-// staging 16-deep slices of both operands in shared memory (k-major, so the
-// inner loop reads float4s).  Each thread holds a 4 x 8 block of products in
-// registers and a running (min, index) for its 4 rows; a code tile is folded
-// into it with a strict `<` in ascending index order, and the 16 threads
-// that share a row are reduced at the end by shuffles that prefer the lower
-// index on equal distance.
-//
 // What bounds it on an H100: 2*N*n*D FLOP of fp32 FMA against (N + n)*D*4
-// bytes: 25.8 GFLOP vs 52 MB at the deployed shape, bound by operations at
-// the 67 TFLOP/s non-tensor fp32 peak.  This version does 32 FMAs for
-// three 16-byte shared-memory loads per thread and k step and re-reads each
-// x slice once per code tile from L2; double-buffered cp.async staging and a
-// larger register tile are left to a later version.
+// bytes: 25.8 GFLOP vs 52 MB at the deployed shape (N=24576, n=1024,
+// D=512), bound by operations at the 67 TFLOP/s non-tensor fp32 peak.
+//
+// The TPU kernel keeps the whole codebook (2 MB) in VMEM and streams row
+// blocks past it.  Here a CTA of 128 threads owns 64 rows and walks the
+// codebook in tiles of 128 codes, 32-deep slices at a time:
+//  * each thread holds an 8 x 8 block of products (rows ty + 8i, codes
+//    tx + 16j) in registers: per 4 of depth, 8 + 8 sixteen-byte
+//    shared-memory loads feed 256 FMAs;
+//  * the x and code slices are staged row-major (row stride 36 floats, so
+//    the 16 code rows a half-warp reads fall in distinct bank groups) by
+//    16-byte cp.async into two buffers: slice s+1 is in flight while slice
+//    s multiplies.  The (tile, slice) steps form one sequence, so the
+//    pipeline does not drain at a tile boundary.  Rows, codes and depth past
+//    the arrays are zero-filled by the copy itself;
+//  * 128 threads, <= 168 registers (the depth loop unrolled by two, not
+//    eight: fully unrolled it spilled) and 54 KB of shared memory keep three
+//    CTAs resident per SM: the 384 CTAs of the deployed shape fill the 132
+//    SMs in one wave;
+//  * a finished code tile is folded into a running (min, index) per row in
+//    ascending code order with a strict `<`, and the 16 threads that share a
+//    row (16 consecutive lanes) are reduced at the end by shuffles that
+//    prefer the lower index on equal distance: the first minimum.  Each
+//    product sums over the depth in ascending order, as before.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -34,10 +43,9 @@
 
 #define VQ_BM 64        // rows per CTA
 #define VQ_BN 128       // codes per tile
-#define VQ_BK 16        // depth of one staged slice
-#define VQ_THREADS 256  // 16 row groups x 16 code groups
-#define VQ_LDX (VQ_BM + 4)
-#define VQ_LDC (VQ_BN + 4)
+#define VQ_BK 32        // depth of one staged slice
+#define VQ_THREADS 128  // 8 row groups x 16 code groups
+#define VQ_LDS (VQ_BK + 4)
 
 // csq[j] = |c_j|^2, one warp per code.
 __global__ void code_sqnorm_kernel(const float* codes, float* csq, int n, int D) {
@@ -52,88 +60,134 @@ __global__ void code_sqnorm_kernel(const float* codes, float* csq, int n, int D)
     if (lane == 0) csq[j] = s;
 }
 
-// Stage rows [r0, r0+rows) x depth [k0, k0+VQ_BK) of src [R, D] into dst
-// k-major (dst[k][r]); rows past R and depth past D are zero.
-__device__ __forceinline__ void stage(float* dst, int ld, const float* src, int r0, int R,
-                                      int k0, int D, int lr, int lk) {
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + lr < R && k0 + lk < D)
-        v = *reinterpret_cast<const float4*>(src + (long long)(r0 + lr) * D + k0 + lk);
-    dst[(lk + 0) * ld + lr] = v.x;
-    dst[(lk + 1) * ld + lr] = v.y;
-    dst[(lk + 2) * ld + lr] = v.z;
-    dst[(lk + 3) * ld + lr] = v.w;
+// 16-byte asynchronous copy; an invalid source fills the 16 bytes with zero.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+    const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+                 "r"(valid ? 16 : 0)
+                 : "memory");
 }
 
-__global__ void __launch_bounds__(VQ_THREADS)
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stage rows [r0, r0 + ROWS) x depth [k0, k0 + VQ_BK) of src [R, D] into dst
+// row-major (dst[r * VQ_LDS + k]).  Word group e = tid + VQ_THREADS * i is
+// (row e/G, depth 4*(e%G)), G = VQ_BK/4: G lanes read one row's 4*VQ_BK
+// contiguous bytes.
+template <int ROWS>
+__device__ __forceinline__ void stage(float* dst, const float* src, int r0, int R, int k0, int D,
+                                      int tid) {
+    constexpr int G = VQ_BK / 4;
+#pragma unroll
+    for (int i = 0; i < ROWS * G / VQ_THREADS; ++i) {
+        const unsigned e = tid + VQ_THREADS * i;
+        const int r = e / G, k = e % G * 4;
+        const bool valid = r0 + r < R && k0 + k < D;
+        cp_async16(dst + r * VQ_LDS + k, valid ? src + (long long)(r0 + r) * D + k0 + k : src,
+                   valid);
+    }
+}
+
+struct VQSmem {
+    float xs[2][VQ_BM * VQ_LDS];
+    float cs[2][VQ_BN * VQ_LDS];
+};
+
+__global__ void __launch_bounds__(VQ_THREADS, 3)
 vq_nearest_kernel(const float* x, const float* codes, const float* csq, long long* out, int N,
                   int n, int D) {
-    __shared__ __align__(16) float xs[VQ_BK * VQ_LDX];
-    __shared__ __align__(16) float cs[VQ_BK * VQ_LDC];
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    VQSmem& sm = *reinterpret_cast<VQSmem*>(smem_raw);
     const int tid = threadIdx.x;
-    const int tx = tid & 15;  // codes tx*4..+3 and 64+tx*4..+3 of a tile
-    const int ty = tid >> 4;  // rows ty*4..+3 of the CTA
-    const int lr = tid >> 2;  // staging: row within 64
-    const int lk = (tid & 3) * 4;
+    const int tx = tid & 15;  // codes tx + 16j of a tile
+    const int ty = tid >> 4;  // rows ty + 8i of the CTA
     const int row0 = blockIdx.x * VQ_BM;
+    const int nks = (D + VQ_BK - 1) / VQ_BK;
+    const int ntiles = (n + VQ_BN - 1) / VQ_BN;
+    const int steps = nks * ntiles;
 
-    float best[4];
-    int besti[4];
+    float best[8];
+    int besti[8];
+    float acc[8][8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < 8; ++i) {
         best[i] = INFINITY;
         besti[i] = 0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
     }
 
-    for (int c0 = 0; c0 < n; c0 += VQ_BN) {
-        float acc[4][8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    // step s stages code tile s / nks at depth (s % nks) * VQ_BK into buffer s & 1
+    auto issue = [&](int s) {
+        const int b = s & 1;
+        const int c0 = (s / nks) * VQ_BN, k0 = (s % nks) * VQ_BK;
+        stage<VQ_BM>(sm.xs[b], x, row0, N, k0, D, tid);
+        stage<VQ_BN>(sm.cs[b], codes, c0, n, k0, D, tid);
+        cp_async_commit();
+    };
 
-        for (int k0 = 0; k0 < D; k0 += VQ_BK) {
-            stage(xs, VQ_LDX, x, row0, N, k0, D, lr, lk);
-            stage(cs, VQ_LDC, codes, c0, n, k0, D, lr, lk);
-            stage(cs + 64, VQ_LDC, codes, c0 + 64, n, k0, D, lr, lk);
-            __syncthreads();
-#pragma unroll
-            for (int kk = 0; kk < VQ_BK; ++kk) {
-                const float4 a = *reinterpret_cast<const float4*>(xs + kk * VQ_LDX + ty * 4);
-                const float4 b0 = *reinterpret_cast<const float4*>(cs + kk * VQ_LDC + tx * 4);
-                const float4 b1 =
-                    *reinterpret_cast<const float4*>(cs + kk * VQ_LDC + 64 + tx * 4);
-                const float av[4] = {a.x, a.y, a.z, a.w};
-                const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-                for (int i = 0; i < 4; ++i)
-#pragma unroll
-                    for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-            }
-            __syncthreads();
+    issue(0);
+    for (int s = 0; s < steps; ++s) {
+        if (s + 1 < steps) {
+            issue(s + 1);
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
         }
-
-        // fold this tile in, ascending code index, strict `<`: first minimum
+        __syncthreads();
+        const float* xs = sm.xs[s & 1] + ty * VQ_LDS;
+        const float* cs = sm.cs[s & 1] + tx * VQ_LDS;
+        // unrolled by two: fully unrolled, the depth loop spilled at the
+        // 168-register cap
+#pragma unroll 2
+        for (int kq = 0; kq < VQ_BK; kq += 4) {
+            float4 a[8];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-            const int jj = c0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4));
-            if (jj < n) {
-                const float cq = csq[jj];
+            for (int i = 0; i < 8; ++i)
+                a[i] = *reinterpret_cast<const float4*>(xs + 8 * i * VQ_LDS + kq);
 #pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    const float d = cq - 2.0f * acc[i][j];
-                    if (d < best[i]) {
-                        best[i] = d;
-                        besti[i] = jj;
-                    }
+            for (int j = 0; j < 8; ++j) {
+                const float4 b = *reinterpret_cast<const float4*>(cs + 16 * j * VQ_LDS + kq);
+#pragma unroll
+                for (int i = 0; i < 8; ++i) {
+                    float t = fmaf(a[i].x, b.x, acc[i][j]);
+                    t = fmaf(a[i].y, b.y, t);
+                    t = fmaf(a[i].z, b.z, t);
+                    acc[i][j] = fmaf(a[i].w, b.w, t);
                 }
             }
         }
+        if (s % nks == nks - 1) {
+            // fold this tile in, ascending code index, strict `<`: first minimum
+            const int c0 = (s / nks) * VQ_BN;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+                const int jj = c0 + tx + 16 * j;
+                const float cq = jj < n ? csq[jj] : INFINITY;
+#pragma unroll
+                for (int i = 0; i < 8; ++i) {
+                    const float d = cq - 2.0f * acc[i][j];
+                    if (jj < n && d < best[i]) {
+                        best[i] = d;
+                        besti[i] = jj;
+                    }
+                    acc[i][j] = 0.f;
+                }
+            }
+        }
+        __syncthreads();  // buffer s & 1 is refilled by step s + 2
     }
 
     // the 16 threads of a row group are 16 consecutive lanes of one warp
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < 8; ++i) {
 #pragma unroll
         for (int o = 8; o > 0; o >>= 1) {
             const float od = __shfl_xor_sync(0xffffffffu, best[i], o);
@@ -143,7 +197,7 @@ vq_nearest_kernel(const float* x, const float* codes, const float* csq, long lon
                 besti[i] = oi;
             }
         }
-        const int row = row0 + ty * 4 + i;
+        const int row = row0 + ty + 8 * i;
         if (tx == 0 && row < N) out[row] = (long long)besti[i];
     }
 }
@@ -161,7 +215,10 @@ extern "C" int vq_nearest_launch(const void* x, const void* codes, void* csq, vo
                          s>>>((const float*)codes, (float*)csq, n, D);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    vq_nearest_kernel<<<(N + VQ_BM - 1) / VQ_BM, VQ_THREADS, 0, s>>>(
+    const int smem = (int)sizeof(VQSmem);
+    e = cudaFuncSetAttribute(vq_nearest_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    vq_nearest_kernel<<<(N + VQ_BM - 1) / VQ_BM, VQ_THREADS, smem, s>>>(
         (const float*)x, (const float*)codes, (const float*)csq, (long long*)out, N, n, D);
     return (int)cudaGetLastError();
 }

@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface, ``build/kernels/lib<name>.so`` at the root of the
 checkout, and is loaded with ``ctypes``.  The build runs at first use (one
 ``nvcc`` per source, all started together) and is skipped while the library
-is newer than its source.  Nothing here runs at import time.
+is newer than its source.  A source may also be built with one
+preprocessor macro defined (``define``), into a library of its own beside
+the normal one.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import ctypes
 import os
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -21,7 +23,7 @@ SOURCES = ("sw_block", "dense_mha", "vq_nearest", "fused_conv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[Tuple[str, str], ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -34,27 +36,30 @@ def _nvcc() -> str:
     return nvcc
 
 
-def library_path(name: str) -> Path:
-    return BUILD_DIR / f"lib{name}.so"
+def library_path(name: str, define: str = "") -> Path:
+    return BUILD_DIR / (f"lib{name}-{define}.so" if define else f"lib{name}.so")
 
 
-def _stale(name: str) -> bool:
-    lib = library_path(name)
+def _stale(name: str, define: str = "") -> bool:
+    lib = library_path(name, define)
     return (not lib.exists()
             or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime)
 
 
-def build(names: Iterable[str] = SOURCES, force: bool = False) -> Dict[str, str]:
-    """Compile the named kernels in parallel; returns {name: ptxas report}
-    (empty for a library that was already up to date).  Raises on failure."""
+def build(names: Iterable[str] = SOURCES, force: bool = False,
+          define: str = "") -> Dict[str, str]:
+    """Compile the named kernels in parallel, with the macro `define`
+    defined if one is given; returns {name: ptxas report} (empty for a
+    library that was already up to date).  Raises on failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
     for name in names:
-        if not force and not _stale(name):
+        if not force and not _stale(name, define):
             continue
         tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, *([f"-D{define}"] if define else []), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True), tmp)
     reports = {name: "" for name in names}
@@ -66,20 +71,21 @@ def build(names: Iterable[str] = SOURCES, force: bool = False) -> Dict[str, str]
             failed.append(f"--- nvcc {name}.cu (exit {proc.returncode}) ---\n{out}")
             tmp.unlink(missing_ok=True)
         else:
-            os.replace(tmp, library_path(name))
+            os.replace(tmp, library_path(name, define))
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return reports
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, built first if needed."""
-    lib = _libs.get(name)
+def load(name: str, define: str = "") -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu (built with `define` if one is
+    given), built first if needed."""
+    lib = _libs.get((name, define))
     if lib is None:
-        if _stale(name):
-            build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        _libs[name] = lib
+        if _stale(name, define):
+            build([name], define=define)
+        lib = ctypes.CDLL(str(library_path(name, define)))
+        _libs[(name, define)] = lib
     return lib
 
 

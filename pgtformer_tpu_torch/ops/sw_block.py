@@ -15,11 +15,14 @@ Three entry points of ``csrc/sw_block.cu``, one device function:
   cooperative launch; block 0's bf16 output crosses a scratch tensor and a
   grid-wide barrier instead of a second launch.
 
-LN1, attention (head by head), proj, LN2 and the MLP all run in shared
-memory.  On an H100 the block is compute-bound on paper (12*C^2 FLOP per
-token); this version is held back by wmma fragments whose weight operands
-stream from L2: each 48-row CTA (one window) reuses a weight fragment 3
-times, and two CTAs share an SM at C<=256.
+On an H100 the block is compute-bound on paper (12*C^2 FLOP per token).
+The kernel (``csrc/sw_block.cu``) is laid out by :func:`sw_plan`: a
+consumer warpgroup owns a slab of 48 token rows (a 64-row ``wgmma`` tile);
+a CTA holds ``nw`` slabs and a producer warpgroup that feeds the weights by
+TMA through a ring of 64 x 64 tiles in shared memory, so a tile leaves L2
+once per ``nw`` slabs.  The four GEMMs run on ``wgmma`` with accumulators in
+registers; the window attention runs on ``mma.sync`` a head group at a
+time.  What bounds it is measured in PERF.md.
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 PyTorch version (:func:`sw_block_plain`, :func:`sw_block_tokens_plain`,
@@ -29,7 +32,8 @@ PyTorch version (:func:`sw_block_plain`, :func:`sw_block_tokens_plain`,
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+import math
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -134,20 +138,101 @@ def sw_block_pair_plain(x: torch.Tensor, w0: SWBlockWeights, w1: SWBlockWeights,
     return sw_block_plain(sw_block_plain(x, w0, (0, 0)), w1, shift)
 
 
+SMEM_LIMIT = 232448      # dynamic shared memory one CTA may use on an H100
+SLAB = 48                # token rows per consumer warpgroup (csrc/sw_block.cu)
+TILE = 64                # weight tiles: 64 output rows x 64 input columns, bf16
+TILE_BYTES = TILE * TILE * 2
+MAX_NW = 2               # slabs (consumer warpgroups) per CTA
+ROW_TABLE = 768          # per slab: 64 int region labels, 64 int64 row offsets
+PAIR_ARGS = 320          # static shared memory of the pair kernel (its arguments)
+
+
+class SWPlan(NamedTuple):
+    """Launch geometry of the sw_block kernels, in the order of the C
+    entries' ``plan`` array (the first eleven fields).  Offsets are bytes
+    from the 1024-aligned start of dynamic shared memory: the weight ring
+    (``stages`` tiles) at 0; slab s's A, B and X regions at ``off_slab + s *
+    slab_bytes + (0, off_b, off_x)``; per-slab row tables (region labels,
+    row offsets) at ``off_lab``; the ring's mbarriers at ``off_bar``."""
+    nw: int          # slabs per CTA
+    stages: int      # weight-ring slots
+    gw: int          # head-group width: lcm(hd, 64) columns of q, k and v
+    off_slab: int
+    slab_bytes: int
+    off_b: int
+    off_x: int
+    off_lab: int
+    off_bar: int
+    smem: int        # dynamic shared memory of a CTA, alignment slack included
+    grid: int        # CTAs
+    nslab: int       # slabs of SLAB rows over the input
+
+    def as_array(self):
+        return (ctypes.c_int * 11)(*self[:11])
+
+
+def _align(n: int, to: int = 1024) -> int:
+    return (n + to - 1) // to * to
+
+
+def _carve(C: int, gw: int, nw: int, stages: int) -> Dict[str, int]:
+    """Shared-memory carve-up for nw slabs of width C and a ring of
+    `stages` tiles.  A and B buffers (LN and attention outputs, the GEMMs' A
+    operand): 64-column chunks of 48 rows x 128 bytes; the 16 padding rows
+    of a chunk's 64-row tile read the next 2 KB, which for the last chunk is
+    the next region of the slab (B after A, X after B).  X: the fp32
+    residual [48, C], earlier the q/k/v of one head group [3, 48, gw + 8]
+    bf16."""
+    a_bytes = _align(SLAB * C * 2)
+    x_bytes = _align(max(SLAB * C * 4, 3 * SLAB * (gw + 8) * 2))
+    slab = 2 * a_bytes + x_bytes
+    off_slab = stages * TILE_BYTES
+    off_lab = off_slab + nw * slab
+    off_bar = off_lab + nw * ROW_TABLE
+    return dict(off_slab=off_slab, slab_bytes=slab, off_b=a_bytes, off_x=2 * a_bytes,
+                off_lab=off_lab, off_bar=off_bar, smem=off_bar + 16 * stages + 1024)
+
+
+def sw_plan(C: int, heads: int, N: int, nwin: int, pair: bool = False) -> SWPlan:
+    """The kernels' plan for `nwin` windows of N tokens at width C: two slabs
+    per CTA where both fit beside the ring, else one (always one for the
+    pair kernel, whose persistent loop needs the registers); the deepest ring (up
+    to 4 slots) that fits.  The grid covers every slab; the slabs past the
+    input (in a ragged last CTA) run on zeros and write nothing."""
+    hd = C // heads if heads > 0 and C % heads == 0 else 0
+    if C % 64 or C > 512 or not hd or hd % 16 or hd > 64 or N not in (16, 48) or nwin <= 0:
+        raise NotImplementedError(f"sw_block kernel: C={C} heads={heads} N={N} windows={nwin}")
+    gw = math.lcm(hd, TILE)
+    for nw in range(1 if pair else MAX_NW, 0, -1):
+        for stages in (4, 3, 2):
+            carve = _carve(C, gw, nw, stages)
+            if carve["smem"] <= SMEM_LIMIT - (PAIR_ARGS if pair else 0):
+                break
+        else:
+            continue
+        break
+    else:
+        raise NotImplementedError(f"sw_block kernel: C={C} hd={hd} does not fit shared memory")
+    nslab = -(-nwin * N // SLAB)
+    return SWPlan(nw=nw, stages=stages, gw=gw, grid=-(-nslab // nw), nslab=nslab, **carve)
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _PP = ctypes.POINTER(ctypes.c_void_p)
+_IP = ctypes.POINTER(ctypes.c_int)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("sw_block")
+def _lib(define: str = "") -> ctypes.CDLL:
+    """The kernels' library (built with the macro `define`, if given)."""
+    lib = _build.load("sw_block", define)
     if lib.sw_block_launch.argtypes is None:
-        # pointer table; B T H W C heads wh ww sh sw; scale; stream
-        lib.sw_block_launch.argtypes = [_PP] + [_I] * 10 + [ctypes.c_float, _P]
-        # pointer table, mask; Mwin N C heads nW; scale; stream
-        lib.sw_block_tokens_launch.argtypes = [_PP, _P] + [_I] * 5 + [ctypes.c_float, _P]
-        # two pointer tables; B T H W C heads wh ww sh sw; scale; stream
-        lib.sw_block_pair_launch.argtypes = [_PP, _PP] + [_I] * 10 + [ctypes.c_float, _P]
+        # pointer table, plan; B T H W C heads wh ww sh sw; scale; stream
+        lib.sw_block_launch.argtypes = [_PP, _IP] + [_I] * 10 + [ctypes.c_float, _P]
+        # pointer table, plan, mask; Mwin N C heads nW; scale; stream
+        lib.sw_block_tokens_launch.argtypes = [_PP, _IP, _P] + [_I] * 5 + [ctypes.c_float, _P]
+        # two pointer tables, plan; B T H W C heads wh ww sh sw; scale; stream
+        lib.sw_block_pair_launch.argtypes = [_PP, _PP, _IP] + [_I] * 10 + [ctypes.c_float, _P]
         for fn in (lib.sw_block_launch, lib.sw_block_tokens_launch,
                    lib.sw_block_pair_launch):
             fn.restype = _I
@@ -182,9 +267,9 @@ def _check_weights(what: str, x: torch.Tensor, w: SWBlockWeights, N: int) -> Non
 
 
 def _check_5d(what: str, x: torch.Tensor, w: SWBlockWeights, shift) -> None:
-    if x.dtype != torch.bfloat16 or x.dim() != 5 or not x.is_contiguous():
+    if x.dtype != torch.bfloat16 or x.dim() != 5 or not x.is_contiguous() or x.data_ptr() % 16:
         raise NotImplementedError(
-            f"{what} kernel takes contiguous bf16 [B,T,H,W,C], got "
+            f"{what} kernel takes contiguous 16-byte aligned bf16 [B,T,H,W,C], got "
             f"{x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}")
     B, T, H, W, C = x.shape
     wh, ww = w.window
@@ -213,20 +298,29 @@ def sw_block(x: torch.Tensor, w: SWBlockWeights,
         return sw_block_plain(x, w, shift)
     if not x.is_cuda:
         raise NotImplementedError(f"sw_block: device {x.device}")
-    _check_5d("sw_block", x, w, shift)
-    B, T, H, W, C = x.shape
-    wh, ww = w.window
-    out = torch.empty_like(x)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = _lib().sw_block_launch(
-        _pointers(x, out, w), B, T, H, W, C, w.num_heads, wh, ww,
-        int(shift[0]), int(shift[1]), float((C // w.num_heads) ** -0.5), stream)
-    _build.check(code, "sw_block launch")
+    out = launch_5d(_lib(), x, w, shift)
     sw_block.launches += 1
     return out
 
 
 sw_block.launches = 0
+
+
+def launch_5d(lib: ctypes.CDLL, x: torch.Tensor, w: SWBlockWeights,
+              shift: Tuple[int, int]) -> torch.Tensor:
+    """K1 from the library `lib` (:func:`_lib`) on a CUDA tensor x, with
+    :func:`sw_block`'s checks; counts no launch."""
+    _check_5d("sw_block", x, w, shift)
+    B, T, H, W, C = x.shape
+    wh, ww = w.window
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    plan = sw_plan(C, w.num_heads, T * wh * ww, B * (H // wh) * (W // ww))
+    code = lib.sw_block_launch(
+        _pointers(x, out, w), plan.as_array(), B, T, H, W, C, w.num_heads, wh, ww,
+        int(shift[0]), int(shift[1]), float((C // w.num_heads) ** -0.5), stream)
+    _build.check(code, "sw_block launch")
+    return out
 
 
 def sw_block_tokens(x: torch.Tensor, w: SWBlockWeights, mask,
@@ -242,9 +336,9 @@ def sw_block_tokens(x: torch.Tensor, w: SWBlockWeights, mask,
         return sw_block_tokens_plain(x, w, mask, n_windows_per_image)
     if not x.is_cuda:
         raise NotImplementedError(f"sw_block_tokens: device {x.device}")
-    if x.dtype != torch.bfloat16 or x.dim() != 3 or not x.is_contiguous():
+    if x.dtype != torch.bfloat16 or x.dim() != 3 or not x.is_contiguous() or x.data_ptr() % 16:
         raise NotImplementedError(
-            f"sw_block_tokens kernel takes contiguous bf16 [M,N,C], got "
+            f"sw_block_tokens kernel takes contiguous 16-byte aligned bf16 [M,N,C], got "
             f"{x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}")
     Mw, N, C = x.shape
     nW = int(n_windows_per_image)
@@ -260,8 +354,9 @@ def sw_block_tokens(x: torch.Tensor, w: SWBlockWeights, mask,
             "tensor on x's device")
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    plan = sw_plan(C, w.num_heads, N, Mw)
     code = _lib().sw_block_tokens_launch(
-        _pointers(x, out, w), None if mask is None else mask.data_ptr(), Mw, N, C, w.num_heads, nW,
+        _pointers(x, out, w), plan.as_array(), None if mask is None else mask.data_ptr(), Mw, N, C, w.num_heads, nW,
         float((C // w.num_heads) ** -0.5), stream)
     _build.check(code, "sw_block_tokens launch")
     sw_block_tokens.launches += 1
@@ -293,8 +388,10 @@ def sw_block_pair(x: torch.Tensor, w0: SWBlockWeights, w1: SWBlockWeights,
     scratch = torch.empty_like(x)
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    plan = sw_plan(C, w0.num_heads, T * wh * ww, B * (H // wh) * (W // ww), pair=True)
     code = _lib().sw_block_pair_launch(
-        _pointers(x, scratch, w0), _pointers(scratch, out, w1), B, T, H, W, C, w0.num_heads, wh, ww, int(shift[0]), int(shift[1]),
+        _pointers(x, scratch, w0), _pointers(scratch, out, w1), plan.as_array(), B, T, H, W, C,
+        w0.num_heads, wh, ww, int(shift[0]), int(shift[1]),
         float((C // w0.num_heads) ** -0.5), stream)
     _build.check(code, "sw_block_pair launch")
     sw_block_pair.launches += 1

@@ -1,11 +1,13 @@
 """Kernel K5: fused nearest-code lookup of the residual quantizer.
 
 Replaces the TPU kernel ``pgtformer_tpu/ops/pallas_vq.py:
-nearest_code_pallas``.  The Hopper kernel is ``csrc/vq_nearest.cu``: fp32
-FMA products of a 64-row tile against 128-code tiles staged in shared
-memory, a running first-minimum per row in registers, so the ``[N, n]``
-distance matrix never reaches device memory.  On an H100 it is bound by
-operations at the non-tensor fp32 peak (2*N*n*D FLOP).
+nearest_code_pallas``.  The Hopper kernel is ``csrc/vq_nearest.cu``: a
+CTA of 128 threads holds 64 rows against 128-code tiles, each thread an
+8 x 8 tile of fp32 FMA products in registers, the x and code k-slices staged
+in shared memory by double-buffered ``cp.async``; a running first-minimum
+per row stays in registers, so the ``[N, n]`` distance matrix never reaches
+device memory.  What bounds it on an H100 is operations at the non-tensor
+fp32 peak (2*N*n*D FLOP); PERF.md has the share it reaches.
 
 :func:`nearest_code` launches the kernel for a CUDA tensor and runs
 :func:`nearest_code_plain`, the same math in plain PyTorch, only for a

@@ -79,6 +79,61 @@ def test_sw_block_kernel_matches_plain(shape, shift):
     assert err <= 2e-2 * ref.float().abs().max().item(), err
 
 
+# Ragged last CTAs (a slab count no multiple of the two slabs a CTA holds
+# at C <= 256), partial last slabs, T=1 windows (N=16: three windows per
+# slab) and head widths 16, 32 and 64: (shape, heads, shift).
+RAGGED_K1 = [((1, 3, 4, 4, 64), 4, (0, 0)), ((1, 3, 4, 12, 256), 8, (2, 2)),
+             ((1, 3, 8, 12, 64), 4, (2, 2)),
+             ((1, 3, 8, 12, 128), 4, (2, 2)), ((1, 3, 8, 12, 256), 4, (2, 2)),
+             ((1, 3, 4, 4, 512), 8, (0, 0)), ((1, 3, 8, 12, 512), 8, (2, 2)),
+             ((1, 1, 4, 28, 256), 8, (2, 2)), ((3, 1, 12, 20, 64), 2, (0, 2)),
+             ((1, 1, 8, 12, 512), 16, (2, 2))]
+
+
+@pytest.mark.parametrize("shape,heads,shift", RAGGED_K1)
+def test_sw_block_kernel_ragged(shape, heads, shift):
+    dev = _card()
+    w = _block_weights(shape[-1], heads, shape[1], seed=3).to(dev).kernel_weights(dev)
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(4)).to(dev, torch.bfloat16)
+    out = sw_block(x, w, shift)
+    ref = sw_block_plain(x, w, shift)
+    assert torch.isfinite(out).all()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 2e-2 * ref.float().abs().max().item(), err
+    assert torch.equal(sw_block(x, w, shift), out)            # no atomics
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("shape,heads", [((1, 3, 8, 12, 256), 8), ((3, 1, 12, 20, 64), 2)])
+def test_sw_block_tokens_kernel_ragged(shape, heads, masked):
+    """K3 at ragged window counts, with the caller's mask and without."""
+    dev = _card()
+    B, T, H, W, C = shape
+    w = _block_weights(C, heads, T, seed=5).to(dev).kernel_weights(dev)
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(6)).to(dev, torch.bfloat16)
+    tok = window_partition(x, (4, 4)).contiguous()
+    nW = (H // 4) * (W // 4)
+    mask = (torch.as_tensor(shifted_window_mask(T, H, W, (4, 4), (2, 2)), device=dev)
+            if masked else None)
+    out = sw_block_tokens(tok, w, mask, nW)
+    ref = sw_block_tokens_plain(tok, w, mask, nW)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 2e-2 * ref.float().abs().max().item(), err
+    if not masked:
+        assert torch.equal(window_reverse(out, (4, 4), B, T, H, W), sw_block(x, w, (0, 0)))
+
+
+@pytest.mark.parametrize("shape", [(1, 3, 8, 12, 256), (1, 3, 8, 12, 512)])
+def test_sw_block_pair_kernel_ragged(shape):
+    dev = _card()
+    C = shape[-1]
+    w0 = _block_weights(C, 8, 3, seed=7).to(dev).kernel_weights(dev)
+    w1 = _block_weights(C, 8, 3, seed=8).to(dev).kernel_weights(dev)
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(9)).to(dev, torch.bfloat16)
+    out = sw_block_pair(x, w0, w1, (2, 2))
+    assert torch.equal(out, sw_block(sw_block(x, w0, (0, 0)), w1, (2, 2)))
+
+
 # (B, H, N, D, kind) of the attention kernel's cases: the code transformer's
 # shape, partial query and key tiles (N not a multiple of 128; N=8, one
 # partial tile of each), D=32 (its scale 2^-2.5 is no power of two) and
@@ -255,6 +310,36 @@ def test_nearest_code_kernel_exact_tie_takes_lower_index():
     x = codes[130][None] + 0.01 * torch.randn((64, 512), generator=g)
     out = nearest_code(x.to(dev), codes.to(dev))
     assert bool((out == 130).all())
+
+
+@pytest.mark.parametrize("N,n,D", [(24576, 1024, 512), (63, 129, 20), (65, 127, 516),
+                                   (130, 1, 4), (1, 300, 12)])
+def test_nearest_code_kernel_ties_across_tiles_and_threads(N, n, D):
+    """Exact ties between codes in different 128-code tiles, different
+    threads of one tile (codes 4 apart), one thread's two halves (64 apart)
+    and one thread's neighbours; rows near the tied code.  The lowest index
+    wins; every other row agrees with the plain version up to near-ties."""
+    dev = _card()
+    g = torch.Generator().manual_seed(10)
+    codes = torch.randn((n, D), generator=g)
+    x = torch.randn((N, D), generator=g)
+    if n > 1:
+        base = min(3, n - 1)
+        twins = [j for j in (base + 1, base + 4, base + 64, base + 128, base + 131, n - 1)
+                 if base < j < n]
+        for j in twins:
+            codes[j] = codes[base]
+        near = codes[base][None] + 0.01 * torch.randn((min(N, 70), D), generator=g)
+        x[:near.shape[0]] = near
+    out = nearest_code(x.to(dev), codes.to(dev)).cpu()
+    ref = nearest_code_plain(x, codes)
+    if n > 1:
+        assert bool((out[:min(N, 70)] == base).all())
+    differ = torch.nonzero(out != ref).flatten()
+    assert len(differ) <= max(1, 1e-3 * N), len(differ)
+    xd = x[differ].double()
+    dist = lambda idx: ((xd - codes[idx[differ]].double()) ** 2).sum(-1)
+    assert bool(((dist(out) - dist(ref)).abs() <= 1e-5 * dist(ref)).all())
 
 
 def test_encoder_layer_plans_on_the_card():
