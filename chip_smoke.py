@@ -649,7 +649,7 @@ def phase_k8(iters: int):
     import torch
     import torch.nn.functional as F
     from pgtformer_tpu_torch.ops.fused_conv import (
-        phase_kernels_2x2, subpixel_up_conv3x3, subpixel_up_conv3x3_plain)
+        _up_lib, phase_kernels_2x2, subpixel_up_conv3x3, subpixel_up_conv3x3_plain)
     rows, worst = [], 0.0
     for i, (shape, per_tail, per_up) in enumerate(K8_CASES):
         N, H, W, C = shape
@@ -674,14 +674,23 @@ def phase_k8(iters: int):
         flops = 2.0 * N * H * W * 4 * 4 * C * C
         nbytes = N * H * W * C * 2 * 5 + 16 * C * C * 2 + C * 4
         bms, by = bound_ms(flops, nbytes)
+        # every work item (one pixel tile x 64 output channels x one output
+        # row phase: one statistics partial each) reads its 64 columns of
+        # the eight phase matrices of its row phase from L2
+        items = N * _up_lib().subpixel_up_conv3x3_tiles(H, W) * (C // 64)
+        wbytes = items * 8 * C * 64 * 2
+        tflops = flops / ms * 1e-9
+        feed = wbytes / ms * 1e-9
         log(f"[k8] x{list(shape)}: max|d|={err:.3e} (max|ref|={mag:.3e}, tol {K7_TOL}*max|ref|) "
             f"stats_err={st_err:.3e} (tol {K7_STATS_TOL}) kernel_ms={ms:.4f} "
             f"with_stats_ms={ms_st:.4f} plain_ms={plain:.4f} interpolate_conv_ms={lib:.4f} "
-            f"bound_ms={bms:.4f} ({by}) OK")
+            f"bound_ms={bms:.4f} ({by}) {tflops:.1f} TFLOP/s = {bms / ms:.3f} of the bound; "
+            f"L2 weight reads {wbytes / 1e9:.3f} GB/launch = {feed:.3f} TB/s OK")
         worst = max(worst, err)
         rows.append(dict(shape=list(shape), per_step=per_up, per_step_fused_tail=per_tail, ms=ms,
                          with_stats_ms=ms_st, plain_ms=plain, library_ms=lib, bound_ms=bms,
-                         bound_by=by, max_abs_err=err, stats_err=st_err))
+                         bound_by=by, max_abs_err=err, stats_err=st_err, tflops=tflops,
+                         bound_share=bms / ms, l2_weight_gb=wbytes / 1e9, weight_feed_tb_s=feed))
         del x, out, ref, bare
     for i, shape in enumerate([(1, 13, 21, 128), (1, 9, 37, 64)]):
         x, k3, bias = _k8_operands(80 + i, shape)
@@ -1137,7 +1146,7 @@ def main() -> int:
         _entry("gn_silu_conv3x3", "fused_conv.cu", "pallas_conv.py:241", k7_rows, k7_err,
                variants["fused_tail"]["counts"]["gn_silu_conv3x3"],
                step_ms=variants["fused_tail"]["step_ms"]),
-        _entry("subpixel_up_conv3x3", "fused_conv.cu", "pallas_conv.py:360", k8_rows, k8_err,
+        _entry("subpixel_up_conv3x3", "subpixel_up.cu", "pallas_conv.py:360", k8_rows, k8_err,
                variants["fused_up"]["counts"]["subpixel_up_conv3x3"],
                step_ms=variants["fused_up"]["step_ms"]),
     ]

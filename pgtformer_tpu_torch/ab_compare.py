@@ -1,5 +1,5 @@
-"""Time the kernels K1, K2/K6 and K5 and the serving step of several source
-trees on one card, in turns, and compare their restored frames.
+"""Time the kernels K1, K2/K6, K5 and K8 and the serving step of several
+source trees on one card, in turns, and compare their restored frames.
 
 Each tree is a checkout of the repo (for example the parent commit unpacked
 with ``git archive <commit> | tar -x -C build/parent``).  Every turn runs in
@@ -16,6 +16,11 @@ same seeded inputs:
   K5 ``nearest_code`` at the deployed shape (x [24576, 512] against codes
   [1024, 512], fp32) beside ``addmm`` + ``argmin`` on the same operands,
   timed the same way;
+* K8 ``subpixel_up_conv3x3`` (without statistics, as ``FUSED_TAIL=up``
+  calls it) at the four upsample shapes of the serving step, beside
+  ``F.interpolate`` + cuDNN conv on the same operands, timed the same way,
+  and its output held to the tree's own plain version (max|d| <= 1e-2 *
+  max|plain|, TF32 off);
 * the default serving step (RELEASE_PGTFORMER, 512x512, B=8 windows, seeded
   random weights): prime + ``--chunks`` steps, steady ms per step.
 
@@ -95,6 +100,46 @@ def _time_k1_k5(iters: int, repeats: int) -> dict:
     return out
 
 
+K8_SHAPES = [(8, 256, 256, 128), (24, 32, 32, 512), (24, 64, 64, 256), (24, 128, 128, 256)]
+
+
+def _time_k8(iters: int, repeats: int) -> dict:
+    """K8 and interpolate + conv per shape: {name: best ms}, medians and the
+    kernel's error against the tree's plain version beside them."""
+    import torch
+    import torch.nn.functional as F
+    from pgtformer_tpu_torch.ops.fused_conv import (
+        phase_kernels_2x2, subpixel_up_conv3x3, subpixel_up_conv3x3_plain)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for i, shape in enumerate(K8_SHAPES):
+        N, H, W, C = shape
+        g = torch.Generator(device="cuda").manual_seed(70 + i)
+        x = (torch.randn(shape, generator=g, device="cuda") * 0.7).to(torch.bfloat16)
+        k3 = (torch.randn((3, 3, C, C), generator=g, device="cuda") * (9 * C) ** -0.5
+              ).to(torch.bfloat16)
+        bias = 0.1 * torch.randn((C,), generator=g, device="cuda")
+        k2 = phase_kernels_2x2(k3).to(torch.bfloat16)
+        key = "k8_" + "x".join(map(str, shape))
+        got = subpixel_up_conv3x3(x, k2, bias, emit_stats=False)[0].float()
+        ref = subpixel_up_conv3x3_plain(x, k2, bias, emit_stats=False)[0].float()
+        err, mag = (got - ref).abs().max().item(), ref.abs().max().item()
+        if not err <= 1e-2 * mag:
+            raise SystemExit(f"K8 {shape}: max|kernel - plain| {err} > 1e-2 * {mag}")
+        out[f"{key}_err"] = err
+        del got, ref
+        out[f"{key}_ms"], out[f"{key}_median_ms"] = _time_ms(
+            lambda: subpixel_up_conv3x3(x, k2, bias, emit_stats=False), iters, repeats)
+        w16 = k3.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        b16, xc = bias.to(torch.bfloat16), x.permute(0, 3, 1, 2)
+        out[f"{key}_interp_conv_ms"], out[f"{key}_interp_conv_median_ms"] = _time_ms(
+            lambda: F.conv2d(F.interpolate(xc, scale_factor=2, mode="nearest"), w16, b16,
+                             padding=1), iters, repeats)
+    torch.backends.cudnn.allow_tf32 = tf32
+    return out
+
+
 def _worker(frames_path: str, iters: int, repeats: int, chunks: int) -> dict:
     """One turn, inside the tree: the tree's package is first on sys.path."""
     import torch
@@ -119,6 +164,7 @@ def _worker(frames_path: str, iters: int, repeats: int, chunks: int) -> dict:
         out[f"{layout}_ms"], out[f"{layout}_median_ms"] = best, med
 
     out.update(_time_k1_k5(iters, repeats))
+    out.update(_time_k8(iters, repeats))
 
     Bw = 8
     res = RELEASE_PGTFORMER.vqvae.ddconfig.resolution
@@ -198,6 +244,13 @@ def main(argv=None) -> int:
                           if k.startswith("k1_") and not k.endswith("median_ms"))
               + f" ms; K5 {turn['k5_ms']:.4f} ms (median {turn['k5_median_ms']:.4f}), "
               f"addmm+argmin {turn['addmm_argmin_ms']:.4f} ms", flush=True)
+        print(f"[turn {i}] {tree}: K8 "
+              + ", ".join(f"{list(s)} {turn[f'k8_{k}_ms']:.4f} (median "
+                          f"{turn[f'k8_{k}_median_ms']:.4f}, interpolate+conv "
+                          f"{turn[f'k8_{k}_interp_conv_ms']:.4f}, max|d| "
+                          f"{turn[f'k8_{k}_err']:.3e})"
+                          for s in K8_SHAPES for k in ["x".join(map(str, s))])
+              + " ms", flush=True)
     first = np.load(frames[args.trees[0]])
     diffs = {}
     for tree, path in frames.items():

@@ -1,55 +1,43 @@
-// Fused GroupNorm-affine + SiLU + conv3x3 chain of the decoder's per-frame
-// tail, Hopper (sm_90a), bf16 operands, fp32 accumulation.
+// Fused GroupNorm-affine + SiLU + conv3x3 of the decoder's per-frame tail
+// (K7), Hopper (sm_90a), bf16 operands, fp32 accumulation.
 //
-// Replaces the TPU kernels of pgtformer_tpu/ops/pallas_conv.py:
-//   gn_silu_conv3x3      (_gsc_kernel)  -> gn_silu_conv3x3_kernel
-//   subpixel_up_conv3x3  (_sub_kernel)  -> subpixel_up_conv3x3_kernel
+// Replaces the TPU kernel pgtformer_tpu/ops/pallas_conv.py:gn_silu_conv3x3
+// (_gsc_kernel).  Its partner in the chain, the subpixel upsample (K8), is
+// csrc/subpixel_up.cu.
 //
 // gn_silu_conv3x3:  out = conv3x3(silu(x*a + b)) + bias [+ xs @ sk + sb] [+ res]
 //   x [N,H,W,C] bf16 (batch stride given), a/b [N,C] fp32 (null: plain conv),
 //   k [3,3,C,64] bf16, xs [N,H,W,Cs] bf16, sk [Cs,64] bf16, res [N,H,W,64]
 //   bf16.  The affine and SiLU run in fp32 and round to bf16; the conv's zero
 //   padding applies AFTER the activation (silu(b) != 0), in rows and columns;
-//   taps, bias, shortcut and residual add in fp32 and round once.
-// subpixel_up_conv3x3:  out = conv3x3(nearest_up2(x)) + bias as four 2x2 phase
-//   convs: out[n, 2r+a, 2w+b] = bias + sum_{u,v} xpad[r+a+u, w+b+v] @ k2[a,b,u,v]
-//   with k2 [2,2,2,2,C,C] bf16 (pre-summed by the caller), written interleaved.
-// Both can emit per-(sample, channel) (sum, sum of squares) of their ROUNDED
-// bf16 output, the statistics of the next GroupNorm in the chain.
+//   taps, bias, shortcut and residual add in fp32 and round once.  It can emit
+//   per-(sample, channel) (sum, sum of squares) of its ROUNDED bf16 output,
+//   the statistics of the next GroupNorm in the chain.
 //
-// The TPU kernels walk row blocks in grid order, carry the top halo row in
-// scratch memory and accumulate the statistics across grid steps.  A CUDA
+// The TPU kernel walks row blocks in grid order, carries the top halo row in
+// scratch memory and accumulates the statistics across grid steps.  A CUDA
 // grid has no order, so here every CTA stages its own pixel tile with a
 // one-pixel halo on all four sides, and writes its tile's partial statistics
 // to part[n][tile][2][C]; the caller sums over tiles (no atomics: the result
 // does not change from run to run).
 //
-// Both are implicit GEMMs on the tensor cores (wmma 16x16x16): one M-tile is a
-// row of 16 pixels, whose A operand for tap (di, dj) is the staged tile
-// shifted by (di, dj) pixels: no im2col copy.  A staged pixel is padded by
-// 16 channels, which keeps every shifted fragment pointer 32-byte aligned.
+// An implicit GEMM on the tensor cores (wmma 16x16x16): one M-tile is a row
+// of 16 pixels, whose A operand for tap (di, dj) is the staged tile shifted
+// by (di, dj) pixels: no im2col copy.  A staged pixel is padded by 16
+// channels, which keeps every shifted fragment pointer 32-byte aligned.  The
+// whole 3x3 kernel (147 KB at C=128, 74 KB at C=64) and the 1x1 shortcut stay
+// in shared memory of a persistent CTA (one per SM) that walks TH x 16 pixel
+// tiles; each of 8 warps owns TH/8 rows x 64 output channels.  A tile's raw
+// pixels travel through registers: the loads of the next tile are started
+// before this tile's MMAs.
 //
-//  * gn_silu_conv3x3: the whole 3x3 kernel (147 KB at C=128, 74 KB at C=64)
-//    and the 1x1 shortcut stay in shared memory of a persistent CTA (one per
-//    SM) that walks TH x 16 pixel tiles; each of 8 warps owns TH/8 rows x 64
-//    output channels.  A tile's raw pixels travel through registers: the
-//    loads of the next tile are started before this tile's MMAs.
-//  * subpixel_up_conv3x3: the sixteen C x C matrices do not fit (0.5 to 8 MB),
-//    so a CTA owns 8 x 16 input pixels x 64 output channels and loops over
-//    32-channel slices of the input, copying the next slice of x and of all
-//    sixteen matrices (cp.async, two stage buffers) while it multiplies the
-//    current one.  A warp owns one row phase of two rows: 2 column phases x
-//    2 rows x 4 N-tiles of accumulators, so a B fragment feeds two MMAs and a
-//    shifted A fragment both column phases that use it.
-//
-// What bounds them on an H100: at 512x512 x 8 frames the 128->64 conv and the
-// upsample are bound by operations (3.1e11 / 2.7e11 FLOP against 0.8 / 0.7 GB),
-// the 64->64 forms by bytes.  Both sit well above their bounds: with 8 warps
-// per SM the wmma fragments come from shared memory with little latency
-// hidden (the 32-byte pixel pitch also costs a 2-way bank conflict on every A
-// fragment), and in gn_silu_conv3x3 activation, MMAs and epilogue of a tile
-// run one after the other.  wgmma with operands read from shared memory, TMA
-// and a ring of tiles are left to a later version.
+// What bounds it on an H100: at 512x512 x 8 frames the 128->64 conv is bound
+// by operations (3.1e11 FLOP against 0.8 GB), the 64->64 forms by bytes.  It
+// sits well above its bounds: with 8 warps per SM the wmma fragments come
+// from shared memory with little latency hidden (the 32-byte pixel pitch also
+// costs a 2-way bank conflict on every A fragment), and activation, MMAs and
+// epilogue of a tile run one after the other.  wgmma with operands read from
+// shared memory, TMA and a ring of tiles are left to a later version.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,14 +67,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 
 __device__ __forceinline__ void cp_async_wait_all() {
     asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-// Wait until at most N of this thread's committed copy groups are pending.
-template <int N>
-__device__ __forceinline__ void cp_async_wait_group() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Copy `rows` rows of 64 bf16 (row pitch src_pitch elements) to dst (pitch
@@ -393,145 +373,6 @@ __global__ void __launch_bounds__(FC_THREADS, 1) gn_silu_conv3x3_kernel(GscArgs 
 }
 
 // --------------------------------------------------------------------------
-// subpixel_up_conv3x3
-// --------------------------------------------------------------------------
-
-#define SUB_TH 8
-#define SUB_KC 32  // input channels per staged slice
-#define SUB_LDX (SUB_KC + FC_PAD)
-#define SUB_TPIX ((SUB_TH + 2) * FC_TWH)
-#define SUB_X_BYTES (SUB_TPIX * SUB_LDX * 2)
-#define SUB_STAGE_BYTES (SUB_X_BYTES + 16 * SUB_KC * FC_LDW * 2)
-#define SUB_OFF_STG (2 * SUB_STAGE_BYTES)
-#define SUB_OFF_WPART (SUB_OFF_STG + FC_WARPS * 256 * 4)
-#define SUB_SMEM (SUB_OFF_WPART + FC_WARPS * 2 * FC_CO * 4)
-
-struct SubArgs {
-    const bf16* x;
-    long long x_sn;     // batch stride of x in elements
-    const bf16* k2;     // [2, 2, 2, 2, C, C]
-    const float* bias;  // [C]
-    bf16* out;          // [N, 2H, 2W, C]
-    float* part;        // [N, tiles, 2, C] or null
-    int N, H, W, C, tiles_h, tiles_w;
-};
-
-// Start the copy of input channels [kc, kc + SUB_KC) of the pixel tile at
-// (h0, w0) with its halo, and of the same rows of all sixteen matrices
-// (columns [nc0, nc0 + 64)), into one stage buffer; one copy group.
-__device__ __forceinline__ void sub_stage(unsigned char* stage, const SubArgs& g, const bf16* xn,
-                                          int h0, int w0, int kc, int nc0, int tid) {
-    bf16* xt = reinterpret_cast<bf16*>(stage);
-    bf16* wt = reinterpret_cast<bf16*>(stage + SUB_X_BYTES);
-    constexpr int VEC = SUB_KC / 8;
-    for (int idx = tid; idx < SUB_TPIX * VEC; idx += FC_THREADS) {
-        const int pix = idx / VEC, v = idx - pix * VEC;
-        const int r = pix / FC_TWH, c = pix - r * FC_TWH;
-        const int hh = h0 + r - 1, ww = w0 + c - 1;
-        bf16* dst = xt + pix * SUB_LDX + v * 8;
-        if (hh >= 0 && hh < g.H && ww >= 0 && ww < g.W)
-            cp_async16(dst, xn + ((long long)hh * g.W + ww) * g.C + kc + v * 8);
-        else
-            *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-    }
-    for (int m = 0; m < 16; ++m)
-        stage_rows(wt + m * SUB_KC * FC_LDW, g.k2 + ((long long)m * g.C + kc) * g.C + nc0, g.C,
-                   SUB_KC, tid);
-    cp_async_commit();
-}
-
-__global__ void __launch_bounds__(FC_THREADS, 1) subpixel_up_conv3x3_kernel(SubArgs g) {
-    extern __shared__ __align__(128) unsigned char smem[];
-    float* wpart = reinterpret_cast<float*>(smem + SUB_OFF_WPART);
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    float* stg = reinterpret_cast<float*>(smem + SUB_OFF_STG) + warp * 256;
-    // a warp owns row phase pa of two rows of the tile: 2 column phases x
-    // 2 rows x 4 N-tiles of accumulators, every B fragment feeds two MMAs
-    const int pa = warp >> 2, r0 = (warp & 3) * 2;
-
-    const int H = g.H, W = g.W, C = g.C;
-    const int nchunks = C / FC_CO;
-    const int tiles_img = g.tiles_h * g.tiles_w;
-    const int t = blockIdx.x / nchunks;
-    const int nc0 = (blockIdx.x - t * nchunks) * FC_CO;
-    const int n = t / tiles_img, ti = t - n * tiles_img;
-    const int h0 = (ti / g.tiles_w) * SUB_TH, w0 = (ti % g.tiles_w) * FC_TW;
-    const bf16* xn = g.x + n * g.x_sn;
-
-    AccFrag acc[2][2][4];  // [column phase b][row of the pair][N-tile]
-#pragma unroll
-    for (int pb = 0; pb < 2; ++pb)
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-            for (int nt = 0; nt < 4; ++nt) wmma::fill_fragment(acc[pb][mt][nt], 0.0f);
-
-    // two stage buffers: slice s + 1 is copied while slice s is multiplied
-    const int slices = C / SUB_KC;
-    sub_stage(smem, g, xn, h0, w0, 0, nc0, tid);
-    for (int s = 0; s < slices; ++s) {
-        if (s + 1 < slices) {
-            sub_stage(smem + ((s + 1) & 1) * SUB_STAGE_BYTES, g, xn, h0, w0, (s + 1) * SUB_KC, nc0,
-                      tid);
-            cp_async_wait_group<1>();
-        } else {
-            cp_async_wait_group<0>();
-        }
-        __syncthreads();
-        const bf16* xt = reinterpret_cast<const bf16*>(smem + (s & 1) * SUB_STAGE_BYTES);
-        const bf16* wt = reinterpret_cast<const bf16*>(smem + (s & 1) * SUB_STAGE_BYTES + SUB_X_BYTES);
-
-#pragma unroll
-        for (int k0 = 0; k0 < SUB_KC; k0 += 16) {
-#pragma unroll
-            for (int u = 0; u < 2; ++u) {
-#pragma unroll
-                for (int dc = 0; dc < 3; ++dc) {
-                    const bf16* ap = xt + ((r0 + pa + u) * FC_TWH + dc) * SUB_LDX + k0;
-                    AFrag a0, a1;
-                    wmma::load_matrix_sync(a0, ap, SUB_LDX);
-                    wmma::load_matrix_sync(a1, ap + FC_TWH * SUB_LDX, SUB_LDX);
-#pragma unroll
-                    for (int pb = 0; pb < 2; ++pb) {
-                        const int v = dc - pb;
-                        if (v < 0 || v > 1) continue;
-                        const int m = ((pa * 2 + pb) * 2 + u) * 2 + v;
-#pragma unroll
-                        for (int nt = 0; nt < 4; ++nt) {
-                            BFrag bf;
-                            wmma::load_matrix_sync(bf, wt + (m * SUB_KC + k0) * FC_LDW + nt * 16,
-                                                   FC_LDW);
-                            wmma::mma_sync(acc[pb][0][nt], a0, bf, acc[pb][0][nt]);
-                            wmma::mma_sync(acc[pb][1][nt], a1, bf, acc[pb][1][nt]);
-                        }
-                    }
-                }
-            }
-        }
-        __syncthreads();  // the slice has been consumed: its buffer may be refilled
-    }
-
-    float wsum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    const bool want_stats = g.part != nullptr;
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-        const int hh = h0 + r0 + mt;
-        const int valid_w = hh < H ? min(FC_TW, W - w0) : 0;
-#pragma unroll
-        for (int pb = 0; pb < 2; ++pb) {
-            const long long pix0 =
-                (((long long)n * 2 * H + 2 * hh + pa) * 2 * W + 2 * w0 + pb) * C + nc0;
-#pragma unroll
-            for (int nt = 0; nt < 4; ++nt)
-                wsum[nt] += epilogue16(acc[pb][mt][nt], stg, lane, g.bias + nc0 + nt * 16, nullptr,
-                                       nullptr, g.out + pix0 + nt * 16, 2LL * C, valid_w,
-                                       want_stats);
-        }
-    }
-    if (want_stats) write_tile_stats(wpart, wsum, g.part + (long long)t * 2 * C, C, nc0, tid);
-}
-
-// --------------------------------------------------------------------------
 // Plain C entry points (loaded with ctypes); each returns a cudaError_t code.
 // --------------------------------------------------------------------------
 
@@ -615,42 +456,4 @@ extern "C" int gn_silu_conv3x3_launch(const void* x, long long x_sn, const void*
     if (C == 128) return launch_gsc<128, 8, 0>(g, s);
     if (Cs) return launch_gsc<64, 8, 128>(g, s);
     return launch_gsc<64, 16, 0>(g, s);
-}
-
-// Tiles per sample of subpixel_up_conv3x3 on an H x W input: the second
-// extent of its `part` buffer.
-extern "C" int subpixel_up_conv3x3_tiles(int H, int W) {
-    return ((H + SUB_TH - 1) / SUB_TH) * ((W + FC_TW - 1) / FC_TW);
-}
-
-// x [N,H,W,C] bf16 with batch stride x_sn elements; k2 [2,2,2,2,C,C] bf16;
-// bias [C] fp32; out [N,2H,2W,C] bf16; part [N, tiles, 2, C] fp32 or null.
-// C is a multiple of 64; every pointer is 16-byte aligned, x_sn a multiple
-// of 8.
-extern "C" int subpixel_up_conv3x3_launch(const void* x, long long x_sn, const void* k2,
-                                          const void* bias, void* out, void* part, int N, int H,
-                                          int W, int C, void* stream) {
-    if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || C % FC_CO || x_sn % 8)
-        return (int)cudaErrorInvalidValue;
-    static_assert(SUB_SMEM <= FC_SMEM_MAX && FC_CO % SUB_KC == 0, "shared memory, slices");
-    SubArgs g = {};
-    g.x = (const bf16*)x;
-    g.x_sn = x_sn;
-    g.k2 = (const bf16*)k2;
-    g.bias = (const float*)bias;
-    g.out = (bf16*)out;
-    g.part = (float*)part;
-    g.N = N;
-    g.H = H;
-    g.W = W;
-    g.C = C;
-    g.tiles_h = (H + SUB_TH - 1) / SUB_TH;
-    g.tiles_w = (W + FC_TW - 1) / FC_TW;
-    cudaError_t e = cudaFuncSetAttribute(subpixel_up_conv3x3_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SUB_SMEM);
-    if (e != cudaSuccess) return (int)e;
-    const long long grid = (long long)N * g.tiles_h * g.tiles_w * (C / FC_CO);
-    if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    subpixel_up_conv3x3_kernel<<<(unsigned)grid, FC_THREADS, SUB_SMEM, (cudaStream_t)stream>>>(g);
-    return (int)cudaGetLastError();
 }

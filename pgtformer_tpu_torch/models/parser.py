@@ -13,14 +13,16 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from pgtformer_tpu_torch.nn.blocks import conv_nhwc
+from pgtformer_tpu_torch.nn.blocks import KeepFloat32, affine_round, conv_nhwc
 from pgtformer_tpu_torch.ops.image import (
     global_avg_pool, resize_bilinear_align_corners, resize_nearest)
 
 
-class FrozenBatchNorm(nn.Module):
+class FrozenBatchNorm(KeepFloat32):
     """BatchNorm2d on running statistics (eps 1e-5) over [N, H, W, C], with
-    torch's parameter names and no `num_batches_tracked` buffer."""
+    torch's parameter names and no `num_batches_tracked` buffer.  Parameters
+    and statistics stay fp32; the fold is applied in fp32 and rounded once
+    to the input's dtype."""
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -39,7 +41,7 @@ class FrozenBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         a = self.weight * torch.rsqrt(self.running_var + self.eps)
-        return x * a + (self.bias - self.running_mean * a)
+        return affine_round(x, a, self.bias - self.running_mean * a)
 
 
 def _conv(cin, cout, ks, stride=1, padding=0):

@@ -143,10 +143,13 @@ class PGTFormer(nn.Module):
     def encode_frames(self, frames: torch.Tensor):
         """Per-frame compute: frames [F, H, W, 3] in [0,1] -> (query-pos
         embedding [F, th, tw, C], encoder-trunk features [F, h', w', C'],
-        tuple of per-frame trunk skip features)."""
-        cond = self.conditionnet(imagenet_normalize(frames))
+        tuple of per-frame trunk skip features).  Frames may be fp32 in a
+        bf16 model: the parser's input is normalized in fp32 and the trunk's
+        taken as it is, each rounded once to the model's dtype."""
+        dtype = self.convpos.weight.dtype
+        cond = self.conditionnet(imagenet_normalize(frames).to(dtype))
         pos = conv_nhwc(self.convpos, cond)
-        trunk_h, trunk_feats = self.encoder(frames[None], stage="trunk")
+        trunk_h, trunk_feats = self.encoder(frames[None].to(dtype), stage="trunk")
         return pos, trunk_h[0], tuple(f[0] for f in trunk_feats)
 
     def restore_windows(self, pos, trunk_h, trunk_feats, w: Optional[float] = None,

@@ -26,6 +26,7 @@ import torch
 import torch.nn as nn
 
 from pgtformer_tpu_torch import knobs
+from pgtformer_tpu_torch.nn.blocks import KeepFloat32
 from pgtformer_tpu_torch.ops.vq import nearest_code
 
 
@@ -59,8 +60,9 @@ def embed(weight: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return weight[idx]
 
 
-class VQEmbedding(nn.Module):
-    """One codebook: `weight` [n_embed + 1, D] plus the EMA buffers."""
+class VQEmbedding(KeepFloat32):
+    """One codebook: `weight` [n_embed + 1, D] plus the EMA buffers, kept
+    fp32 under a dtype cast."""
 
     def __init__(self, n_embed: int, embed_dim: int):
         super().__init__()
@@ -76,13 +78,6 @@ class VQEmbedding(nn.Module):
             self.weight.copy_(w)
             self.embed_ema.copy_(w[:-1])
             self.cluster_size_ema.zero_()
-
-    def _apply(self, fn, *args, **kwargs):
-        # moves with the model but keeps its fp32 values under a dtype cast
-        def keep(t):
-            r = fn(t)
-            return t.to(r.device) if r.dtype != t.dtype else r
-        return super()._apply(keep, *args, **kwargs)
 
     def forward(self, idx: torch.Tensor) -> torch.Tensor:
         return embed(self.weight, idx)

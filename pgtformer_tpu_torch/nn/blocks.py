@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from pgtformer_tpu_torch import knobs
 from pgtformer_tpu_torch.ops.fused_conv import (
-    ResBlockKernelWeights, conv_kernel_hwio, phase_kernels_2x2)
+    ResBlockKernelWeights, conv_kernel_hwio, gn_affine_from_stats, phase_kernels_2x2)
 from pgtformer_tpu_torch.ops.sw_block import (
     SWBlockWeights, sw_block, sw_block_pair, sw_block_tokens)
 from pgtformer_tpu_torch.ops.window import (
@@ -37,21 +37,74 @@ def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
-class GroupNorm(nn.GroupNorm):
-    """GroupNorm(32, eps=1e-6, affine) on [N, H, W, C]."""
+class KeepFloat32(nn.Module):
+    """Mixin: the module moves with the model, but its parameters and buffers
+    keep their fp32 values under a dtype cast, as flax keeps parameters in
+    fp32 whatever the compute dtype."""
+
+    def _apply(self, fn, *args, **kwargs):
+        def keep(t):
+            r = fn(t)
+            return t.to(r.device) if r.dtype != t.dtype else r
+        return super()._apply(keep, *args, **kwargs)
+
+
+def affine_round(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """x * a + b in fp32 (a, b fp32, broadcast over x), rounded once to
+    `dtype` (default x's): one pass over x, no fp32 copy of it (autograd
+    takes no out=, so a recorded gradient gets the fp32 result cast)."""
+    dtype = dtype or x.dtype
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, a, b)):
+        return torch.addcmul(b, x, a).to(dtype)
+    return torch.addcmul(b, x, a, out=torch.empty_like(x, dtype=dtype))
+
+
+def _sum_sumsq(x: torch.Tensor, dim) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 sum and sum of squares of x over `dim`, reduced from x's dtype
+    (on a card without an fp32 copy of x)."""
+    s1 = x.sum(dim, dtype=torch.float32)
+    s2 = torch.linalg.vector_norm(x, 2, dim, dtype=torch.float32).square()
+    return s1, s2
+
+
+class GroupNorm(KeepFloat32, nn.GroupNorm):
+    """GroupNorm(32, eps=1e-6, affine) on [N, H, W, C].  The affine stays
+    fp32; a lower-precision input is normalized and scaled in fp32 from fp32
+    statistics (variance E[x^2] - mean^2, as flax) and rounded once."""
 
     def __init__(self, num_channels: int):
         super().__init__(32, num_channels, eps=1e-6)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.group_norm(x.permute(0, 3, 1, 2), self.num_groups, self.weight,
-                         self.bias, self.eps)
-        return y.permute(0, 2, 3, 1)
+        if x.dtype == self.weight.dtype:
+            y = F.group_norm(x.permute(0, 3, 1, 2), self.num_groups, self.weight,
+                             self.bias, self.eps)
+            return y.permute(0, 2, 3, 1)
+        stats = torch.stack(_sum_sumsq(x, (1, 2)), dim=1)
+        a, b = gn_affine_from_stats(stats, self.weight, self.bias, x.shape[1] * x.shape[2],
+                                    self.num_groups, self.eps)
+        return affine_round(x, a[:, None, None], b[:, None, None])
 
 
-def layer_norm(dim: int) -> nn.LayerNorm:
+class LayerNorm(KeepFloat32, nn.LayerNorm):
+    """LayerNorm over the last dim with an fp32 affine; a lower-precision
+    input is normalized and scaled in fp32 (variance E[x^2] - mean^2, as
+    flax) and rounded once."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == self.weight.dtype:
+            return super().forward(x)
+        s1, s2 = _sum_sumsq(x, (-1,))
+        mean, msq = s1[..., None] / x.shape[-1], s2[..., None] / x.shape[-1]
+        rstd = torch.rsqrt((msq - mean * mean).clamp_min(0.0) + self.eps)
+        xn = torch.addcmul(-mean * rstd, x, rstd)
+        return affine_round(xn, self.weight, self.bias, x.dtype)
+
+
+def layer_norm(dim: int) -> LayerNorm:
     """LayerNorm with the JAX package's eps (1e-6)."""
-    return nn.LayerNorm(dim, eps=1e-6)
+    return LayerNorm(dim, eps=1e-6)
 
 
 def _fold(x: torch.Tensor):
@@ -123,14 +176,25 @@ class ResnetBlock(_KernelWeightCache):
         return self._kernel_cache
 
 
+class Float32Conv2d(KeepFloat32, nn.Conv2d):
+    """A conv whose weight and bias stay fp32 under a dtype cast; it runs in
+    its input's dtype, with the parameters rounded to it at use."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
 class Upsample(_KernelWeightCache):
-    """Nearest-2x upsample, then conv3x3."""
+    """Nearest-2x upsample, then conv3x3.  The conv's parameters stay fp32,
+    so the phase kernels of :meth:`kernel_weights` are summed from the fp32
+    taps and rounded once, as the JAX package's are."""
 
     def __init__(self, channels: int, with_conv: bool = True):
         super().__init__()
         self.with_conv = with_conv
         if with_conv:
-            self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+            self.conv = Float32Conv2d(channels, channels, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, lead = _fold(x)

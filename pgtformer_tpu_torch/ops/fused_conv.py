@@ -2,9 +2,10 @@
 decoder's per-frame high-resolution tail.
 
 Replaces the TPU kernels ``pgtformer_tpu/ops/pallas_conv.py:gn_silu_conv3x3``
-and ``subpixel_up_conv3x3``.  The Hopper kernels are in
-``csrc/fused_conv.cu``: implicit GEMMs on the tensor cores over pixel tiles
-with a one-pixel halo staged in shared memory.
+and ``subpixel_up_conv3x3``.  The Hopper kernels are implicit GEMMs on the
+tensor cores over pixel tiles with a one-pixel halo: K7 in
+``csrc/fused_conv.cu`` (wmma), K8 in ``csrc/subpixel_up.cu`` (TMA weight
+ring feeding wgmma).
 
 The chain removes the stand-alone passes around the tail's convs:
 
@@ -160,6 +161,12 @@ def _lib() -> ctypes.CDLL:
         lib.gn_silu_conv3x3_launch.restype = _I
         lib.gn_silu_conv3x3_tiles.argtypes = [_I] * 5
         lib.gn_silu_conv3x3_tiles.restype = _I
+    return lib
+
+
+def _up_lib() -> ctypes.CDLL:
+    lib = _build.load("subpixel_up")
+    if lib.subpixel_up_conv3x3_launch.argtypes is None:
         lib.subpixel_up_conv3x3_launch.argtypes = [_P, _L] + [_P] * 4 + [_I] * 4 + [_P]
         lib.subpixel_up_conv3x3_launch.restype = _I
         lib.subpixel_up_conv3x3_tiles.argtypes = [_I] * 2
@@ -288,7 +295,7 @@ def subpixel_up_conv3x3(x: torch.Tensor, k3: torch.Tensor, bias: torch.Tensor, *
     k2 = _phase_kernels_bf16(k3)
     _check_param(fn, "phase kernels", k2, (2, 2, 2, 2, C, C), torch.bfloat16, dev)
     _check_param(fn, "bias", bias, (C,), torch.float32, dev)
-    lib = _lib()
+    lib = _up_lib()
     out = torch.empty((N, 2 * H, 2 * W, C), dtype=torch.bfloat16, device=dev)
     part = None
     if emit_stats:

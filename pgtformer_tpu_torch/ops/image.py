@@ -17,10 +17,11 @@ IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 
 def imagenet_normalize(x: torch.Tensor) -> torch.Tensor:
-    """Normalize [..., C=3] images in [0,1] with ImageNet statistics."""
-    mean = torch.as_tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device)
-    std = torch.as_tensor(IMAGENET_STD, dtype=x.dtype, device=x.device)
-    return (x - mean) / std
+    """Normalize [..., C=3] images in [0,1] with ImageNet statistics, in
+    fp32 whatever x's dtype (the caller rounds the result once)."""
+    mean = torch.as_tensor(IMAGENET_MEAN, device=x.device)
+    std = torch.as_tensor(IMAGENET_STD, device=x.device)
+    return (x.float() - mean) / std
 
 
 def adaptive_instance_normalization(content: torch.Tensor,

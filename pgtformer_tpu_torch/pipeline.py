@@ -84,7 +84,7 @@ class VideoRestorer:
 
     def _encode(self, frames_u8: torch.Tensor) -> List[torch.Tensor]:
         """[F, H, W, 3] uint8 -> flat per-frame features [pos, trunk, *skips]."""
-        x = (frames_u8.to(torch.float32) / 255.0).to(self.dtype)
+        x = frames_u8.to(torch.float32) / 255.0
         pos, trunk, skips = self.model.encode_frames(x)
         return [pos, trunk, *skips]
 

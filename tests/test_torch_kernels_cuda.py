@@ -465,6 +465,28 @@ def test_subpixel_up_conv3x3_kernel(shape, emit):
     assert torch.equal(subpixel_up_conv3x3(mid, k3, bias, emit_stats=False)[0], out)
 
 
+@pytest.mark.parametrize("shape", [
+    (1, 5, 7, 64),        # one slice (C = 64) and a tile larger than the image
+    (2, 3, 9, 64),
+    (1, 36, 16, 128),     # an odd number of pixel tiles (3)
+    (2, 40, 48, 256)])
+def test_subpixel_up_conv3x3_kernel_edges_and_repeats(shape):
+    """K8 where its loops are shortest or its tiles odd in number, held to
+    the plain version; two launches give the same bits, statistics too."""
+    dev = _card()
+    _exact_fp32()
+    C = shape[-1]
+    g = torch.Generator().manual_seed(13)
+    x = (torch.randn(shape, generator=g) * 0.7 + 0.1).to(dev, torch.bfloat16)
+    k3 = (torch.randn((3, 3, C, C), generator=g) * (9 * C) ** -0.5).to(dev, torch.bfloat16)
+    bias = (0.1 * torch.randn((C,), generator=g)).to(dev)
+    out, st = subpixel_up_conv3x3(x, k3, bias)
+    ref, ref_st = subpixel_up_conv3x3_plain(x, k3, bias)
+    _close_conv(out, st, ref, ref_st)
+    again, st2 = subpixel_up_conv3x3(x, k3, bias)
+    assert torch.equal(again, out) and torch.equal(st2, st)    # no atomics
+
+
 def test_fused_conv_kernels_refuse_instead_of_falling_back():
     dev = _card()
     bf = torch.bfloat16
