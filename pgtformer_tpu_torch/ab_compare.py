@@ -1,4 +1,4 @@
-"""Time the kernels K1, K2/K6, K5 and K8 and the serving step of several
+"""Time the kernels K1, K2/K6, K5, K7 and K8 and the serving step of several
 source trees on one card, in turns, and compare their restored frames.
 
 Each tree is a checkout of the repo (for example the parent commit unpacked
@@ -21,6 +21,13 @@ same seeded inputs:
   ``F.interpolate`` + cuDNN conv on the same operands, timed the same way,
   and its output held to the tree's own plain version (max|d| <= 1e-2 *
   max|plain|, TF32 off);
+* K7 ``gn_silu_conv3x3`` in the four forms the fused tail launches per
+  step (128->64, 64->64 + 1x1 shortcut from 128, 64->64, 64->64 +
+  residual) at [8, 512, 512, C], with statistics, beside the stock
+  sequence (``group_norm`` + ``silu`` + cuDNN conv [+ 1x1 conv | +
+  residual]) on the same operands, timed the same way, its output and
+  statistics held to the tree's own plain version (max|d| <= 1e-2 *
+  max|plain|; statistics within 1e-3 of the largest per-channel value);
 * the default serving step (RELEASE_PGTFORMER, 512x512, B=8 windows, seeded
   random weights): prime + ``--chunks`` steps, steady ms per step.
 
@@ -140,6 +147,71 @@ def _time_k8(iters: int, repeats: int) -> dict:
     return out
 
 
+# (key, C, Cs, residual): the fused tail's four K7 launches per serving step
+K7_FORMS = [("128to64", 128, 0, False), ("64to64_shortcut", 64, 128, False),
+            ("64to64", 64, 0, False), ("64to64_residual", 64, 0, True)]
+
+
+def _time_k7(iters: int, repeats: int) -> dict:
+    """K7 and the stock sequence per form: {name: best ms}, medians and the
+    kernel's errors against the tree's plain version beside them."""
+    import torch
+    import torch.nn.functional as F
+    from pgtformer_tpu_torch.ops.fused_conv import (
+        channel_stats, gn_affine_from_stats, gn_silu_conv3x3, gn_silu_conv3x3_plain)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    N, H, W = 8, 512, 512
+    bf = torch.bfloat16
+    nchw = lambda a: a.permute(0, 3, 1, 2)
+    for i, (key, C, Cs, residual) in enumerate(K7_FORMS):
+        g = torch.Generator(device="cuda").manual_seed(40 + i)
+        rnd = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+        x = (rnd(N, H, W, C) * 0.7 + 0.2).to(bf)
+        gamma, beta = 1.0 + 0.1 * rnd(C), 0.1 * rnd(C)
+        ab = gn_affine_from_stats(channel_stats(x), gamma, beta, H * W)
+        k = (rnd(3, 3, C, 64) * (9 * C) ** -0.5).to(bf)
+        bias = 0.1 * rnd(64)
+        kw = {}
+        if Cs:
+            kw["shortcut"] = ((rnd(N, H, W, Cs) * 0.7).to(bf),
+                              (rnd(Cs, 64) * Cs ** -0.5).to(bf), 0.1 * rnd(64))
+        if residual:
+            kw["residual"] = (rnd(N, H, W, 64) * 0.7).to(bf)
+        got, st = gn_silu_conv3x3(x, ab, k, bias, **kw)
+        ref, ref_st = gn_silu_conv3x3_plain(x, ab, k, bias, **kw)
+        err, mag = (got.float() - ref.float()).abs().max().item(), ref.float().abs().max().item()
+        st_err = ((st - ref_st).abs().amax(dim=(0, 2))
+                  / ref_st.abs().amax(dim=(0, 2))).max().item()
+        if not (err <= 1e-2 * mag and st_err <= 1e-3):
+            raise SystemExit(f"K7 {key}: max|kernel - plain| {err} (1e-2 * {mag}), "
+                             f"statistics {st_err} (1e-3)")
+        out[f"k7_{key}_err"], out[f"k7_{key}_stats_err"] = err, st_err
+        del got, ref
+        out[f"k7_{key}_ms"], out[f"k7_{key}_median_ms"] = _time_ms(
+            lambda: gn_silu_conv3x3(x, ab, k, bias, **kw), iters, repeats)
+        w16 = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        b16, g16, be16 = bias.to(bf), gamma.to(bf), beta.to(bf)
+        if Cs:
+            xs, sk, sb = kw["shortcut"]
+            sk16, sb16 = sk.t().reshape(64, Cs, 1, 1).contiguous(), sb.to(bf)
+
+        def stock():
+            o = F.conv2d(F.silu(F.group_norm(nchw(x), 32, g16, be16, 1e-6)), w16, b16, padding=1)
+            if Cs:
+                o = o + F.conv2d(nchw(xs), sk16, sb16)
+            if residual:
+                o = o + nchw(kw["residual"])
+            return o
+
+        out[f"k7_{key}_stock_ms"], out[f"k7_{key}_stock_median_ms"] = _time_ms(
+            stock, iters, repeats)
+        del x, kw
+    torch.backends.cudnn.allow_tf32 = tf32
+    return out
+
+
 def _worker(frames_path: str, iters: int, repeats: int, chunks: int) -> dict:
     """One turn, inside the tree: the tree's package is first on sys.path."""
     import torch
@@ -165,6 +237,7 @@ def _worker(frames_path: str, iters: int, repeats: int, chunks: int) -> dict:
 
     out.update(_time_k1_k5(iters, repeats))
     out.update(_time_k8(iters, repeats))
+    out.update(_time_k7(iters, repeats))
 
     Bw = 8
     res = RELEASE_PGTFORMER.vqvae.ddconfig.resolution
@@ -250,6 +323,13 @@ def main(argv=None) -> int:
                           f"{turn[f'k8_{k}_interp_conv_ms']:.4f}, max|d| "
                           f"{turn[f'k8_{k}_err']:.3e})"
                           for s in K8_SHAPES for k in ["x".join(map(str, s))])
+              + " ms", flush=True)
+        print(f"[turn {i}] {tree}: K7 "
+              + ", ".join(f"{key} {turn[f'k7_{key}_ms']:.4f} (median "
+                          f"{turn[f'k7_{key}_median_ms']:.4f}, stock "
+                          f"{turn[f'k7_{key}_stock_ms']:.4f}, max|d| "
+                          f"{turn[f'k7_{key}_err']:.3e}, stats {turn[f'k7_{key}_stats_err']:.2e})"
+                          for key, *_ in K7_FORMS)
               + " ms", flush=True)
     first = np.load(frames[args.trees[0]])
     diffs = {}

@@ -2,10 +2,12 @@
 decoder's per-frame high-resolution tail.
 
 Replaces the TPU kernels ``pgtformer_tpu/ops/pallas_conv.py:gn_silu_conv3x3``
-and ``subpixel_up_conv3x3``.  The Hopper kernels are implicit GEMMs on the
-tensor cores over pixel tiles with a one-pixel halo: K7 in
-``csrc/fused_conv.cu`` (wmma), K8 in ``csrc/subpixel_up.cu`` (TMA weight
-ring feeding wgmma).
+and ``subpixel_up_conv3x3``.  The Hopper kernels are implicit GEMMs on
+wgmma over pixel tiles with a one-pixel halo, each in a persistent CTA per
+SM with a producer warp issuing TMA loads: K7 in ``csrc/fused_conv.cu``
+keeps its whole 3x3 kernel resident in shared memory and streams the input
+through a ring of halo boxes that a warp group activates in place; K8 in
+``csrc/subpixel_up.cu`` streams its phase matrices through a weight ring.
 
 The chain removes the stand-alone passes around the tail's convs:
 
@@ -224,7 +226,8 @@ def gn_silu_conv3x3(x: torch.Tensor, ab, k: torch.Tensor, bias: torch.Tensor, *,
     kernel, for (C, Co, Cs) in {(128, 64, none), (64, 64, none),
     (64, 64, 128)}, any N, H, W; x may have any batch stride (a multiple of
     8), every other operand is contiguous; raises on the rest.  The stats are
-    summed from per-tile partial sums, so they repeat from run to run."""
+    summed from per-(tile, warpgroup) partial sums in a fixed order, so they
+    repeat from run to run."""
     fn = "gn_silu_conv3x3"
     if _on_cpu(fn, x):
         return gn_silu_conv3x3_plain(x, ab, k, bias, shortcut=shortcut, residual=residual,

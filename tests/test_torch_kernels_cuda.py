@@ -406,7 +406,11 @@ def _close_conv(out, st, ref, ref_st):
     assert rel.max().item() <= 1e-3, rel
 
 
-@pytest.mark.parametrize("N,H,W", [(2, 512, 512), (1, 37, 53)])
+# (N, H, W): the serving step's frame size; a ragged one; fewer 12 x 16 tiles
+# (6) than an H100 has SMs; and many tiles per persistent CTA (1,700 over
+# 132 SMs, ragged in both directions), where a missing proxy fence between a
+# slot's last reads and its refill shows
+@pytest.mark.parametrize("N,H,W", [(2, 512, 512), (1, 37, 53), (1, 24, 48), (4, 301, 203)])
 @pytest.mark.parametrize("C,Cs,residual,act,emit", [
     (128, 0, False, True, True), (64, 128, False, True, True), (64, 0, False, True, True),
     (64, 0, True, True, True), (128, 0, False, False, False)])
@@ -438,6 +442,68 @@ def test_gn_silu_conv3x3_kernel(N, H, W, C, Cs, residual, act, emit):
     _close_conv(out, st, ref, ref_st)
     again, st2 = gn_silu_conv3x3(x, ab, k, bias, emit_stats=emit, **kw)
     assert torch.equal(again, out) and (st is None or torch.equal(st2, st))   # no atomics
+
+
+@pytest.mark.parametrize("C,Cs,residual", [(128, 0, False), (64, 128, False), (64, 0, False),
+                                           (64, 0, True)])
+def test_gn_silu_conv3x3_kernel_border_and_strided_batch(C, Cs, residual):
+    """K7 with per-(sample, channel) a and b far from a GroupNorm's: silu(b)
+    reaches ~3, so padding before the activation (silu(b) at the border
+    instead of 0) or an activation that reads a and b at the wrong channel
+    (a swizzled chunk taken for its physical index) misses the tolerance by
+    far; and x the middle frame of a clip, a view with a batch stride."""
+    dev = _card()
+    _exact_fp32()
+    g = torch.Generator().manual_seed(13)
+    rnd = lambda *shape: torch.randn(shape, generator=g)
+    bf = torch.bfloat16
+    N, H, W = 3, 29, 45
+    clip = (rnd(N, 3, H, W, C) * 0.7).to(dev, bf)
+    x = clip[:, 1:2].reshape(N, H, W, C)
+    assert not x.is_contiguous()
+    a = (0.5 + torch.rand((N, C), generator=g)).to(dev)
+    b = (3.0 * (2.0 * torch.rand((N, C), generator=g) - 1.0)).to(dev)
+    k = (rnd(3, 3, C, 64) * (9 * C) ** -0.5).to(dev, bf)
+    bias = (0.1 * rnd(64)).to(dev)
+    kw = {}
+    if Cs:
+        kw["shortcut"] = ((rnd(N, H, W, Cs) * 0.7).to(dev, bf),
+                          (rnd(Cs, 64) * Cs ** -0.5).to(dev, bf), (0.1 * rnd(64)).to(dev))
+    if residual:
+        kw["residual"] = (rnd(N, H, W, 64) * 0.7).to(dev, bf)
+    out, st = gn_silu_conv3x3(x, (a, b), k, bias, **kw)
+    ref, ref_st = gn_silu_conv3x3_plain(x, (a, b), k, bias, **kw)
+    _close_conv(out, st, ref, ref_st)
+    # the same conv with the border padded before the activation is far off
+    xp = torch.nn.functional.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    y = xp * a[:, None, None] + b[:, None, None]
+    y = (y * torch.sigmoid(y)).to(bf).float()
+    wrong = torch.nn.functional.conv2d(y.permute(0, 3, 1, 2), k.float().permute(3, 2, 0, 1))
+    wrong = wrong.permute(0, 2, 3, 1) + bias
+    if Cs:
+        xs, sk, sb = kw["shortcut"]
+        wrong = wrong + xs.float() @ sk.float() + sb
+    if residual:
+        wrong = wrong + kw["residual"].float()
+    gap = (wrong - ref.float()).abs().max().item()
+    assert gap > 10 * 1e-2 * ref.float().abs().max().item(), gap
+    assert torch.equal(gn_silu_conv3x3(x.contiguous(), (a, b), k, bias, **kw)[0], out)
+
+
+def test_gn_silu_conv3x3_kernel_repeats():
+    """30 launches of K7 on the same operands are bit-equal, output and
+    statistics, at a shape with many tiles per CTA."""
+    dev = _card()
+    g = torch.Generator().manual_seed(14)
+    x = (torch.randn((4, 128, 200, 64), generator=g) * 0.7).to(dev, torch.bfloat16)
+    a = (0.5 + torch.rand((4, 64), generator=g)).to(dev)
+    b = (torch.randn((4, 64), generator=g)).to(dev)
+    k = (torch.randn((3, 3, 64, 64), generator=g) * (9 * 64) ** -0.5).to(dev, torch.bfloat16)
+    bias = (0.1 * torch.randn((64,), generator=g)).to(dev)
+    out, st = gn_silu_conv3x3(x, (a, b), k, bias)
+    for _ in range(29):
+        o2, s2 = gn_silu_conv3x3(x, (a, b), k, bias)
+        assert torch.equal(o2, out) and torch.equal(s2, st)
 
 
 @pytest.mark.parametrize("emit", [True, False])
