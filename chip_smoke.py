@@ -48,7 +48,26 @@ Phases, in order; any failure exits non-zero:
     TDCRQVAE3 (latent error, code agreement, forced-code decode); and a
     small PGTFormer whose geometry passes the fused tail's guard, under
     FUSED_TAIL=1: CUDA bf16 (kernels) against CPU bf16 (the plain chain);
- 8. a JSON line of kernel numbers, then the device JSON as the last line.
+ 8. the kernels' gradients (after phase 3, before the serving step): each
+    autograd Function (K1 at the six K1_CASES and at the training step's
+    three B=1 shapes with both shifts, K3 and K4 at one serving shape and at
+    each training shape, K2/K6 at [1, 3072, 8, 64]; kernel forward,
+    plain-version backward) against autograd through the plain version: the
+    forward to the kernel's tolerance, the gradients of x, of every weight
+    and of the bias table to GRAD_TOL, one launch per forward and none in
+    the backward, the forward + backward timed both ways (K5 is held to its
+    plain version at the training shape [3072, 512] in phase 3);
+ 9. training at full width and depth: Stage1Trainer on RELEASE_PGTFORMER.vqvae
+    and PGTFormerTrainer("III") on RELEASE_PGTFORMER, one seeded 512x512
+    3-frame uint8 clip per step, bf16 compute over fp32 parameters, random
+    LPIPS VGG, GAN from step 0, 1 warm-up + 10 timed steps each (median,
+    min and max step ms); asserts finite
+    losses, moved parameters, EMA and stage-I codebook, untouched frozen
+    modules and teacher, and exact launches per step (I: 22 K1 + 1 K5; III:
+    30 K1 + 9 K6 + 1 K5); prints `[train:I]` / `[train:III]` lines with step
+    ms, peak memory, the losses and the card's name and power limit;
+10. a JSON line of kernel numbers (each with its backward route and its
+    launches per training step), then the device JSON as the last line.
 
 Launch counts are set to 0 just before each path is driven and read just
 after it; launches made to compare or time a kernel do not count.
@@ -58,6 +77,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import math
 import re
 import subprocess
 import sys
@@ -497,6 +517,7 @@ def phase_k5(iters: int):
         return len(differ), abs_gap, gap
 
     n_diff, abs_gap, gap = check("deployed shape", x, codes)
+    check("training shape (1 clip x 3 frames)", x[:TRAIN_VQ_ROWS], codes)
     check("ragged N and n", x[:1000], codes[:1000].contiguous())
     check("ragged D", x[:257, :36].contiguous(), codes[:100, :36].contiguous())
     # every code has a twin one fp32 ulp away: each row's two best distances
@@ -1107,6 +1128,332 @@ def phase_small_vae():
         raise SystemExit("small-geometry TDCRQVAE3 check failed")
 
 
+# -- training: the kernels' gradients, then the step of stages I and III -------
+
+# The Functions' gradients against autograd through the plain version: both
+# run the plain version's backward on the same saved inputs (the Function's
+# forward output is the kernel's, which the backward does not read), so they
+# differ only where cuBLAS or a scatter-add sums in another order.  Held to
+# GRAD_TOL of each gradient's largest magnitude.
+GRAD_TOL = 1e-3
+TRAIN_WARMUP, TRAIN_TIMED = 1, 10    # steps of phase_train: warm-up, then timed one by one
+# The EMA moves each step by (1 - decay) * (param - EMA), ~1e-7 after a few
+# steps of lr 2e-5 to 4e-5: on a tensor of values near 1 that can stay
+# within one fp32 ulp.  So the EMA must have moved on this share of the
+# trainable tensors, not on every one.
+EMA_MOVED_SHARE = 0.9
+TRAIN_RES = 512
+# the kernels' shapes on the training path: one clip of 3 frames at 512^2
+TRAIN_K1_SHAPES = [(1, 3, 128, 128, 256), (1, 3, 64, 64, 256), (1, 3, 32, 32, 512)]
+TRAIN_VQ_ROWS = 3 * 32 * 32
+
+
+def _grad_leaves(shape, seed, dtype):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+
+def _compare_grads(name: str, got, ref, names):
+    """Worst max|d| / max|ref| over the gradients; exits on a missing,
+    non-finite or disagreeing one."""
+    import torch
+    worst = 0.0
+    for n, a, b in zip(names, got, ref):
+        if a is None or b is None:
+            raise SystemExit(f"{name}: no gradient for {n}")
+        err = (a.float() - b.float()).abs().max().item()
+        mag = b.float().abs().max().item()
+        if not (bool(torch.isfinite(a).all()) and err <= GRAD_TOL * mag and mag > 0):
+            raise SystemExit(f"{name}: gradient of {n} max|d|={err:.3e}, max|ref|={mag:.3e}, "
+                             f"tol {GRAD_TOL}*max|ref|")
+        worst = max(worst, err / mag)
+    return worst
+
+
+def _block_module(C: int, T: int, seed: int):
+    """A block with non-trivial fp32 parameters on the card: the master
+    weights of the training path."""
+    import torch
+    from pgtformer_tpu_torch.nn.blocks import SWTransformerBlock, init_weights
+    g = torch.Generator().manual_seed(seed)
+    blk = init_weights(SWTransformerBlock(C, 8, T, (4, 4), (0, 0), mlp_ratio=1.0), g)
+    with torch.no_grad():
+        for p in blk.parameters():
+            if p.dim() == 1:
+                p.add_(torch.randn(p.shape, generator=g) * 0.1)
+    return blk.cuda()
+
+
+def _block_grads(fn, x, cot, blocks):
+    """(output, [grad of x, then of every parameter of `blocks`]) of one
+    forward + backward of fn(x, *live weights)."""
+    for b in blocks:
+        b.zero_grad(set_to_none=True)
+    xx = x.detach().clone().requires_grad_()
+    out = fn(xx, *(b.live_weights() for b in blocks))
+    out.backward(cot)
+    return out.detach(), [xx.grad] + [p.grad for b in blocks for p in b.parameters()]
+
+
+def phase_train_grad(iters: int = 3):
+    """Each kernel's autograd Function (kernel forward, plain-version
+    backward) against autograd through the plain version: K1 at the six
+    K1_CASES and at the training path's B=1 shapes (TRAIN_K1_SHAPES, both
+    shifts), K3 and K4 at one serving shape and at each training shape, K2/K6
+    at [1, 3072, 8, 64]; the forwards held to K1_TOL / K2_TOL, the gradients
+    of x, of every weight and of the relative-position table to GRAD_TOL;
+    one launch per forward, none in the backward.  Times one forward +
+    backward each way."""
+    import torch
+    from pgtformer_tpu_torch.ops import dense_mha as dm
+    from pgtformer_tpu_torch.ops import sw_block as sw
+    from pgtformer_tpu_torch.ops.window import shifted_window_mask, window_partition
+    k1_rows, res = [], {}
+
+    def check(tag, kernel_fn, plain_fn, x, blocks, counter, tol):
+        cot = _grad_leaves(x.shape, 900 + len(k1_rows) + len(res), x.dtype)
+        names = ["x"] + [f"{i}.{n}" for i, b in enumerate(blocks) for n, _ in b.named_parameters()]
+        reset_counts()
+        out_k, g_k = _block_grads(kernel_fn, x, cot, blocks)
+        torch.cuda.synchronize()
+        expect_counts(f"{tag} Function forward + backward", **{counter: 1})
+        out_p, g_p = _block_grads(plain_fn, x, cot, blocks)
+        torch.cuda.synchronize()
+        err, _ = _compare(f"{tag} Function forward", out_k, out_p, tol)
+        gerr = _compare_grads(f"{tag} Function", g_k, g_p, names)
+        ms = time_ms(lambda: _block_grads(kernel_fn, x, cot, blocks), iters, warmup=1)
+        pms = time_ms(lambda: _block_grads(plain_fn, x, cot, blocks), iters, warmup=1)
+        log(f"[grad] {tag}: forward max|d|={err:.3e} (tol {tol}*max|ref|); {len(names)} "
+            f"gradients (x, every weight, the bias table) worst max|d|/max|ref|={gerr:.3e} "
+            f"(tol {GRAD_TOL}); launches: 1 forward, 0 backward; fwd+bwd ms: Function "
+            f"{ms:.3f}, plain {pms:.3f} OK")
+        return dict(max_abs_err=err, grad_rel_err=gerr, fwd_bwd_ms=ms, plain_fwd_bwd_ms=pms)
+
+    for i, (shape, shift, per_step) in enumerate(K1_CASES):
+        blk = _block_module(shape[-1], shape[1], seed=700 + i)
+        x = _case_input(70 + i, shape)
+        row = check(f"K1 x{list(shape)} shift{shift}",
+                    lambda xx, w: sw.sw_block(xx, w, shift),
+                    lambda xx, w: sw.sw_block_plain(xx, w, shift), x, [blk], "sw_block", K1_TOL)
+        k1_rows.append(dict(shape=list(shape), shift=list(shift), per_step=per_step, **row))
+
+    shape = (8, 3, 64, 64, 256)
+    B, T, H, W, C = shape
+    blk = _block_module(C, T, seed=750)
+    tok = window_partition(torch.roll(_case_input(80, shape), (-2, -2), dims=(2, 3)),
+                           (4, 4)).contiguous()
+    mask = torch.as_tensor(shifted_window_mask(T, H, W, (4, 4), (2, 2)), device="cuda")
+    nW = (H // 4) * (W // 4)
+    res["sw_block_tokens"] = check(
+        f"K3 tokens{list(tok.shape)}", lambda xx, w: sw.sw_block_tokens(xx, w, mask, nW),
+        lambda xx, w: sw.sw_block_tokens_plain(xx, w, mask, nW), tok, [blk],
+        "sw_block_tokens", K1_TOL)
+    shape = (8, 3, 32, 32, 512)
+    b0, b1 = _block_module(512, 3, seed=760), _block_module(512, 3, seed=761)
+    res["sw_block_pair"] = check(
+        f"K4 pair x{list(shape)}", lambda xx, w0, w1: sw.sw_block_pair(xx, w0, w1, (2, 2)),
+        lambda xx, w0, w1: sw.sw_block_pair_plain(xx, w0, w1, (2, 2)),
+        _case_input(81, shape), [b0, b1], "sw_block_pair", K1_TOL)
+
+    # the training step's shapes: one clip, B=1
+    train_rows = []
+    for i, shape in enumerate(TRAIN_K1_SHAPES):
+        B, T, H, W, C = shape
+        for shift in ((0, 0), (2, 2)):
+            blk = _block_module(C, T, seed=770 + 2 * i + any(shift))
+            row = check(f"K1 x{list(shape)} shift{shift} (training)",
+                        lambda xx, w, s=shift: sw.sw_block(xx, w, s),
+                        lambda xx, w, s=shift: sw.sw_block_plain(xx, w, s),
+                        _case_input(90 + 2 * i + any(shift), shape), [blk], "sw_block", K1_TOL)
+            train_rows.append(dict(kernel="sw_block", shape=list(shape), shift=list(shift), **row))
+        blk = _block_module(C, T, seed=780 + i)
+        tok = window_partition(torch.roll(_case_input(96 + i, shape), (-2, -2), dims=(2, 3)),
+                               (4, 4)).contiguous()
+        mask = torch.as_tensor(shifted_window_mask(T, H, W, (4, 4), (2, 2)), device="cuda")
+        nW = (H // 4) * (W // 4)
+        row = check(f"K3 tokens{list(tok.shape)} (training)",
+                    lambda xx, w, m=mask, n=nW: sw.sw_block_tokens(xx, w, m, n),
+                    lambda xx, w, m=mask, n=nW: sw.sw_block_tokens_plain(xx, w, m, n),
+                    tok, [blk], "sw_block_tokens", K1_TOL)
+        train_rows.append(dict(kernel="sw_block_tokens", shape=list(tok.shape), **row))
+        b0, b1 = _block_module(C, T, seed=790 + 2 * i), _block_module(C, T, seed=791 + 2 * i)
+        row = check(f"K4 pair x{list(shape)} (training)",
+                    lambda xx, w0, w1: sw.sw_block_pair(xx, w0, w1, (2, 2)),
+                    lambda xx, w0, w1: sw.sw_block_pair_plain(xx, w0, w1, (2, 2)),
+                    _case_input(99 + i, shape), [b0, b1], "sw_block_pair", K1_TOL)
+        train_rows.append(dict(kernel="sw_block_pair", shape=list(shape), **row))
+
+    qk, vp = mha_operands(1, 8, 3072, 64, "normal", seed=82)
+    for layout, plain, counter in (("bnhd", dm.dense_mha_plain_bnhd, "dense_mha_bnhd"),
+                                   ("bhnd", dm.dense_mha_plain, "dense_mha_bhnd")):
+        q, k, v = (a.detach().clone().requires_grad_() for a in _mha_views(qk, vp, 8, layout))
+        cot = _grad_leaves(q.shape, 83, q.dtype)
+
+        def run(fn):
+            for a in (q, k, v):
+                a.grad = None
+            out = fn(q, k, v)
+            out.backward(cot)
+            return out.detach(), [q.grad, k.grad, v.grad]
+        kfn = lambda a, b, c: dm.dense_mha(a, b, c, scale=0.125, layout=layout)
+        pfn = lambda a, b, c: plain(a, b, c, 0.125)
+        reset_counts()
+        out_k, g_k = run(kfn)
+        torch.cuda.synchronize()
+        expect_counts(f"dense_mha {layout} Function forward + backward", **{counter: 1})
+        out_p, g_p = run(pfn)
+        err, _ = _compare(f"dense_mha {layout} Function forward", out_k, out_p, K2_TOL)
+        gerr = _compare_grads(f"dense_mha {layout} Function", g_k, g_p, "qkv")
+        ms = time_ms(lambda: run(kfn), iters, warmup=1)
+        pms = time_ms(lambda: run(pfn), iters, warmup=1)
+        log(f"[grad] {'K6' if layout == 'bnhd' else 'K2'} dense_mha {layout} "
+            f"{list(q.shape)}: forward max|d|={err:.3e} (tol {K2_TOL}*max|ref|); gradients "
+            f"of q, k, v worst max|d|/max|ref|={gerr:.3e} (tol {GRAD_TOL}); launches: 1 "
+            f"forward, 0 backward; fwd+bwd ms: Function {ms:.3f}, plain {pms:.3f} OK")
+        res[counter] = dict(max_abs_err=err, grad_rel_err=gerr, fwd_bwd_ms=ms,
+                            plain_fwd_bwd_ms=pms)
+    res["sw_block"] = dict(grad_rel_err=max(r["grad_rel_err"] for r in k1_rows),
+                           fwd_bwd_ms=_mix(k1_rows, "fwd_bwd_ms"),
+                           plain_fwd_bwd_ms=_mix(k1_rows, "plain_fwd_bwd_ms"), cases=k1_rows)
+    for name, r in res.items():
+        r["training_shapes"] = [{k: v for k, v in row.items() if k != "kernel"}
+                                for row in train_rows if row["kernel"] == name]
+    return res
+
+
+def _clone_params(named):
+    return {n: p.detach().clone() for n, p in named}
+
+
+def _moved(before, after_named):
+    """Names whose tensor changed."""
+    import torch
+    return {n for n, p in after_named if not torch.equal(before[n], p.detach())}
+
+
+def _train(tag: str, trainer, state, batch, smi: str, per_step: dict):
+    """TRAIN_WARMUP steps, then TRAIN_TIMED steps each timed on the host
+    clock up to its `torch.cuda.synchronize()`; exact launch counts over the
+    timed ones; every metric finite.  Returns (state, step ms {median, min,
+    max, all}, peak bytes, last metrics)."""
+    import statistics
+    import torch
+    step = trainer.make_step()
+    for _ in range(TRAIN_WARMUP):
+        state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times = []
+    for _ in range(TRAIN_TIMED):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = dict(median=statistics.median(times), min=min(times), max=max(times), all=times)
+    counts = expect_counts(f"training step {tag}",
+                           **{k: v * TRAIN_TIMED for k, v in per_step.items()})
+    peak = torch.cuda.max_memory_allocated()
+    losses = {k: float(v) for k, v in metrics.items()}
+    if not all(math.isfinite(v) for v in losses.values()):
+        raise SystemExit(f"training step {tag}: non-finite losses {losses}")
+    launched = {k: v // TRAIN_TIMED for k, v in counts.items() if v}
+    log(f"[train:{tag}] {TRAIN_WARMUP} warm-up + {TRAIN_TIMED} timed steps, 1 clip x 3 frames "
+        f"at {TRAIN_RES}x{TRAIN_RES}, bf16 compute over fp32 parameters: step_ms median="
+        f"{step_ms['median']:.2f} min={step_ms['min']:.2f} max={step_ms['max']:.2f} "
+        f"(all: {' '.join(f'{t:.2f}' for t in times)}) peak_mem_GiB={peak / 2 ** 30:.2f}; "
+        f"launches per step {launched} (forwards only: the backwards launch none); losses "
+        + " ".join(f"{k}={v:.5f}" for k, v in losses.items()) + f"; card: {smi}")
+    return state, step_ms, peak, losses
+
+
+def phase_train(smi: str):
+    """Stage I (Stage1Trainer on RELEASE_PGTFORMER.vqvae) and stage III
+    (PGTFormerTrainer on RELEASE_PGTFORMER) at full width and depth, one
+    seeded 512x512 3-frame uint8 clip per step, seeded random weights (the
+    teacher's from its own seed), LPIPS on its random VGG, GAN from step 0,
+    no learning-rate warm-up.  Asserts finite losses, moved trainable parameters, EMA and
+    (stage I) codebook, untouched frozen modules and teacher, and exact
+    launch counts per step (K1, K5, K6; the backward launches none)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from pgtformer_tpu_torch.config import RELEASE_PGTFORMER
+    from pgtformer_tpu_torch.models.vae import TDCRQVAE3
+    from pgtformer_tpu_torch.train.lpips import make_lpips_fn
+    from pgtformer_tpu_torch.train.stages import STAGE_HYPERS, PGTFormerTrainer, Stage1Trainer
+    rng = np.random.default_rng(5)
+    gt = rng.integers(0, 256, (1, 3, TRAIN_RES, TRAIN_RES, 3), dtype=np.uint8)
+    lq = np.clip(gt.astype(np.int16) + rng.integers(-24, 25, gt.shape), 0, 255).astype(np.uint8)
+    lpips_fn = make_lpips_fn(device="cuda")
+    out = {}
+
+    t0 = time.perf_counter()
+    hp = dataclasses.replace(STAGE_HYPERS["I"], warmup_iter=-1)
+    tr = Stage1Trainer(RELEASE_PGTFORMER.vqvae, hp, lpips_fn=lpips_fn, device="cuda",
+                       dtype=torch.bfloat16)
+    state = tr.init_state(torch.Generator().manual_seed(11))
+    log(f"[train:I] trainer built in {time.perf_counter() - t0:.1f} s")
+    p0 = _clone_params(state.g.params.items())
+    e0 = {n: t.clone() for n, t in state.g.ema_params.items()}
+    c0 = {n: t.detach().clone() for n, t in state.g.codebook.items()}
+    state, ms1, peak1, losses1 = _train("I", tr, state, gt, smi,
+                                        dict(sw_block=22, vq_nearest=1))
+    trainable = {n for n, p in state.g.params.items() if p.requires_grad}
+    moved = _moved(p0, state.g.params.items())
+    ema_moved = {n for n, t in state.g.ema_params.items() if not torch.equal(e0[n], t)}
+    cb_moved = {n for n, t in state.g.codebook.items() if not torch.equal(c0[n], t)}
+    if (moved != trainable or len(ema_moved & trainable) < EMA_MOVED_SHARE * len(trainable)
+            or cb_moved != set(c0)):
+        raise SystemExit(f"stage I: {len(trainable - moved)} trainable parameters, "
+                         f"{len(trainable - ema_moved)} EMA tensors, "
+                         f"{len(set(c0) - cb_moved)} codebook tensors did not move")
+    log(f"[train:I] all {len(trainable)} parameters, the EMA of {len(ema_moved & trainable)} "
+        f"of them and the {len(c0)} codebook buffers moved OK")
+    out["I"] = dict(step_ms=ms1, peak_gib=peak1 / 2 ** 30, losses=losses1,
+                    per_step=dict(sw_block=22, vq_nearest=1))
+    del tr, state, p0, e0, c0
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    teacher = TDCRQVAE3(RELEASE_PGTFORMER.vqvae, generator=torch.Generator().manual_seed(12))
+    hp = dataclasses.replace(STAGE_HYPERS["III"], warmup_iter=-1)
+    tr = PGTFormerTrainer(RELEASE_PGTFORMER, "III", hp, lpips_fn=lpips_fn, device="cuda",
+                          dtype=torch.bfloat16)
+    state = tr.init_state(torch.Generator().manual_seed(13), teacher.state_dict())
+    del teacher
+    log(f"[train:III] trainer built in {time.perf_counter() - t0:.1f} s")
+    p0 = _clone_params(state.g.params.items())
+    t_before = _clone_params(tr.teacher.state_dict().items())
+    buffers0 = {n: b.detach().clone() for n, b in tr.model.named_buffers()}
+    e0 = {n: t.clone() for n, t in state.g.ema_params.items()}
+    c0 = _clone_params(state.g.codebook.items())
+    per_step = dict(sw_block=22 + 8, vq_nearest=1, dense_mha_bnhd=9)
+    state, ms3, peak3, losses3 = _train("III", tr, state, {"lq": lq, "gt": gt}, smi, per_step)
+    trainable = {n for n, p in state.g.params.items() if p.requires_grad}
+    frozen = set(state.g.params) - trainable
+    moved = _moved(p0, state.g.params.items())
+    ema_moved = {n for n, t in state.g.ema_params.items() if not torch.equal(e0[n], t)}
+    t_moved = _moved(t_before, tr.teacher.state_dict().items())
+    b_moved = _moved(buffers0, tr.model.named_buffers())
+    cb_moved = _moved(c0, state.g.codebook.items())
+    if (moved != trainable or not frozen or t_moved or b_moved or cb_moved
+            or len(ema_moved & trainable) < EMA_MOVED_SHARE * len(trainable)):
+        raise SystemExit(f"stage III: {len(trainable - moved)} trainable parameters did not "
+                         f"move, {len(moved & frozen)} frozen ones did, the EMA of "
+                         f"{len(trainable - ema_moved)} trainable ones did not move, "
+                         f"{len(t_moved)} teacher, {len(b_moved)} buffer and "
+                         f"{len(cb_moved)} codebook tensors moved")
+    tops = sorted({n.split(".")[0] for n in frozen})
+    log(f"[train:III] all {len(trainable)} trainable parameters (the EMA of "
+        f"{len(ema_moved & trainable)}) moved; the "
+        f"{len(frozen)} frozen ones ({', '.join(tops)}), the buffers and the teacher are "
+        f"bit-identical OK")
+    out["III"] = dict(step_ms=ms3, peak_gib=peak3 / 2 ** 30, losses=losses3, per_step=per_step)
+    return out
+
+
 def _mix(rows, key):
     """Per-launch average over the serving step's mix of shapes."""
     return sum(r[key] * r["per_step"] for r in rows) / sum(r["per_step"] for r in rows)
@@ -1133,7 +1480,7 @@ def main() -> int:
         return 2
     import pgtformer_tpu_torch  # noqa: F401  (fails outside a checkout)
     t_start = time.perf_counter()
-    phase_device()
+    smi = phase_device()
     phase_build()
     k1_rows, k1_err = phase_k1(iters=10)
     k3_rows, k3_err = phase_k3(iters=10)
@@ -1142,12 +1489,16 @@ def main() -> int:
     k5 = phase_k5(iters=10)
     k7_rows, k7_err = phase_k7(iters=5)
     k8_rows, k8_err = phase_k8(iters=5)
+    grads = phase_train_grad()
     serve = phase_serving()
     variants = phase_variants(serve)
     vae = phase_autoencoder(serve)
     phase_small_model()
     phase_small_vae()
     phase_small_fused_tail()
+    serve.pop("restorer")
+    torch.cuda.empty_cache()
+    train = phase_train(smi)
 
     step = serve["step_ms"]
     mha_src = "pgtformer_tpu_torch/csrc/dense_mha.cu"
@@ -1180,8 +1531,21 @@ def main() -> int:
                variants["fused_up"]["counts"]["subpixel_up_conv3x3"],
                step_ms=variants["fused_up"]["step_ms"]),
     ]
+    # the backward of each kernel, and its launches per training step
+    for k in kernels:
+        name = k["name"]
+        if name in grads:
+            k["backward"] = "autograd Function: kernel forward, plain-version backward"
+            k["grad"] = {key: v for key, v in grads[name].items() if key != "cases"}
+        else:
+            k["backward"] = ("none: no gradient (argmin)" if name == "vq_nearest" else
+                             "none: inference-only (FUSED_TAIL refuses a recorded gradient)")
+        k["launches_per_train_step"] = {stage: r["per_step"].get(name, 0)
+                                        for stage, r in train.items()}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "default_step_ms": step,
+                      "train": {stage: {key: v for key, v in r.items() if key != "per_step"}
+                                for stage, r in train.items()},
                       "variant_step_ms": {k: v["step_ms"] for k, v in variants.items()},
                       "autoencoder_ms": {k: v for k, v in vae.items() if k.endswith("_ms")}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

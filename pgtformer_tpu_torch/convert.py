@@ -9,6 +9,11 @@ package's flax-path -> torch-key rules, so no JAX is needed here.
 Layout transforms: conv kernel HWIO -> OIHW, dense kernel (I, O) -> (O, I),
 norm scale -> weight, BN mean/var -> running_mean/var, packed attention
 in_proj_kernel (C, 3C) -> in_proj_weight (3C, C).
+
+The same rules carry the training networks' variables across: the PatchGAN
+discriminator's ``params`` and ``batch_stats`` (``main_{i}`` ->
+``main.{i}``, into ``models/vqgan.py:VQGANDiscriminator``) and LPIPS's
+(``vgg/conv_{i}``, ``lin_{i}``, into ``train/lpips.py:LPIPS``).
 """
 
 from __future__ import annotations

@@ -90,7 +90,11 @@ class PGTFormer(nn.Module):
     """Blind video face restoration model.
 
     forward(x [B, T, H, W, 3] in [0,1]) -> (out [B*T, H, W, 3],
-    logits [B*T, h, w, depth, n_embed], lq_feat [B*T, h, w, embed_dim]).
+    logits [B*T, h, w, depth, n_embed], lq_feat [B*T, h, w, embed_dim]), or
+    (logits, lq_feat) with `code_only` (training stage II).  The decoder
+    sees the encoder's skip features with their gradient stopped, and with
+    `detach_16` the looked-up codes too (gradients still reach lq_feat
+    through AdaIN's statistics), as in the JAX package.
     With `generator`, every weight is initialized from it.  `mha_layout`
     is the code transformer's attention plan ("bnhd" or "bhnd", see
     nn/transformer.py)."""
@@ -103,8 +107,8 @@ class PGTFormer(nn.Module):
         dd = vq.ddconfig
         self.encoder = Encoder3D(dd, num_frames=vq.tf)
         self.decoder = Decoder3D(dd, num_frames=vq.tf)
-        self.quantizer = RQBottleneck(vq.latent_shape, vq.code_shape, vq.n_embed,
-                                      vq.shared_codebook)
+        self.quantizer = RQBottleneck(vq.latent_shape, vq.code_shape, vq.n_embed, vq.decay,
+                                      vq.shared_codebook, vq.restart_unused_codes)
         self.quant_conv = nn.Conv2d(dd.z_channels, vq.embed_dim, 1)
         self.post_quant_conv = nn.Conv2d(vq.embed_dim, dd.z_channels, 1)
         latent_res = dd.resolution // 2 ** (dd.num_resolutions - 1)
@@ -131,14 +135,16 @@ class PGTFormer(nn.Module):
         if generator is not None:
             init_weights(self, generator)
 
-    def forward(self, x: torch.Tensor, w: Optional[float] = None,
-                adain: Optional[bool] = None, middle_only: bool = False):
+    def forward(self, x: torch.Tensor, w: Optional[float] = None, detach_16: bool = True,
+                code_only: bool = False, adain: Optional[bool] = None,
+                middle_only: bool = False):
         B, T, H, W, _ = x.shape
         pos, trunk_h, trunk_feats = self.encode_frames(x.reshape(B * T, H, W, 3))
         to_win = lambda a: a.reshape(B, T, *a.shape[1:])
         return self.restore_windows(to_win(pos), to_win(trunk_h),
                                     tuple(to_win(f) for f in trunk_feats),
-                                    w=w, adain=adain, middle_only=middle_only)
+                                    w=w, detach_16=detach_16, code_only=code_only,
+                                    adain=adain, middle_only=middle_only)
 
     def encode_frames(self, frames: torch.Tensor):
         """Per-frame compute: frames [F, H, W, 3] in [0,1] -> (query-pos
@@ -153,8 +159,8 @@ class PGTFormer(nn.Module):
         return pos, trunk_h[0], tuple(f[0] for f in trunk_feats)
 
     def restore_windows(self, pos, trunk_h, trunk_feats, w: Optional[float] = None,
-                        adain: Optional[bool] = None, middle_only: bool = False,
-                        code_only: bool = False):
+                        detach_16: bool = True, code_only: bool = False,
+                        adain: Optional[bool] = None, middle_only: bool = False):
         """Per-window compute over gathered per-frame features (each
         [B, T, ...]): encoder attention levels, transformer, code
         prediction, fuse-SFT decode.  Returns (out, logits, lq_feat); `out`
@@ -179,14 +185,17 @@ class PGTFormer(nn.Module):
         if code_only:
             return logits, lq_feat
         codes = logits.argmax(dim=-1)
-        out = self._decode_restored(codes, lq_feat, enc_feat_dict, w=w, adain=adain,
-                                    middle_only=middle_only)
+        out = self._decode_restored(codes, lq_feat, enc_feat_dict, w=w, detach_16=detach_16,
+                                    adain=adain, middle_only=middle_only)
         return out, logits, lq_feat
 
     def _decode_restored(self, codes, lq_feat, enc_feat_dict: Dict[str, torch.Tensor],
-                         *, w: float, adain: bool, middle_only: bool = False):
-        """Codebook lookup -> (AdaIN) -> fuse-SFT decode."""
+                         *, w: float, adain: bool, detach_16: bool = True,
+                         middle_only: bool = False):
+        """Codebook lookup -> (detach / AdaIN) -> fuse-SFT decode."""
         quant_feat = self.quantizer.embed_code(codes).to(lq_feat.dtype)
+        if detach_16:
+            quant_feat = quant_feat.detach()
         if adain:
             quant_feat = adaptive_instance_normalization(quant_feat, lq_feat)
         fuse_fn = None
@@ -197,7 +206,7 @@ class PGTFormer(nn.Module):
             def fuse_fn(resolution, h, middle_only=False):
                 key = str(resolution)
                 if key in self.fuse_convs_dict:
-                    h = self.fuse_convs_dict[key](enc_feat_dict[key], h, w=w,
+                    h = self.fuse_convs_dict[key](enc_feat_dict[key].detach(), h, w=w,
                                                   middle_only=middle_only)
                 return h
 

@@ -9,17 +9,20 @@ points:
 * :func:`compute_distances`, :func:`find_nearest_embedding`, :func:`embed`:
   the nearest-code search (kernel K5, ``ops/vq.py``, on a CUDA tensor
   unless ``EXACT_VQ=1``; the exact argmin on the CPU) and the lookup;
+* :func:`ema_codebook_update`: one EMA step of a codebook's buffers, with
+  dead-code restarts drawn from a ``torch.Generator``;
 * :class:`RQBottleneck`: ``__call__`` -> (quantized with the straight-through
-  sum, commitment loss, codes), ``quantize``, ``embed_code``,
+  sum, commitment loss, codes), ``quantize`` (with ``train=True`` each depth
+  updates its codebook after taking its codes), ``embed_code``,
   ``embed_code_with_depth``, ``embed_partial_code``, ``get_soft_codes``.
 
-The EMA codebook update (``train=True``) belongs to the training slice and
-raises ``NotImplementedError`` until then.  Codebooks stay fp32 when the
-model is cast to bf16, as the JAX package keeps them.
+Codebooks stay fp32 when the model is cast to bf16, as the JAX package
+keeps them, and the bottleneck computes in fp32 under autocast too.
 """
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Tuple
 
 import torch
@@ -60,6 +63,52 @@ def embed(weight: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return weight[idx]
 
 
+@torch.no_grad()
+def ema_codebook_update(weight: torch.Tensor, cluster_size_ema: torch.Tensor,
+                        embed_ema: torch.Tensor, vectors: torch.Tensor, idxs: torch.Tensor, *,
+                        decay: float, restart_unused_codes: bool,
+                        generator: Optional[torch.Generator], eps: float = 1e-5):
+    """One EMA step of a codebook, in place on its buffers (weight
+    [n_embed + 1, D], cluster_size_ema [n_embed], embed_ema [n_embed, D]);
+    returns them.  The JAX package's ``ema_codebook_update`` (reference
+    ``_update_buffers`` then ``_update_embedding``): EMA of each code's
+    count and vector sum over `vectors` [..., D] assigned to `idxs` [...],
+    codes used less than once restarted from the batch's vectors (a random
+    permutation of them, tiled with uniform noise of 0.01/sqrt(D) when
+    there are fewer vectors than codes, drawn from `generator`), then the
+    Laplace-smoothed re-estimate of every code but the padding row."""
+    if restart_unused_codes and generator is None:
+        raise ValueError("restart_unused_codes requires a generator")
+    n_embed, dim = embed_ema.shape
+    vecs = vectors.reshape(-1, dim).float()
+    flat_idx = idxs.reshape(-1)
+    n_vectors = vecs.shape[0]
+    cluster_size = torch.bincount(flat_idx, minlength=n_embed)[:n_embed].float()
+    vectors_sum = torch.zeros_like(embed_ema).index_add_(0, flat_idx, vecs)
+    # several processes: all-reduce (sum) cluster_size and vectors_sum here,
+    # and broadcast rank 0's restart_vecs below (reference
+    # tdcrqvae3_arch.py:157-171)
+    cluster_size_ema.mul_(decay).add_(cluster_size * (1 - decay))
+    embed_ema.mul_(decay).add_(vectors_sum * (1 - decay))
+
+    if restart_unused_codes:
+        cands = vecs
+        if n_vectors < n_embed:
+            cands = cands.repeat(-(-n_embed // n_vectors), 1)
+            noise = torch.rand(cands.shape, generator=generator, device=cands.device)
+            cands = cands + noise * (0.01 / math.sqrt(dim))
+        perm = torch.randperm(cands.shape[0], generator=generator, device=cands.device)
+        restart_vecs = cands[perm[:n_embed]]
+        usage = (cluster_size_ema >= 1.0).float()
+        embed_ema.copy_(embed_ema * usage[:, None] + restart_vecs * (1 - usage[:, None]))
+        cluster_size_ema.copy_(cluster_size_ema * usage + (1 - usage))
+
+    n = cluster_size_ema.sum()
+    normalized = n * (cluster_size_ema + eps) / (n + n_embed * eps)
+    weight[:-1] = (embed_ema / normalized[:, None]).to(weight.dtype)
+    return weight, cluster_size_ema, embed_ema
+
+
 class VQEmbedding(KeepFloat32):
     """One codebook: `weight` [n_embed + 1, D] plus the EMA buffers, kept
     fp32 under a dtype cast."""
@@ -84,9 +133,13 @@ class VQEmbedding(KeepFloat32):
 
 
 class RQBottleneck(nn.Module):
+    """Residual quantization over `code_shape[-1]` depths.  `decay` (one per
+    depth or shared) and `restart_unused_codes` drive the EMA update of
+    ``quantize(train=True)``."""
+
     def __init__(self, latent_shape: Tuple[int, int, int],
-                 code_shape: Tuple[int, int, int], n_embed=1024,
-                 shared_codebook: bool = False):
+                 code_shape: Tuple[int, int, int], n_embed=1024, decay=0.99,
+                 shared_codebook: bool = False, restart_unused_codes: bool = True):
         super().__init__()
         if any(l % c for l, c in zip(latent_shape[:2], code_shape[:2])):
             raise ValueError("incompatible code shape or latent shape")
@@ -98,6 +151,9 @@ class RQBottleneck(nn.Module):
         self.shape_divisor = (latent_shape[0] // code_shape[0],
                               latent_shape[1] // code_shape[1])
         self.embed_dim = self.shape_divisor[0] * self.shape_divisor[1] * latent_shape[2]
+        self.decay_list = (tuple(decay) if isinstance(decay, (list, tuple))
+                           else (decay,) * depth)
+        self.restart_unused_codes = restart_unused_codes
         self.shared_codebook = shared_codebook
         n_books = 1 if shared_codebook else depth
         self.codebooks = nn.ModuleList(
@@ -123,36 +179,46 @@ class RQBottleneck(nn.Module):
         x = x.reshape(B, h, w, rH, rW, D).permute(0, 1, 3, 2, 4, 5)
         return x.reshape(B, h * rH, w * rW, D)
 
-    def quantize(self, x: torch.Tensor, train: bool = False):
+    def quantize(self, x: torch.Tensor, train: bool = False,
+                 generator: Optional[torch.Generator] = None):
         """Sequential residual quantization of x [B, h, w, embed_dim] ->
         (list of the aggregated quantized latents per depth (fp32),
-        codes [B, h, w, depth] int64)."""
-        if train:
-            raise NotImplementedError(
-                "RQBottleneck(train=True): the EMA codebook update is ported "
-                "with the training slice")
+        codes [B, h, w, depth] int64).  With `train`, each depth finds and
+        embeds its codes with the codebook as it stands, then applies its EMA
+        update to the codebook's buffers (restarts drawn from `generator`);
+        the returned latents are those from before the update."""
         residual = x.detach().float()
         aggregated = torch.zeros_like(residual)
         quant_list: List[torch.Tensor] = []
         code_list: List[torch.Tensor] = []
         for i in range(self.code_shape[-1]):
-            weight = self._book(i).weight
+            book = self._book(i)
+            weight = book.weight
             idx = find_nearest_embedding(weight, residual)
-            quant = embed(weight, idx).float()
+            quant = embed(weight, idx).float()      # a copy: the update below leaves it
+            if train:
+                ema_codebook_update(weight, book.cluster_size_ema, book.embed_ema, residual,
+                                    idx, decay=self.decay_list[i],
+                                    restart_unused_codes=self.restart_unused_codes,
+                                    generator=generator)
             residual = residual - quant
             aggregated = aggregated + quant
             quant_list.append(aggregated)
             code_list.append(idx[..., None])
         return quant_list, torch.cat(code_list, dim=-1)
 
-    def forward(self, x: torch.Tensor, train: bool = False):
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         """x [B, H, W, D] latents -> (quantized latents with the
-        straight-through sum x + (q - x), commitment loss, codes)."""
-        xr = self.to_code_shape(x)
-        quant_list, codes = self.quantize(xr, train)
-        commitment = self.compute_commitment_loss(xr, quant_list)
-        q = self.to_latent_shape(quant_list[-1].to(x.dtype))
-        q = x + (q - x).detach()
+        straight-through sum x + (q - x), commitment loss, codes).  With
+        `train`, the codebooks take their EMA step (:meth:`quantize`).  The
+        search, the update and the loss run in fp32, autocast or not."""
+        with torch.autocast(x.device.type, enabled=False):
+            xr = self.to_code_shape(x)
+            quant_list, codes = self.quantize(xr, train, generator)
+            commitment = self.compute_commitment_loss(xr, quant_list)
+            q = self.to_latent_shape(quant_list[-1].to(x.dtype))
+            q = x + (q - x).detach()
         return q, commitment, codes
 
     def compute_commitment_loss(self, x: torch.Tensor,
@@ -198,6 +264,10 @@ class RQBottleneck(nn.Module):
         hard codes that drive the residual: the exact argmin, or with
         `stochastic` a sample from the soft distribution drawn with
         `generator` (on x's device)."""
+        with torch.autocast(x.device.type, enabled=False):
+            return self._soft_codes(x, temp, stochastic, generator)
+
+    def _soft_codes(self, x, temp, stochastic, generator):
         residual = self.to_code_shape(x).detach().float()
         soft_list, code_list = [], []
         for i in range(self.code_shape[-1]):

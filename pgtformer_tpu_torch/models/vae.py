@@ -247,8 +247,10 @@ class Decoder3D(nn.Module):
 class TDCRQVAE3(nn.Module):
     """Temporal RQ-VAE, the stage-I autoencoder.
 
-    forward(x [B, T, H, W, 3], code_only) -> (out [B*T, H, W, 3] | z_q,
-    commitment loss, codes [B*T, h, w, depth]).  With `generator`, every
+    forward(x [B, T, H, W, 3], code_only, train) -> (out [B*T, H, W, 3] |
+    z_q, commitment loss, codes [B*T, h, w, depth]).  With `train` the
+    quantizer takes its EMA codebook step (restarts drawn from the forward's
+    `generator`); without it no buffer changes.  With `generator`, every
     weight is initialized from it."""
 
     def __init__(self, cfg: VQVAEConfig, generator: Optional[torch.Generator] = None):
@@ -261,16 +263,17 @@ class TDCRQVAE3(nn.Module):
         dd = cfg.ddconfig
         self.encoder = Encoder3D(dd, num_frames=cfg.tf)
         self.decoder = Decoder3D(dd, num_frames=cfg.tf)
-        self.quantizer = RQBottleneck(cfg.latent_shape, cfg.code_shape, cfg.n_embed,
-                                      cfg.shared_codebook)
+        self.quantizer = RQBottleneck(cfg.latent_shape, cfg.code_shape, cfg.n_embed, cfg.decay,
+                                      cfg.shared_codebook, cfg.restart_unused_codes)
         self.quant_conv = nn.Conv2d(dd.z_channels, cfg.embed_dim, 1)
         self.post_quant_conv = nn.Conv2d(cfg.embed_dim, dd.z_channels, 1)
         if generator is not None:
             init_weights(self, generator)
 
-    def forward(self, x: torch.Tensor, code_only: bool = False, train: bool = False):
+    def forward(self, x: torch.Tensor, code_only: bool = False, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         z_e = self.encode(x)
-        z_q, quant_loss, codes = self.quantizer(z_e, train=train)
+        z_q, quant_loss, codes = self.quantizer(z_e, train=train, generator=generator)
         if code_only:
             return z_q, quant_loss, codes
         return self.decode(z_q), quant_loss, codes

@@ -10,7 +10,9 @@ On a CUDA tensor, :class:`EncoderLayer` runs every block through the
 hand-written kernels of ``ops/sw_block.py`` wherever H and W divide by the
 window (K1 by default; K3 under ``SW_KERNEL=tokens``, K4 under
 ``SW_PAIR=1``), and raises otherwise; on the CPU it runs the same math in
-plain PyTorch.
+plain PyTorch.  Under a recorded gradient it hands the kernels the live
+parameters, and they run through their autograd Functions, whose backward
+is the plain version's.
 """
 
 from __future__ import annotations
@@ -121,11 +123,20 @@ def _unfold(x: torch.Tensor, lead) -> torch.Tensor:
 class _KernelWeightCache(nn.Module):
     """A module that keeps a derived copy of its weights in the layout of a
     hand-written kernel.  The copy is made at first use and dropped whenever
-    the parameters move, change dtype or are loaded."""
+    the parameters move, change dtype, are loaded or change in place (an
+    optimizer step: their version counters move)."""
 
     def __init__(self):
         super().__init__()
         self._kernel_cache = None
+
+    def _cached(self, key, build):
+        """The copy made by `build()` for `key`, remade when the key or a
+        parameter's version counter has changed since."""
+        key = (key, tuple(p._version for p in self.parameters()))
+        if self._kernel_cache is None or self._kernel_cache[0] != key:
+            self._kernel_cache = (key, build())
+        return self._kernel_cache[1]
 
     def _apply(self, *args, **kwargs):
         self._kernel_cache = None
@@ -163,17 +174,15 @@ class ResnetBlock(_KernelWeightCache):
     def kernel_weights(self) -> ResBlockKernelWeights:
         """This block's weights for ``ops/fused_conv.py:fused_resblock``
         (cached): fp32 norm affines and biases, bf16 [3, 3, C, Co] kernels."""
-        if self._kernel_cache is None:
-            f32 = lambda p: p.detach().float().contiguous()
-            sc = getattr(self, self.shortcut_name) if self.shortcut_name else None
-            self._kernel_cache = ResBlockKernelWeights(
-                f32(self.norm1.weight), f32(self.norm1.bias),
-                conv_kernel_hwio(self.conv1.weight), f32(self.conv1.bias),
-                f32(self.norm2.weight), f32(self.norm2.bias),
-                conv_kernel_hwio(self.conv2.weight), f32(self.conv2.bias),
-                conv_kernel_hwio(sc.weight)[0, 0] if sc is not None else None,
-                f32(sc.bias) if sc is not None else None)
-        return self._kernel_cache
+        f32 = lambda p: p.detach().float().contiguous()
+        sc = getattr(self, self.shortcut_name) if self.shortcut_name else None
+        return self._cached(None, lambda: ResBlockKernelWeights(
+            f32(self.norm1.weight), f32(self.norm1.bias),
+            conv_kernel_hwio(self.conv1.weight), f32(self.conv1.bias),
+            f32(self.norm2.weight), f32(self.norm2.bias),
+            conv_kernel_hwio(self.conv2.weight), f32(self.conv2.bias),
+            conv_kernel_hwio(sc.weight)[0, 0] if sc is not None else None,
+            f32(sc.bias) if sc is not None else None))
 
 
 class Float32Conv2d(KeepFloat32, nn.Conv2d):
@@ -207,11 +216,10 @@ class Upsample(_KernelWeightCache):
         """(bf16 phase kernels [2, 2, 2, 2, C, C], fp32 bias) for
         ``ops/fused_conv.py:subpixel_up_conv3x3`` (cached): the 3x3 kernel
         pre-summed in fp32 into the four 2x2 phase kernels, then rounded."""
-        if self._kernel_cache is None:
+        def build():
             k2 = phase_kernels_2x2(self.conv.weight.detach().permute(2, 3, 1, 0))
-            self._kernel_cache = (k2.to(torch.bfloat16).contiguous(),
-                                  self.conv.bias.detach().float().contiguous())
-        return self._kernel_cache
+            return k2.to(torch.bfloat16).contiguous(), self.conv.bias.detach().float().contiguous()
+        return self._cached(None, build)
 
 
 class Downsample(nn.Module):
@@ -317,26 +325,30 @@ class SWTransformerBlock(_KernelWeightCache):
         self.norm2 = layer_norm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
-    def kernel_weights(self, device: torch.device) -> SWBlockWeights:
-        """This block's weights for :func:`sw_block`: the live parameters for
-        the CPU, bf16/fp32 copies made once (and cached) for CUDA."""
-        if self._kernel_cache is not None and self._kernel_cache[0] == device:
-            return self._kernel_cache[1]
+    def live_weights(self) -> SWBlockWeights:
+        """This block's parameters as :func:`sw_block` takes them, views of
+        the live tensors (the bias gathered from its table), so that a
+        recorded gradient reaches every parameter."""
         a, m = self.attn, self.mlp
         C = a.dim
-        with torch.no_grad():
-            w = SWBlockWeights(
-                self.norm1.weight, self.norm1.bias,
-                a.q.weight, a.q.bias, a.kv.weight[:C], a.kv.bias[:C],
-                a.kv.weight[C:], a.kv.bias[C:], a.proj.weight, a.proj.bias,
-                self.norm2.weight, self.norm2.bias,
-                m.fc1.weight, m.fc1.bias, m.fc2.weight, m.fc2.bias,
-                a.rel_bias(), self.num_heads, self.window_size)
+        return SWBlockWeights(
+            self.norm1.weight, self.norm1.bias,
+            a.q.weight, a.q.bias, a.kv.weight[:C], a.kv.bias[:C],
+            a.kv.weight[C:], a.kv.bias[C:], a.proj.weight, a.proj.bias,
+            self.norm2.weight, self.norm2.bias,
+            m.fc1.weight, m.fc1.bias, m.fc2.weight, m.fc2.bias,
+            a.rel_bias(), self.num_heads, self.window_size)
+
+    def kernel_weights(self, device: torch.device) -> SWBlockWeights:
+        """This block's weights for :func:`sw_block` with no gradient
+        recorded: the live parameters for the CPU, bf16/fp32 copies made once
+        (and cached until a parameter changes) for CUDA.  Under a recorded
+        gradient the layer calls :meth:`live_weights` instead: a cached copy
+        carries no gradient."""
         if device.type == "cpu":
-            return w
-        w = w.for_kernel()
-        self._kernel_cache = (device, w)
-        return w
+            with torch.no_grad():
+                return self.live_weights()
+        return self._cached(device, lambda: self.live_weights().for_kernel())
 
     def _run_windowed(self, x, window, shift, mask):
         """Pad -> cyclic shift -> partition -> attend -> reverse -> crop."""
@@ -417,8 +429,8 @@ class EncoderLayer(nn.Module):
         shifted = any(s > 0 for s in shift)
         h = torch.roll(x, (-shift[0], -shift[1]), dims=(2, 3)) if shifted else x
         tok = sw_block_tokens(window_partition(h, win).contiguous(), w,
-                              self._mask(x, shift) if shifted else None,
-                              (H // win[0]) * (W // win[1]))
+                        self._mask(x, shift) if shifted else None,
+                        (H // win[0]) * (W // win[1]))
         h = window_reverse(tok, win, B, T, H, W)
         return torch.roll(h, (shift[0], shift[1]), dims=(2, 3)) if shifted else h
 
@@ -431,7 +443,10 @@ class EncoderLayer(nn.Module):
             pair = not tokens and knobs.get("SW_PAIR") == "1"
             shifts = [effective_window_shift((H, W), self.window_size, blk.shift_size)[1]
                       for blk in self.blocks]
-            weights = [blk.kernel_weights(x.device) for blk in self.blocks]
+            # a recorded gradient needs the live parameters (the kernels then
+            # run through their autograd Functions); else the cached copies
+            weights = [blk.live_weights() if torch.is_grad_enabled()
+                       else blk.kernel_weights(x.device) for blk in self.blocks]
             i = 0
             while i < len(self.blocks):
                 # a [no-shift, shift] pair; where H or W equals the window the

@@ -4,7 +4,8 @@ Counterparts of the JAX package's ``nn/transformer.py`` in batch-first
 ``[B, N, C]`` layout, with torch.nn.MultiheadAttention's parameter names
 (``in_proj_weight``, ``in_proj_bias``, ``out_proj``).  On CUDA the attention core
 runs through ``ops/dense_mha.py``: kernel K6 (heads-minor views of the
-packed projections, the default) or K2 (``mha_layout="bhnd"``).
+packed projections, the default) or K2 (``mha_layout="bhnd"``), through its
+autograd Function when a gradient is recorded.
 """
 
 from __future__ import annotations
@@ -65,12 +66,10 @@ class MultiHeadSelfAttention(nn.Module):
         B, h, hd = q.shape[0], self.num_heads, C // self.num_heads
         heads = lambda a: a.reshape(B, a.shape[1], h, hd)
         if self.mha_layout == "bnhd":
-            out = dense_mha(heads(qp), heads(kp), heads(vp), scale=hd ** -0.5,
-                            layout="bnhd")
+            out = dense_mha(heads(qp), heads(kp), heads(vp), scale=hd ** -0.5, layout="bnhd")
         else:
             t = lambda a: heads(a).transpose(1, 2)
-            out = dense_mha(t(qp), t(kp), t(vp), scale=hd ** -0.5,
-                            layout="bhnd").transpose(1, 2)
+            out = dense_mha(t(qp), t(kp), t(vp), scale=hd ** -0.5, layout="bhnd").transpose(1, 2)
         return self.out_proj(out.reshape(B, Nq, C))
 
 

@@ -23,6 +23,13 @@ N=3072 it is bound by operations (~N/2 FLOP per byte).
 Each entry point launches the kernel for CUDA tensors and runs its plain
 version (:func:`dense_mha_plain`, :func:`dense_mha_plain_bnhd`) only for
 tensors on the CPU; each has its own launch counter.
+
+When a gradient is recorded and q, k or v requires one, :func:`dense_mha`
+runs the entry point inside a ``torch.autograd.Function`` (the counterpart
+of the JAX package's ``custom_vjp``, ``ops/flash_attn.py:108-119``): the
+forward launches the kernel, the backward recomputes the layout's plain
+version with autograd.  Neither package has a backward kernel; the backward
+runs on cuBLAS and ATen.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from pgtformer_tpu_torch.ops import _build
+from pgtformer_tpu_torch.ops.autograd import KernelFunction
 
 
 def dense_mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -178,9 +186,15 @@ def dense_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float
               layout: str = "bhnd") -> torch.Tensor:
     """softmax(q k^T * scale) v with the JAX package's signature:
     layout="bhnd" takes and returns [B, H, N, D] (:func:`dense_mha_bhnd`),
-    layout="bnhd" takes and returns [B, N, H, D] (:func:`dense_mha_bnhd`)."""
-    if layout == "bhnd":
-        return dense_mha_bhnd(q, k, v, scale)
-    if layout == "bnhd":
-        return dense_mha_bnhd(q, k, v, scale)
-    raise ValueError(f"layout {layout!r} (choices: bhnd, bnhd)")
+    layout="bnhd" takes and returns [B, N, H, D] (:func:`dense_mha_bnhd`).
+    A recorded gradient goes through the autograd Function: the entry
+    point's forward, the backward of :func:`dense_mha_plain` (or
+    :func:`dense_mha_plain_bnhd`) recomputed."""
+    if layout not in ("bhnd", "bnhd"):
+        raise ValueError(f"layout {layout!r} (choices: bhnd, bnhd)")
+    kernel = dense_mha_bnhd if layout == "bnhd" else dense_mha_bhnd
+    if torch.is_grad_enabled() and any(a.requires_grad for a in (q, k, v)):
+        plain = dense_mha_plain_bnhd if layout == "bnhd" else dense_mha_plain
+        return KernelFunction.apply(lambda a, b, c: kernel(a, b, c, scale),
+                                    lambda a, b, c: plain(a, b, c, scale), q, k, v)
+    return kernel(q, k, v, scale)

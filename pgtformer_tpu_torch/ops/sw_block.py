@@ -27,6 +27,17 @@ time.  What bounds it is measured in PERF.md.
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 PyTorch version (:func:`sw_block_plain`, :func:`sw_block_tokens_plain`,
 :func:`sw_block_pair_plain`) only for a tensor on the CPU.
+
+Gradients: when a gradient is recorded and x or a weight requires one, each
+wrapper runs inside a ``torch.autograd.Function`` (the counterparts of the
+JAX package's ``custom_vjp``s, ``ops/pallas_attn.py:202-215, 592-605,
+874-885``).  Its forward launches the kernel on weights cast for it from
+the live parameters on every call; its backward recomputes the block
+through the plain version with autograd and returns the gradients of x, of
+every weight and of the gathered relative-position bias.  There is no
+backward kernel, in the JAX package either: the backward is the plain
+version's autograd graph, so it runs on cuBLAS products and ATen
+elementwise passes.
 """
 
 from __future__ import annotations
@@ -39,6 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from pgtformer_tpu_torch.ops import _build
+from pgtformer_tpu_torch.ops.autograd import KernelFunction
 from pgtformer_tpu_torch.ops.window import (
     shifted_window_mask, window_partition, window_reverse)
 
@@ -292,13 +304,24 @@ def sw_block(x: torch.Tensor, w: SWBlockWeights,
     """One SW transformer block on x [B, T, H, W, C].
 
     CPU tensor: :func:`sw_block_plain`.  CUDA tensor: the Hopper kernel,
-    with `w` prepared by :meth:`SWBlockWeights.for_kernel`; raises on any
-    dtype, layout or geometry the kernel does not take."""
+    with `w` the live parameters or prepared by
+    :meth:`SWBlockWeights.for_kernel`; raises on any dtype, layout or
+    geometry the kernel does not take.  A recorded gradient goes through
+    the autograd Function (module docstring)."""
+    if _recording(x, w):
+        weights = lambda t: SWBlockWeights(*t, w.num_heads, w.window)
+        return KernelFunction.apply(
+            lambda xx, *t: _sw_block(xx, weights(t), shift),
+            lambda xx, *t: sw_block_plain(xx, weights(t), shift), x, *w[:_NT])
+    return _sw_block(x, w, shift)
+
+
+def _sw_block(x: torch.Tensor, w: SWBlockWeights, shift: Tuple[int, int]) -> torch.Tensor:
     if x.device.type == "cpu":
         return sw_block_plain(x, w, shift)
     if not x.is_cuda:
         raise NotImplementedError(f"sw_block: device {x.device}")
-    out = launch_5d(_lib(), x, w, shift)
+    out = launch_5d(_lib(), x, _kernel_weights(w), shift)
     sw_block.launches += 1
     return out
 
@@ -331,7 +354,19 @@ def sw_block_tokens(x: torch.Tensor, w: SWBlockWeights, mask,
 
     CPU tensor: :func:`sw_block_tokens_plain` (mask: numpy or tensor).  CUDA
     tensor: the Hopper kernel, `mask` an fp32 tensor on x's device; raises
-    on anything the kernel does not take."""
+    on anything the kernel does not take.  A recorded gradient (none for the
+    mask) goes through the autograd Function."""
+    if _recording(x, w):
+        weights = lambda t: SWBlockWeights(*t, w.num_heads, w.window)
+        return KernelFunction.apply(
+            lambda xx, *t: _sw_block_tokens(xx, weights(t), mask, n_windows_per_image),
+            lambda xx, *t: sw_block_tokens_plain(xx, weights(t), mask, n_windows_per_image),
+            x, *w[:_NT])
+    return _sw_block_tokens(x, w, mask, n_windows_per_image)
+
+
+def _sw_block_tokens(x: torch.Tensor, w: SWBlockWeights, mask,
+                     n_windows_per_image: int) -> torch.Tensor:
     if x.device.type == "cpu":
         return sw_block_tokens_plain(x, w, mask, n_windows_per_image)
     if not x.is_cuda:
@@ -342,6 +377,7 @@ def sw_block_tokens(x: torch.Tensor, w: SWBlockWeights, mask,
             f"{x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}")
     Mw, N, C = x.shape
     nW = int(n_windows_per_image)
+    w = _kernel_weights(w)
     _check_weights("sw_block_tokens", x, w, N)
     if nW <= 0 or Mw % nW:
         raise NotImplementedError(f"sw_block_tokens kernel: M={Mw} windows, nW={nW}")
@@ -373,16 +409,28 @@ def sw_block_pair(x: torch.Tensor, w0: SWBlockWeights, w1: SWBlockWeights,
 
     CPU tensor: :func:`sw_block_pair_plain`.  CUDA tensor: the Hopper
     kernel; the result equals ``sw_block(sw_block(x, w0, (0, 0)), w1,
-    shift)`` bit for bit.  Raises on anything the kernel does not take."""
+    shift)`` bit for bit.  Raises on anything the kernel does not take.  A
+    recorded gradient goes through the autograd Function."""
+    if w0.num_heads != w1.num_heads or tuple(w0.window) != tuple(w1.window):
+        raise NotImplementedError("sw_block_pair: the two blocks must share heads and window")
+    if _recording(x, w0, w1):
+        pair = lambda t: (SWBlockWeights(*t[:_NT], w0.num_heads, w0.window),
+                          SWBlockWeights(*t[_NT:], w1.num_heads, w1.window))
+        return KernelFunction.apply(
+            lambda xx, *t: _sw_block_pair(xx, *pair(t), shift),
+            lambda xx, *t: sw_block_pair_plain(xx, *pair(t), shift), x, *w0[:_NT], *w1[:_NT])
+    return _sw_block_pair(x, w0, w1, shift)
+
+
+def _sw_block_pair(x: torch.Tensor, w0: SWBlockWeights, w1: SWBlockWeights,
+                   shift: Tuple[int, int]) -> torch.Tensor:
     if x.device.type == "cpu":
         return sw_block_pair_plain(x, w0, w1, shift)
     if not x.is_cuda:
         raise NotImplementedError(f"sw_block_pair: device {x.device}")
+    w0, w1 = _kernel_weights(w0), _kernel_weights(w1)
     _check_5d("sw_block_pair", x, w0, (0, 0))
     _check_5d("sw_block_pair", x, w1, shift)
-    if w0.num_heads != w1.num_heads or tuple(w0.window) != tuple(w1.window):
-        raise NotImplementedError("sw_block_pair kernel: the two blocks must share "
-                                  "heads and window")
     B, T, H, W, C = x.shape
     wh, ww = w0.window
     scratch = torch.empty_like(x)
@@ -399,3 +447,20 @@ def sw_block_pair(x: torch.Tensor, w0: SWBlockWeights, w1: SWBlockWeights,
 
 
 sw_block_pair.launches = 0
+
+
+# -- gradients: the kernel forward, the plain version's backward ---------------
+
+_NT = 17                 # tensors of SWBlockWeights, in field order
+
+
+def _recording(x: torch.Tensor, *ws: SWBlockWeights) -> bool:
+    """A gradient is recorded and x or a weight tensor requires one."""
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for w in ws for t in w[:_NT]))
+
+
+def _kernel_weights(w: SWBlockWeights) -> SWBlockWeights:
+    """`w` as the kernel takes it: unchanged when already cast (the serving
+    cache), else cast from the live parameters."""
+    return w if w.wq.dtype == torch.bfloat16 and not w.wq.requires_grad else w.for_kernel()

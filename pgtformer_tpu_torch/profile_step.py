@@ -1,15 +1,18 @@
-"""Where the serving step's device time goes.
+"""Where the serving step's (or a training step's) device time goes.
 
 Builds RELEASE_PGTFORMER with seeded random weights on the card, runs the
 serving step (B windows of 512x512 frames) a few times to warm up, then
 records `--steps` steps with torch.profiler and prints device time per
 kernel group, the device busy share of the wall time, and the top kernels.
 Optionally writes the same as JSON (`--json PATH`).  The knob flags and
-`--mha-layout` profile the step's other evaluation plans.
+`--mha-layout` profile the step's other evaluation plans.  `--train I` or
+`--train III` profiles the training step of that stage instead, as
+`chip_smoke.py` takes it (one seeded 512x512 3-frame clip, bf16 autocast
+over fp32 parameters, LPIPS on its random VGG, GAN from step 0).
 
     python -m pgtformer_tpu_torch.profile_step [--steps 3] [--json out.json] \
         [--sw-kernel 5d|tokens] [--sw-pair 0|1] [--fused-tail 0|up|1] \
-        [--mha-layout bnhd|bhnd]
+        [--mha-layout bnhd|bhnd] [--train I|III]
 """
 
 from __future__ import annotations
@@ -46,6 +49,35 @@ def _group(name: str) -> str:
     return "elementwise/other"
 
 
+def _train_step(stage: str, res: int):
+    """A closure taking one training step of `stage` as chip_smoke.py's
+    phase_train does (same seeds)."""
+    import dataclasses
+
+    from pgtformer_tpu_torch.config import RELEASE_PGTFORMER
+    from pgtformer_tpu_torch.models.vae import TDCRQVAE3
+    from pgtformer_tpu_torch.train.lpips import make_lpips_fn
+    from pgtformer_tpu_torch.train.stages import STAGE_HYPERS, PGTFormerTrainer, Stage1Trainer
+    rng = np.random.default_rng(5)
+    gt = rng.integers(0, 256, (1, 3, res, res, 3), dtype=np.uint8)
+    lq = np.clip(gt.astype(np.int16) + rng.integers(-24, 25, gt.shape), 0, 255).astype(np.uint8)
+    hp = dataclasses.replace(STAGE_HYPERS[stage], warmup_iter=-1)
+    kw = dict(lpips_fn=make_lpips_fn(device="cuda"), device="cuda", dtype=torch.bfloat16)
+    if stage == "I":
+        tr = Stage1Trainer(RELEASE_PGTFORMER.vqvae, hp, **kw)
+        state, batch = tr.init_state(torch.Generator().manual_seed(11)), gt
+    else:
+        teacher = TDCRQVAE3(RELEASE_PGTFORMER.vqvae, generator=torch.Generator().manual_seed(12))
+        tr = PGTFormerTrainer(RELEASE_PGTFORMER, stage, hp, **kw)
+        state = tr.init_state(torch.Generator().manual_seed(13), teacher.state_dict())
+        batch = {"lq": lq, "gt": gt}
+    step, box = tr.make_step(), [state]
+
+    def run():
+        box[0], _ = step(box[0], batch)
+    return run
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=3)
@@ -53,6 +85,8 @@ def main(argv=None) -> int:
     ap.add_argument("--json", type=str, default=None)
     ap.add_argument("--mha-layout", type=str, default="bnhd", choices=("bnhd", "bhnd"),
                     help="attention plan of the code transformer")
+    ap.add_argument("--train", type=str, default=None, choices=("I", "III"),
+                    help="profile this stage's training step instead of serving")
     knobs.add_cli_flags(ap)
     args = ap.parse_args(argv)
     knobs.apply_cli_args(args)
@@ -62,22 +96,25 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from pgtformer_tpu_torch.config import RELEASE_PGTFORMER
-    from pgtformer_tpu_torch.pipeline import VideoRestorer
 
     B = args.batch
     res = RELEASE_PGTFORMER.vqvae.ddconfig.resolution
-    r = VideoRestorer(None, RELEASE_PGTFORMER, batch_windows=B, device="cuda",
-                      mha_layout=args.mha_layout)
-    rng = np.random.default_rng(0)
-    frames = rng.integers(0, 256, (B, res, res, 3), dtype=np.uint8)
-    r.prime(frames[0])
+    if args.train:
+        run, what = _train_step(args.train, res), f"training step {args.train}, 1 clip x 3"
+    else:
+        from pgtformer_tpu_torch.pipeline import VideoRestorer
+        r = VideoRestorer(None, RELEASE_PGTFORMER, batch_windows=B, device="cuda",
+                          mha_layout=args.mha_layout)
+        frames = np.random.default_rng(0).integers(0, 256, (B, res, res, 3), dtype=np.uint8)
+        r.prime(frames[0])
+        run, what = (lambda: r.restore_chunk(frames)), f"serving step B={B}"
     for _ in range(3):
-        r.restore_chunk(frames)
+        run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
-            r.restore_chunk(frames)
+            run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
 
@@ -98,7 +135,7 @@ def main(argv=None) -> int:
     smi = torch.cuda.get_device_name(0)
     plan = (f"SW_KERNEL={knobs.get('SW_KERNEL')} SW_PAIR={knobs.get('SW_PAIR')} "
             f"FUSED_TAIL={knobs.get('FUSED_TAIL')} mha_layout={args.mha_layout}")
-    print(f"device {smi}; serving step B={B} {res}x{res} [{plan}]: wall {wall_ms:.2f} ms/step, "
+    print(f"device {smi}; {what} {res}x{res} [{plan}]: wall {wall_ms:.2f} ms/step, "
           f"device busy {busy:.2f} ms/step ({100 * busy / wall_ms:.1f}%), "
           f"idle share {100 * (1 - busy / wall_ms):.1f}%")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):

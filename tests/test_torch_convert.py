@@ -82,7 +82,10 @@ def test_import_with_jax_blocked():
             "pgtformer_tpu_torch.convert", "pgtformer_tpu_torch.models.pgtformer",
             "pgtformer_tpu_torch.models.vae", "pgtformer_tpu_torch.models.quantizer",
             "pgtformer_tpu_torch.knobs", "pgtformer_tpu_torch.ops.vq",
-            "pgtformer_tpu_torch.profile_step"]
+            "pgtformer_tpu_torch.profile_step", "pgtformer_tpu_torch.models.vqgan",
+            "pgtformer_tpu_torch.train.stages", "pgtformer_tpu_torch.train.lpips",
+            "pgtformer_tpu_torch.train.losses", "pgtformer_tpu_torch.train.schedule",
+            "pgtformer_tpu_torch.train.ema", "pgtformer_tpu_torch.train.state"]
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'flax', 'pgtformer_tpu'):\n"
             "    sys.modules[m] = None\n"
@@ -108,7 +111,9 @@ def _imported_modules(path: Path):
 def test_no_jax_or_reference_package_imports():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
-    for new in ("knobs.py", "ops/vq.py", "models/vae.py", "models/quantizer.py"):
+    for new in ("knobs.py", "ops/vq.py", "models/vae.py", "models/quantizer.py",
+                "models/vqgan.py", "ops/autograd.py", "train/stages.py", "train/lpips.py", "train/losses.py",
+                "train/schedule.py", "train/ema.py", "train/state.py"):
         assert PORT / new in files
     for f in files:
         for mod in _imported_modules(f):

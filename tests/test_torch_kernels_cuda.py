@@ -21,11 +21,22 @@ must lie within 1e-5 relative of each other.  K7 (gn_silu_conv3x3) and K8
 of the output where fp32 sums in another order round the other way), the
 emitted statistics within 1e-3 of the largest per-channel value of their
 kind; the plain versions multiply in fp32, so TF32 is switched off for them.
+
+Gradients: each kernel's autograd Function (kernel forward, the plain
+version's backward) against autograd through the plain version, x in bf16
+and fp32 master weights as in training: the forward to the kernel's
+tolerance above, every gradient within 1e-3 of its largest magnitude (both
+run the same backward graph on the same saved inputs, so only cuBLAS's and
+the scatter-adds' summation order differs), one launch per forward and none
+in the backward.  A small bf16 Stage1Trainer step on the card against the
+same step in fp32 on the CPU: every metric within 5e-2 of max(|CPU value|,
+0.1) (bf16 compute through the whole autoencoder, discriminator and LPIPS).
 """
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from pgtformer_tpu_torch.nn.blocks import EncoderLayer, SWTransformerBlock, init_weights
 from pgtformer_tpu_torch import knobs
@@ -607,3 +618,163 @@ def test_decoder3d_fused_tail_on_the_card(mode, k8, k7):
     assert out.shape == (2, 32, 32, 3)
     err = (out - ref).abs()
     assert err.mean().item() <= 2e-2 * ref.abs().max().item(), err.mean()
+
+
+def _grad_check(fn, plain, x, blocks, cot):
+    """Gradients of x and of every parameter of `blocks` through `fn` and
+    through `plain` (each called on x and the blocks' live weights)."""
+    res = []
+    for f in (fn, plain):
+        for b in blocks:
+            b.zero_grad(set_to_none=True)
+        xx = x.detach().clone().requires_grad_()
+        out = f(xx, *(b.live_weights() for b in blocks))
+        out.backward(cot)
+        res.append((out.detach(), [xx.grad] + [p.grad for b in blocks for p in b.parameters()]))
+    (out, got), (ref_out, ref) = res
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref_out.float()).abs().max() <= 2e-2 * ref_out.float().abs().max()
+    for a, b in zip(got, ref):
+        assert a is not None and torch.isfinite(a).all()
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= 1e-3 * b.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("kind", ["sw_block", "sw_block_tokens", "sw_block_pair"])
+def test_sw_block_function_gradients_on_the_card(kind):
+    dev = _card()
+    from pgtformer_tpu_torch.ops import sw_block as sw
+    shape, shift = (2, 3, 16, 16, 64), (2, 2)
+    blocks = [_block_weights(64, 4, 3, seed=40 + i).to(dev) for i in range(2)]
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(41)).to(dev, torch.bfloat16)
+    counter = getattr(sw, kind)
+    if kind == "sw_block_tokens":
+        x = window_partition(torch.roll(x, (-2, -2), dims=(2, 3)), (4, 4)).contiguous()
+        mask = torch.as_tensor(shifted_window_mask(3, 16, 16, (4, 4), shift), device=dev)
+        fn = lambda xx, w, _: sw.sw_block_tokens(xx, w, mask, 16)
+        plain = lambda xx, w, _: sw.sw_block_tokens_plain(xx, w, mask, 16)
+    elif kind == "sw_block":
+        fn = lambda xx, w, _: sw.sw_block(xx, w, shift)
+        plain = lambda xx, w, _: sw.sw_block_plain(xx, w, shift)
+    else:
+        fn = lambda xx, w0, w1: sw.sw_block_pair(xx, w0, w1, shift)
+        plain = lambda xx, w0, w1: sw.sw_block_pair_plain(xx, w0, w1, shift)
+    if kind != "sw_block_pair":
+        blocks, fn, plain = blocks[:1], (lambda xx, w, _f=fn: _f(xx, w, None)), \
+            (lambda xx, w, _f=plain: _f(xx, w, None))
+    cot = torch.randn(x.shape, generator=torch.Generator().manual_seed(42)).to(dev, x.dtype)
+    before = counter.launches
+    _grad_check(fn, plain, x, blocks, cot)
+    assert counter.launches == before + 1
+
+
+@pytest.mark.parametrize("layout", ["bnhd", "bhnd"])
+def test_dense_mha_function_gradients_on_the_card(layout):
+    dev = _card()
+    from pgtformer_tpu_torch.ops import dense_mha as dm
+    g = torch.Generator().manual_seed(43)
+    q, k, v = (torch.randn((2, 256, 4, 64), generator=g).to(dev, torch.bfloat16)
+               for _ in range(3))
+    if layout == "bhnd":
+        q, k, v = (a.transpose(1, 2) for a in (q, k, v))
+    plain = dm.dense_mha_plain_bnhd if layout == "bnhd" else dm.dense_mha_plain
+    counter = dm.dense_mha_bnhd if layout == "bnhd" else dm.dense_mha_bhnd
+    cot = torch.randn(q.shape, generator=g).to(dev, torch.bfloat16)
+    res = []
+    before = counter.launches
+    for f in (lambda a, b, c: dm.dense_mha(a, b, c, scale=0.125, layout=layout),
+              lambda a, b, c: plain(a, b, c, 0.125)):
+        leaves = [a.detach().clone().requires_grad_() for a in (q, k, v)]
+        out = f(*leaves)
+        out.backward(cot)
+        res.append((out.detach(), [a.grad for a in leaves]))
+    assert counter.launches == before + 1
+    (out, got), (ref_out, ref) = res
+    assert (out.float() - ref_out.float()).abs().max() <= 1e-2 * ref_out.float().abs().max()
+    for a, b in zip(got, ref):
+        assert torch.isfinite(a).all()
+        assert (a.float() - b.float()).abs().max() <= 1e-3 * b.float().abs().max()
+
+
+def test_stage1_step_bf16_on_the_card_matches_cpu():
+    """One small Stage1Trainer step (GAN and LPIPS on, restarts off) in bf16
+    on the card against the same step in fp32 on the CPU, from the same
+    weights and batch: metrics close, gradients as close as the CPU's own
+    bf16 step's (below), every parameter and codebook buffer moved, K1 and
+    K5 launched by the forward only."""
+    dev = _card()
+    import dataclasses
+    from pgtformer_tpu_torch.config import DDConfig, VQVAEConfig
+    from pgtformer_tpu_torch.models.vqgan import VQGANDiscriminator
+    from pgtformer_tpu_torch.ops import sw_block as sw
+    from pgtformer_tpu_torch.ops import vq
+    from pgtformer_tpu_torch.train.lpips import make_lpips_fn
+    from pgtformer_tpu_torch.train.stages import STAGE_HYPERS, Stage1Trainer
+    dd = DDConfig(z_channels=32, resolution=32, ch=32, ch_mult=(1, 2), depths=(2, 2),
+                  num_heads=(4, 4), window_sizes=((4, 4), (4, 4)), attn_resolutions=(16,))
+    cfg = VQVAEConfig(ddconfig=dd, embed_dim=32, n_embed=64, latent_shape=(16, 16, 32),
+                      code_shape=(16, 16, 1), restart_unused_codes=False)
+    hp = dataclasses.replace(STAGE_HYPERS["I"], warmup_iter=-1)
+    gt = torch.from_numpy(np.random.default_rng(44).integers(0, 256, (2, 3, 32, 32, 3),
+                                                              dtype=np.uint8))
+    results = {}
+    for device, dtype in (("cpu", torch.float32), ("cpu", torch.bfloat16),
+                          (dev, torch.bfloat16)):
+        tr = Stage1Trainer(cfg, hp, lpips_fn=make_lpips_fn(device=device, warn_random=False),
+                           device=device, dtype=dtype, disc=VQGANDiscriminator(ndf=16, n_layers=2))
+        state = tr.init_state(torch.Generator().manual_seed(45))
+        p0 = {n: p.detach().cpu().clone() for n, p in state.g.params.items()}
+        c0 = {n: t.detach().cpu().clone() for n, t in state.g.codebook.items()}
+        k1, k5 = sw.sw_block.launches, vq.nearest_code.launches
+        state, metrics = tr.make_step()(state, gt)
+        launches = (sw.sw_block.launches - k1, vq.nearest_code.launches - k5)
+        assert all(not torch.equal(p0[n], p.detach().cpu()) for n, p in state.g.params.items())
+        assert all(not torch.equal(c0[n], t.cpu()) for n, t in state.g.codebook.items())
+        grads = {f"{net}.{n}": p.grad.detach().float().cpu()
+                 for net, params in (("g", state.g.params), ("d", state.d.params))
+                 for n, p in params.items()}
+        results[(str(device), dtype)] = ({k: float(v) for k, v in metrics.items()}, launches,
+                                         grads)
+    cpu, cpu_launches, cpu_g = results[("cpu", torch.float32)]
+    _, cpu16_launches, cpu16_g = results[("cpu", torch.bfloat16)]
+    card, card_launches, card_g = results[(str(dev), torch.bfloat16)]
+    assert cpu_launches == cpu16_launches == (0, 0)
+    assert card_launches[0] > 0 and card_launches[1] == 1
+    for k, ref in cpu.items():
+        assert np.isfinite(card[k])
+        assert abs(card[k] - ref) <= 5e-2 * max(abs(ref), 0.1), (k, card[k], ref)
+    # The backward: the card's bf16 gradients (autocast forward, the
+    # Functions' recompute, the discriminator's threaded statistics) against
+    # the CPU's fp32 ones.  bf16 alone moves this small random model's
+    # gradients far (measured on the CPU: 0.51 of the generator's norm, 0.18
+    # of the discriminator's; the hinge GAN term and the codes it rounds to
+    # differ), so the card's step is held to the CPU's bf16 step (the plain
+    # versions under the same autocast): per network, its distance from the
+    # fp32 gradients within 1.25 times the CPU bf16 step's plus 0.05 of their
+    # norm; per leaf whose norm is at least 1e-2 of the network's largest
+    # (smaller ones, such as a bias before a GroupNorm whose exact gradient
+    # is 0, hold rounding), its relative distance within 1.5 times the CPU
+    # bf16 step's plus 0.1.  A gradient the card's backward lost or got
+    # wrong lies at a relative distance of ~1 or more.  Measured on an H100:
+    # card 0.513 / 0.166 of the norm, CPU bf16 0.502 / 0.195; worst leaves
+    # 0.055 (CPU bf16 0.014) and 0.091 (0.038).
+    assert card_g.keys() == cpu_g.keys() == cpu16_g.keys()
+    for net in ("g", "d"):
+        names = [n for n in cpu_g if n.startswith(net + ".")]
+        assert all(torch.isfinite(card_g[n]).all() for n in names)
+        dist = lambda a, ns: sum(float((a[n] - cpu_g[n]).square().sum()) for n in ns) ** 0.5
+        norm = sum(float(cpu_g[n].square().sum()) for n in names) ** 0.5
+        top = max(float(cpu_g[n].norm()) for n in names)
+        held = [n for n in names if float(cpu_g[n].norm()) >= 1e-2 * top]
+        leaf = {n: (dist(card_g, [n]) / float(cpu_g[n].norm()),
+                    dist(cpu16_g, [n]) / float(cpu_g[n].norm())) for n in held}
+        worst = max(held, key=lambda n: leaf[n][0] - 1.5 * leaf[n][1])
+        print(f"{net}: distance from the fp32 gradients / their norm: card bf16 "
+              f"{dist(card_g, names) / norm:.3e}, CPU bf16 {dist(cpu16_g, names) / norm:.3e}; "
+              f"card bf16 from CPU bf16 "
+              f"{sum(float((card_g[n] - cpu16_g[n]).square().sum()) for n in names) ** 0.5 / norm:.3e}; "
+              f"{len(held)} leaves held, worst {worst} card {leaf[worst][0]:.3e} "
+              f"CPU bf16 {leaf[worst][1]:.3e}")
+        assert dist(card_g, names) <= 1.25 * dist(cpu16_g, names) + 0.05 * norm, net
+        for n in held:
+            assert leaf[n][0] <= 1.5 * leaf[n][1] + 0.1, (n, leaf[n])

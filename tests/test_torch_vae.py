@@ -71,8 +71,10 @@ def test_tdcrqvae3_forward(vae):
         zq, loss2, codes2 = model(t(x), code_only=True)
     close(zq, zq_j, **TOL)
     assert torch.equal(codes2, codes) and torch.equal(loss2, loss)
-    with pytest.raises(NotImplementedError):
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    with pytest.raises(ValueError, match="generator"):      # restarts need one
         model(t(x), train=True)
+    assert all(torch.equal(before[k], v) for k, v in model.state_dict().items())
 
 
 def test_tdcrqvae3_encode(vae):

@@ -152,9 +152,17 @@ def test_rq_soft_codes_stochastic_shape_and_range():
 
 
 def test_rq_train_mode_is_not_silently_ignored():
+    """train=True takes the EMA codebook step (restarts need a generator,
+    checked before any buffer moves); train=False moves no buffer."""
     _, _, mod, x = _rq(True, (8, 8, 16), (8, 8, 1))
-    with pytest.raises(NotImplementedError, match="training"):
+    before = {k: v.clone() for k, v in mod.state_dict().items()}
+    mod(t(x))
+    assert all(torch.equal(before[k], v) for k, v in mod.state_dict().items())
+    with pytest.raises(ValueError, match="generator"):
         mod(t(x), train=True)
+    assert all(torch.equal(before[k], v) for k, v in mod.state_dict().items())
+    mod(t(x), train=True, generator=torch.Generator().manual_seed(0))
+    assert all(not torch.equal(before[k], v) for k, v in mod.state_dict().items())
 
 
 def test_codebooks_stay_fp32_under_a_dtype_cast():
