@@ -66,8 +66,26 @@ Phases, in order; any failure exits non-zero:
     modules and teacher, and exact launches per step (I: 22 K1 + 1 K5; III:
     30 K1 + 9 K6 + 1 K5); prints `[train:I]` / `[train:III]` lines with step
     ms, peak memory, the losses and the card's name and power limit;
-10. a JSON line of kernel numbers (each with its backward route and its
-    launches per training step), then the device JSON as the last line.
+10. the training run end to end through `train_cli.main` (`phase_train_loop`):
+    a seeded VFHQ tree of 512x512 PNGs in a temporary directory (train: 2
+    clips x 5 frames, val: 1 clip x 3), copies of configs/demo_stage_I.yml
+    and demo_stage_III.yml with only the cadence changed (print every step,
+    save and validate every 2); stage I for 4 steps, then resumed to 6
+    ("auto-resumed from step 4", the schedulers at 6, the loader past its 4
+    batches); stage III for 3 steps from stage I's step-6 exports (teacher,
+    student, discriminator; merge_pretrained's counts); exact launches per
+    training step and, apart, per validation forward (I: 22 K1 + 1 K5 both;
+    III: 30 K1 + 9 K6 + 1 K5 a step, 22 K1 + 9 K6 a validation forward); the
+    teacher and the frozen modules bit-identical; validation's saved frames,
+    computed while the live parameters were moved far from their EMA,
+    against fresh models loaded from the same step's exports (K1_TOL); stage
+    III's last export served through VideoRestorer (22 K1 + 9 K6); prints
+    `[train_loop:...]` lines with steps/s, the loader's batch assembly and
+    the step's wait, checkpoint bytes and save/restore seconds, validation
+    seconds and peak memory, and the card;
+11. a JSON line of kernel numbers (each with its backward route, its
+    launches per training step and in the training run), then the device
+    JSON as the last line.
 
 Launch counts are set to 0 just before each path is driven and read just
 after it; launches made to compare or time a kernel do not count.
@@ -1454,6 +1472,358 @@ def phase_train(smi: str):
     return out
 
 
+# -- the training run end to end (train_cli) ----------------------------------
+
+LOOP_RES = 512            # the seeded VFHQ tree's frames
+LOOP_VAL_SAMPLES = 3      # val/GT: 1 clip x 3 frames, inter_space 1
+LOOP_PER_STEP = {"I": dict(sw_block=22, vq_nearest=1),
+                 "III": dict(sw_block=22 + 8, dense_mha_bnhd=9, vq_nearest=1)}
+LOOP_PER_VAL = {"I": dict(sw_block=22, vq_nearest=1),        # TDCRQVAE3 forward
+                "III": dict(sw_block=22, dense_mha_bnhd=9)}  # PGTFormer forward
+LOOP_FROZEN = ("quantizer", "decoder", "conditionnet", "post_quant_conv")
+LOOP_METRIC_KEYS = {"I": {"l_pix", "l_percep", "l_quant", "l_g_gan", "l_g_total", "l_d"},
+                    "III": {"l_token", "l_feat", "l_pix", "l_percep", "l_g_gan", "l_g_total",
+                            "l_d"}}
+
+
+def _launch_counts() -> dict:
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+class _LoopObserver:
+    """Watches `train_cli.main` from outside: wraps `Trainer.fit` to keep the
+    stage trainer and snapshot its teacher and frozen modules before the
+    loop, and `Trainer._validate` to count each validation's launches apart
+    from the training steps'; collects the log's records.  For the length of
+    each validation it moves the live parameters far from their EMA (noise
+    of their mean magnitude) and puts them back bit for bit after, so that
+    a validation which read them instead of the EMA fails
+    `_val_matches_export`; the run is otherwise unchanged.  Undone on exit."""
+
+    def __enter__(self):
+        import logging
+        from pgtformer_tpu_torch.train import trainer as tmod
+        self.tmod, self.fit0, self.validate0 = tmod, tmod.Trainer.fit, tmod.Trainer._validate
+        self.records, self.val_launches, self.stage, self.before = [], [], None, None
+        obs = self
+
+        class Capture(logging.Handler):
+            def emit(self, record):
+                obs.records.append(record.getMessage())
+
+        from pgtformer_tpu_torch.utils.logging import get_root_logger
+        self.handler = Capture()
+        get_root_logger().addHandler(self.handler)
+
+        def fit(loop, state, batches, total_iter=None, val_fn=None):
+            obs.stage = loop.stage
+            st = loop.stage
+            snap = {f"student.{k}": v.detach().clone() for k, v in st.model.state_dict().items()}
+            if hasattr(st, "teacher"):
+                snap.update({f"teacher.{k}": v.detach().clone()
+                             for k, v in st.teacher.state_dict().items()})
+            obs.before = snap
+            return obs.fit0(loop, state, batches, total_iter, val_fn)
+
+        def validate(loop, val_fn, state, step, timings):
+            import torch
+            live = {k: p.detach().clone() for k, p in state.g.params.items()}
+            noise = torch.Generator(device=loop.stage.device).manual_seed(step)
+            with torch.no_grad():
+                for p in state.g.params.values():
+                    p.add_(torch.randn(p.shape, generator=noise, device=p.device, dtype=p.dtype)
+                           * p.abs().mean().clamp_min(1e-2))
+            try:
+                c0 = _launch_counts()
+                out = obs.validate0(loop, val_fn, state, step, timings)
+                obs.val_launches.append({k: v - c0[k] for k, v in _launch_counts().items()})
+            finally:
+                with torch.no_grad():
+                    for k, p in state.g.params.items():
+                        p.copy_(live[k])
+            return out
+
+        tmod.Trainer.fit, tmod.Trainer._validate = fit, validate
+        return self
+
+    def __exit__(self, *exc):
+        import logging
+        self.tmod.Trainer.fit, self.tmod.Trainer._validate = self.fit0, self.validate0
+        logging.getLogger("pgtformer_tpu_torch").removeHandler(self.handler)
+        return False
+
+
+def _jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _loop_run(tag: str, stage: str, argv, obs_steps: int, smi: str, expect_resume=None):
+    """One `train_cli.main(argv)` with the launch counts set to 0 just before
+    and read just after; asserts exact launches (training steps and each
+    validation apart), metrics.jsonl's keys and finite values.  Returns
+    (observer, new metrics.jsonl step lines, this fit's timings record)."""
+    import statistics
+    import torch
+    from pgtformer_tpu_torch import train_cli
+    exp = argv[argv.index("--exp-dir") + 1]
+    n_lines = len(_jsonl(f"{exp}/metrics.jsonl")) if expect_resume else 0
+    reset_counts()
+    t0 = time.perf_counter()
+    with _LoopObserver() as obs:
+        rc = train_cli.main(argv)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise SystemExit(f"[train_loop:{tag}] train_cli.main returned {rc}")
+    got = _launch_counts()
+    val = {k: sum(v[k] for v in obs.val_launches) for k in got}
+    n_val = len(obs.val_launches) * LOOP_VAL_SAMPLES
+    want_val = {k: LOOP_PER_VAL[stage].get(k, 0) * n_val for k in got}
+    want_train = {k: LOOP_PER_STEP[stage].get(k, 0) * obs_steps for k in got}
+    train = {k: got[k] - val[k] for k in got}
+    if val != want_val or train != want_train:
+        raise SystemExit(f"[train_loop:{tag}] launches: training {train} (expected "
+                         f"{want_train}), validation {val} (expected {want_val})")
+    for name in LOOP_PER_STEP[stage]:
+        if got[name] == 0:
+            raise SystemExit(f"[train_loop:{tag}] {name} was never launched")
+    lines = _jsonl(f"{exp}/metrics.jsonl")[n_lines:]
+    steps = [r for r in lines if "it_per_s" in r]
+    for r in steps:
+        if set(r) != {"step", "it_per_s"} | LOOP_METRIC_KEYS[stage]:
+            raise SystemExit(f"[train_loop:{tag}] metrics.jsonl keys {sorted(r)}")
+        if not all(math.isfinite(v) for v in r.values()):
+            raise SystemExit(f"[train_loop:{tag}] non-finite metrics {r}")
+    timing = _jsonl(f"{exp}/timings.jsonl")[-1]
+    rates = [r["it_per_s"] for r in steps]
+    load = timing.get("loader_load_s") or [0.0]
+    saves, vals = timing["save"], timing["val"]
+    log(f"[train_loop:{tag}] train_cli.main in {wall:.1f} s: steps "
+        f"{[r['step'] for r in steps]}, steps/s median {statistics.median(rates):.3f} "
+        f"(each: {' '.join(f'{x:.3f}' for x in rates)}); loader: batch assembly median "
+        f"{statistics.median(load) * 1e3:.1f} ms over {len(load)} batches (decode + blind "
+        f"degradation at {LOOP_RES}x{LOOP_RES}), the step's wait per batch median "
+        f"{statistics.median(timing['data_wait_s']) * 1e3:.2f} ms; checkpoints "
+        + ", ".join(f"step {s['step']}: {s['bytes'] / 2 ** 30:.3f} GiB in {s['seconds']:.2f} s "
+                    f"(+ exports {s['export_seconds']:.2f} s)" for s in saves)
+        + (f"; restore of step {timing['restore']['step']}: "
+           f"{timing['restore']['bytes'] / 2 ** 30:.3f} GiB in {timing['restore']['seconds']:.2f} s"
+           if timing["restore"] else "")
+        + "; validation " + ", ".join(
+            f"step {v['step']}: {v['seconds']:.2f} s, peak "
+            + (f"{v['peak_bytes'] / 2 ** 30:.2f} GiB" if v["peak_bytes"] is not None else "n/a")
+            for v in vals)
+        + f"; launches: training {{{', '.join(f'{k}: {v}' for k, v in train.items() if v)}}}, "
+        f"validation {{{', '.join(f'{k}: {v}' for k, v in val.items() if v)}}}; card: {smi}")
+    torch.cuda.empty_cache()
+    return obs, steps, timing, dict(wall_s=wall, steps_per_s=rates, train_launches=train,
+                                    val_launches=val)
+
+
+def _val_matches_export(tag: str, model, export: str, dataset, png_dir: str, stage: str):
+    """Validation's saved frames of one step (computed while the live
+    parameters were moved away from their EMA: `_LoopObserver`) against a
+    fresh model loaded from that step's export, both on the card under bf16
+    autocast: max |d| / 255 <= K1_TOL."""
+    import os
+    import cv2
+    import numpy as np
+    import torch
+    from pgtformer_tpu_torch.convert import load_checkpoint, load_into
+    model = load_into(model, load_checkpoint(export)).cuda().eval().requires_grad_(False)
+    T = 2 * dataset.r + 1
+    worst, mean = 0, []
+    for i in range(len(dataset)):
+        s = dataset[i]
+        x = torch.from_numpy(s["gt" if stage == "I" else "lq"][None]).cuda()
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            if stage == "I":
+                out = model(x)[0][0]
+            else:
+                out = model(x, w=model.cfg.w)[0].reshape(1, T, *x.shape[2:])[0, T // 2]
+        img = out.float().clamp(0, 1).cpu().numpy()
+        mine = (np.clip(img[..., ::-1], 0, 1) * 255).astype(np.uint8)
+        saved = cv2.imread(os.path.join(png_dir, s["path"].replace("/", "_")))
+        d = np.abs(mine.astype(int) - saved.astype(int))
+        worst, mean = max(worst, int(d.max())), mean + [float(d.mean())]
+    if worst / 255 > K1_TOL:
+        raise SystemExit(f"[train_loop:{tag}] validation's frames differ from the export's "
+                         f"by {worst} LSB (> {K1_TOL} * 255)")
+    log(f"[train_loop:{tag}] validation's {len(dataset)} saved frames against a fresh "
+        f"{type(model).__name__} from {os.path.basename(export)}: max {worst} LSB, mean "
+        f"{sum(mean) / len(mean):.4f} LSB (<= K1_TOL * 255) OK")
+    return worst
+
+
+def phase_train_loop(smi: str):
+    """The training run end to end through `train_cli.main`, at the full
+    width and depth of RELEASE_PGTFORMER (the demo YAMLs, 512x512, T=3,
+    bf16 autocast over fp32 parameters, random LPIPS VGG), on a seeded
+    VFHQ tree of PNGs in a temporary directory (train: 2 clips x 5 frames,
+    val: 1 clip x 3 frames), with copies of configs/demo_stage_I.yml and
+    demo_stage_III.yml whose cadence alone is changed (print every step,
+    save and validate every 2):
+      stage I for 4 steps, then resumed to 6 (auto-resume at step 4, the
+      scheduler and the loader continuing); stage III for 3 steps from
+      stage I's step-6 exports (teacher, student, discriminator);
+      stage III's last export served through VideoRestorer; validation's
+      saved frames against fresh models loaded from the exports.
+    Exact launches per training step and per validation forward; the
+    teacher and the frozen modules bit-identical."""
+    import os
+    import shutil
+    import statistics
+    import tempfile
+    import cv2
+    import numpy as np
+    import torch
+    import yaml
+    from pgtformer_tpu_torch.config import load_options, pgtformer_config_from_options, \
+        vqvae_config_from_options
+    from pgtformer_tpu_torch.convert import load_checkpoint
+    from pgtformer_tpu_torch.data.vfhq import VFHQTestDataset
+    from pgtformer_tpu_torch.models.pgtformer import PGTFormer
+    from pgtformer_tpu_torch.models.vae import TDCRQVAE3
+    from pgtformer_tpu_torch.pipeline import VideoRestorer
+    from pgtformer_tpu_torch.utils.checkpoint import CheckpointManager
+    root = tempfile.mkdtemp(prefix="pgt_train_loop_")
+    out = {}
+    try:
+        rng = np.random.default_rng(21)
+        for split, clips, n in (("train", 2, 5), ("val", 1, 3)):
+            for c in range(clips):
+                d = os.path.join(root, "vfhq", split, "GT", f"clip_{c}")
+                os.makedirs(d)
+                for i in range(n):
+                    cv2.imwrite(os.path.join(d, f"{i:08d}.png"),
+                                rng.integers(0, 256, (LOOP_RES, LOOP_RES, 3), dtype=np.uint8))
+        ymls = {}
+        for stage in ("I", "III"):
+            opt = load_options(f"configs/demo_stage_{stage}.yml")
+            opt["logger"].update(print_freq=1, save_checkpoint_freq=2)
+            opt["val"]["val_freq"] = 2
+            ymls[stage] = os.path.join(root, f"demo_stage_{stage}.yml")
+            with open(ymls[stage], "w") as f:
+                yaml.safe_dump(opt, f)
+        train, val = os.path.join(root, "vfhq", "train"), os.path.join(root, "vfhq", "val")
+        # one sample's assembly with the host otherwise idle, against the
+        # loader's own times beside a running step
+        from pgtformer_tpu_torch.data.vfhq import VFHQTrainDataset
+        from scipy import special  # noqa: F401  (the first sinc kernel's import, untimed)
+        tds, alone = VFHQTrainDataset(train, output_dtype="uint8"), []
+        for i in range(3):
+            t0 = time.perf_counter()
+            tds[i]
+            alone.append((time.perf_counter() - t0) * 1e3)
+        log(f"[train_loop] one 3-frame {LOOP_RES}x{LOOP_RES} sample (PNG decode, blind "
+            f"degradation, uint8) assembled alone on the main thread: "
+            f"{' '.join(f'{a:.1f}' for a in alone)} ms")
+        exp1, exp3 = os.path.join(root, "exp", "stage_I"), os.path.join(root, "exp", "stage_III")
+        common = ["--data-root", train, "--val-data-root", val, "--bf16"]
+
+        # stage I: 4 steps (saves and validations at 2 and 4), then resumed to 6
+        _, steps, t1, r1 = _loop_run("I", "I", ["-opt", ymls["I"], "--exp-dir", exp1,
+                                                "--total-iter", "4", *common], 4, smi)
+        ck = CheckpointManager(exp1)
+        if ([r["step"] for r in steps] != [1, 2, 3, 4] or ck.latest_step() != 4
+                or [s["step"] for s in t1["save"]] != [2, 4]
+                or [v["step"] for v in t1["val"]] != [2, 4]):
+            raise SystemExit(f"[train_loop:I] steps {[r['step'] for r in steps]}, saves "
+                             f"{t1['save']}, validations {t1['val']}")
+        obs, steps, t2, r2 = _loop_run("I+resume", "I", ["-opt", ymls["I"], "--exp-dir", exp1,
+                                                         "--total-iter", "6", *common], 2, smi,
+                                       expect_resume=True)
+        st = ck.read_state(6)
+
+        def at(pos):
+            return (pos["epoch"], pos["consumed"])
+
+        if ("auto-resumed from step 4" not in " ".join(obs.records)
+                or [r["step"] for r in steps] != [5, 6] or t2["restore"]["step"] != 4
+                or at(t2["restore"]["loader"]) != (0, 4) or at(st["loader"]) != (0, 6)
+                or st["sched_g"]["last_epoch"] != 6 or st["sched_d"]["last_epoch"] != 6):
+            raise SystemExit(f"[train_loop:I+resume] steps {[r['step'] for r in steps]}, "
+                             f"restore {t2['restore']}, state at 6: loader {st['loader']}, "
+                             f"schedulers {st['sched_g']['last_epoch']} / "
+                             f"{st['sched_d']['last_epoch']}")
+        resume_line = next(m for m in obs.records if m.startswith("the loader starts at"))
+        log(f"[train_loop:I+resume] 'auto-resumed from step 4'; '{resume_line}'; wrote steps "
+            f"5 and 6 only; the schedulers' count is 6 (lr_g {st['opt_g']['param_groups'][0]['lr']:.3e}, "
+            f"warm-up 1000); the loader stands at (epoch, batches) {at(st['loader'])} OK")
+        del st
+        vds = VFHQTestDataset(val)
+        cfg1 = vqvae_config_from_options(load_options(ymls["I"]), network_key="network_g")
+        err1 = _val_matches_export("I", TDCRQVAE3(cfg1), f"{exp1}/net_g_6.pth", vds,
+                                   f"{exp1}/visualization/iter_6", "I")
+
+        # stage III from stage I's step-6 exports
+        obs, steps, t3, r3 = _loop_run(
+            "III", "III", ["-opt", ymls["III"], "--exp-dir", exp3, "--total-iter", "3",
+                           "--teacher-ckpt", f"{exp1}/net_g_6.pth",
+                           "--student-ckpt", f"{exp1}/net_g_6.pth",
+                           "--disc-ckpt", f"{exp1}/net_d_6.pth", *common], 3, smi)
+        merge = next(m for m in obs.records if m.startswith("student init:"))
+        n_loaded, n_skipped = (int(x) for x in re.findall(r"(\d+) (?:pretrained )?tensors", merge))
+        tr = obs.stage
+        after = {f"student.{k}": v for k, v in tr.model.state_dict().items()}
+        after.update({f"teacher.{k}": v for k, v in tr.teacher.state_dict().items()})
+        fixed = [k for k in obs.before if k.startswith("teacher.")
+                 or k.split(".")[1] in LOOP_FROZEN]
+        changed = [k for k in fixed if not torch.equal(obs.before[k], after[k])]
+        trainable = [f"student.{n}" for n, p in tr.model.named_parameters() if p.requires_grad]
+        moved = [k for k in trainable if not torch.equal(obs.before[k], after[k])]
+        if (changed or len(moved) != len(trainable) or [r["step"] for r in steps] != [1, 2, 3]
+                or [s["step"] for s in t3["save"]] != [2, 3] or [v["step"] for v in t3["val"]] != [2]):
+            raise SystemExit(f"[train_loop:III] {len(changed)} teacher/frozen tensors changed "
+                             f"({changed[:5]}), {len(trainable) - len(moved)} trainable parameters "
+                             f"did not move; steps {[r['step'] for r in steps]}, saves "
+                             f"{t3['save']}, validations {t3['val']}")
+        log(f"[train_loop:III] merge_pretrained: {n_loaded} tensors loaded from stage I's "
+            f"net_g_6.pth, {n_skipped} skipped; the teacher and the frozen modules "
+            f"({', '.join(LOOP_FROZEN)}): {len(fixed)} tensors bit-identical; all "
+            f"{len(trainable)} trainable parameters moved OK")
+        del obs, tr, after
+        torch.cuda.empty_cache()
+        cfg3 = pgtformer_config_from_options(load_options(ymls["III"]))
+        err3 = _val_matches_export("III", PGTFormer(cfg3), f"{exp3}/net_g_2.pth", vds,
+                                   f"{exp3}/visualization/iter_2", "III")
+
+        # trained to served: stage III's last export through VideoRestorer
+        frames = np.stack([cv2.imread(os.path.join(train, "GT", "clip_0", f"{i:08d}.png"))[..., ::-1]
+                           for i in range(5)] * 2)[:9]
+        r = VideoRestorer(weights=load_checkpoint(f"{exp3}/net_g_3.pth"), cfg=cfg3,
+                          batch_windows=8, device="cuda")
+        reset_counts()
+        r.prime(frames[0])
+        served = r.restore_chunk(frames[1:9]).cpu().numpy()
+        counts = expect_counts("serving stage III's export", sw_block=22, dense_mha_bnhd=9)
+        if served.dtype != np.uint8 or served.shape != (8, LOOP_RES, LOOP_RES, 3):
+            raise SystemExit(f"[train_loop:serve] frames {served.dtype} {served.shape}")
+        log(f"[train_loop:serve] net_g_3.pth through VideoRestorer.restore_chunk: 8 frames "
+            f"uint8 {served.shape}, mean {served.mean():.2f}, launches "
+            f"{ {k: v for k, v in counts.items() if v} } OK")
+        del r
+        torch.cuda.empty_cache()
+        du = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+        log(f"[train_loop] {du / 2 ** 30:.2f} GiB written under the temporary tree")
+        for tag, t, rr in (("I", t1, r1), ("I+resume", t2, r2), ("III", t3, r3)):
+            out[tag] = dict(
+                steps_per_s_median=statistics.median(rr["steps_per_s"]),
+                steps_per_s=rr["steps_per_s"], wall_s=rr["wall_s"],
+                loader_assembly_ms_median=statistics.median(t["loader_load_s"]) * 1e3,
+                data_wait_ms_median=statistics.median(t["data_wait_s"]) * 1e3,
+                checkpoints=t["save"], restore=t["restore"], validation=t["val"],
+                train_launches={k: v for k, v in rr["train_launches"].items() if v},
+                val_launches={k: v for k, v in rr["val_launches"].items() if v})
+        out["sample_alone_ms"] = alone
+        out["val_vs_export_lsb"] = {"I": err1, "III": err3}
+        out["merge_pretrained"] = {"loaded": n_loaded, "skipped": n_skipped}
+        out["card"] = smi
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def _mix(rows, key):
     """Per-launch average over the serving step's mix of shapes."""
     return sum(r[key] * r["per_step"] for r in rows) / sum(r["per_step"] for r in rows)
@@ -1499,6 +1869,8 @@ def main() -> int:
     serve.pop("restorer")
     torch.cuda.empty_cache()
     train = phase_train(smi)
+    torch.cuda.empty_cache()
+    train_loop = phase_train_loop(smi)
 
     step = serve["step_ms"]
     mha_src = "pgtformer_tpu_torch/csrc/dense_mha.cu"
@@ -1542,10 +1914,14 @@ def main() -> int:
                              "none: inference-only (FUSED_TAIL refuses a recorded gradient)")
         k["launches_per_train_step"] = {stage: r["per_step"].get(name, 0)
                                         for stage, r in train.items()}
+        k["launches_train_loop"] = {
+            tag: {part: train_loop[tag][f"{part}_launches"].get(name, 0)
+                  for part in ("train", "val")} for tag in ("I", "I+resume", "III")}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "default_step_ms": step,
                       "train": {stage: {key: v for key, v in r.items() if key != "per_step"}
                                 for stage, r in train.items()},
+                      "train_loop": train_loop,
                       "variant_step_ms": {k: v["step_ms"] for k, v in variants.items()},
                       "autoencoder_ms": {k: v for k, v in vae.items() if k.endswith("_ms")}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -127,6 +127,15 @@ def pgtformer_config_from_options(opt: Mapping[str, Any],
     return PGTFormerConfig.from_dict(net)
 
 
+def vqvae_config_from_options(opt: Mapping[str, Any],
+                              network_key: str = "network_gt") -> VQVAEConfig:
+    """The `TDCRQVAE3` config of an option tree: stage I's `network_g`, or
+    a later stage's frozen teacher `network_gt`."""
+    net = dict(opt[network_key])
+    net.pop("type", None)
+    return VQVAEConfig.from_dict(net)
+
+
 # The deployed release config (options/release_test_stage_IIII_dont_need_
 # align_version.yml): 512x512, T=3, ch 64, ch_mult (1,2,4,4,8), 4x4 windows,
 # attention at {32,64,128}, 9 code-transformer layers of width 512,

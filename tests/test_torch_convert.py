@@ -76,22 +76,33 @@ def test_load_checkpoint(small_pgt, tmp_path, fmt):
         torch.testing.assert_close(loaded[k], sd[k], rtol=0, atol=0)
 
 
+def _port_modules():
+    """Every module of the port, by its dotted name (a walk of the package)."""
+    mods = []
+    for f in PORT.rglob("*.py"):
+        parts = f.relative_to(REPO).with_suffix("").parts
+        mods.append(".".join(parts[:-1] if f.name == "__init__.py" else parts))
+    return sorted(mods)
+
+
 def test_import_with_jax_blocked():
-    """The whole package imports with jax, flax and pgtformer_tpu absent."""
-    mods = ["pgtformer_tpu_torch", "pgtformer_tpu_torch.pipeline", "pgtformer_tpu_torch.cli",
-            "pgtformer_tpu_torch.convert", "pgtformer_tpu_torch.models.pgtformer",
-            "pgtformer_tpu_torch.models.vae", "pgtformer_tpu_torch.models.quantizer",
-            "pgtformer_tpu_torch.knobs", "pgtformer_tpu_torch.ops.vq",
-            "pgtformer_tpu_torch.profile_step", "pgtformer_tpu_torch.models.vqgan",
-            "pgtformer_tpu_torch.train.stages", "pgtformer_tpu_torch.train.lpips",
-            "pgtformer_tpu_torch.train.losses", "pgtformer_tpu_torch.train.schedule",
-            "pgtformer_tpu_torch.train.ema", "pgtformer_tpu_torch.train.state"]
+    """Every module of the package imports with jax, flax and pgtformer_tpu
+    absent."""
+    mods = _port_modules()
+    for new in ("pgtformer_tpu_torch.train_cli", "pgtformer_tpu_torch.registry",
+                "pgtformer_tpu_torch.train.trainer", "pgtformer_tpu_torch.train.validate",
+                "pgtformer_tpu_torch.utils.checkpoint", "pgtformer_tpu_torch.utils.logging",
+                "pgtformer_tpu_torch.utils.img", "pgtformer_tpu_torch.data.vfhq",
+                "pgtformer_tpu_torch.data.loader", "pgtformer_tpu_torch.data.degradations",
+                "pgtformer_tpu_torch.data.align", "pgtformer_tpu_torch.eval.metrics",
+                "pgtformer_tpu_torch.train.stages", "pgtformer_tpu_torch.cli"):
+        assert new in mods
     code = ("import sys\n"
-            "for m in ('jax', 'jaxlib', 'flax', 'pgtformer_tpu'):\n"
+            "for m in ('jax', 'jaxlib', 'flax', 'orbax', 'pgtformer_tpu'):\n"
             "    sys.modules[m] = None\n"
             + "".join(f"import {m}\n" for m in mods)
             + "import chip_smoke\n"
-            "assert not any(k == 'jax' or k.startswith(('jax.', 'flax', 'pgtformer_tpu.'))\n"
+            "assert not any(k == 'jax' or k.startswith(('jax.', 'flax', 'orbax', 'pgtformer_tpu.'))\n"
             "               for k in sys.modules if sys.modules[k] is not None)\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
@@ -113,9 +124,12 @@ def test_no_jax_or_reference_package_imports():
     assert len(files) > 10
     for new in ("knobs.py", "ops/vq.py", "models/vae.py", "models/quantizer.py",
                 "models/vqgan.py", "ops/autograd.py", "train/stages.py", "train/lpips.py", "train/losses.py",
-                "train/schedule.py", "train/ema.py", "train/state.py"):
+                "train/schedule.py", "train/ema.py", "train/state.py", "train_cli.py",
+                "registry.py", "train/trainer.py", "train/validate.py", "utils/checkpoint.py",
+                "utils/logging.py", "utils/img.py", "data/vfhq.py", "data/loader.py",
+                "data/degradations.py", "data/align.py", "eval/metrics.py"):
         assert PORT / new in files
     for f in files:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "flax", "pgtformer_tpu"), (f, mod)
+            assert top not in ("jax", "jaxlib", "flax", "orbax", "pgtformer_tpu"), (f, mod)

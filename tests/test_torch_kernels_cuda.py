@@ -31,6 +31,10 @@ the scatter-adds' summation order differs), one launch per forward and none
 in the backward.  A small bf16 Stage1Trainer step on the card against the
 same step in fp32 on the CPU: every metric within 5e-2 of max(|CPU value|,
 0.1) (bf16 compute through the whole autoencoder, discriminator and LPIPS).
+A checkpoint of that trainer on the card restores bit for bit (modules,
+EMA, Adam's device tensors, schedulers, the CUDA generator), and the next
+step after the restore meets the same metric tolerance against the step
+taken without the save.
 """
 
 import numpy as np
@@ -778,3 +782,87 @@ def test_stage1_step_bf16_on_the_card_matches_cpu():
         assert dist(card_g, names) <= 1.25 * dist(cpu16_g, names) + 0.05 * norm, net
         for n in held:
             assert leaf[n][0] <= 1.5 * leaf[n][1] + 0.1, (n, leaf[n])
+
+
+def test_stage1_checkpoint_resume_on_the_card(tmp_path):
+    """A small bf16 Stage1Trainer on the card (codebook restarts on, so the
+    CUDA generator draws): two steps, a checkpoint, one more step.  A second
+    trainer from another seed restores the checkpoint: its modules, EMA,
+    Adam state (on the card), schedulers and CUDA generator state equal the
+    saved ones bit for bit, and so do its optimizers' learning rates.  Its
+    next step equals the uninterrupted step bit for bit: parameters, EMA,
+    discriminator and metrics (cuDNN held to its deterministic algorithms
+    for the test); this is inside the bf16 step tolerance of
+    test_stage1_step_bf16_on_the_card_matches_cpu, 5e-2 of max(|value|,
+    0.1) on the metrics, which is checked as well."""
+    dev = _card()
+    import dataclasses
+    from pgtformer_tpu_torch.config import DDConfig, VQVAEConfig
+    from pgtformer_tpu_torch.models.vqgan import VQGANDiscriminator
+    from pgtformer_tpu_torch.train.stages import STAGE_HYPERS, Stage1Trainer
+    from pgtformer_tpu_torch.utils.checkpoint import CheckpointManager
+    dd = DDConfig(z_channels=32, resolution=32, ch=32, ch_mult=(1, 2), depths=(2, 2),
+                  num_heads=(4, 4), window_sizes=((4, 4), (4, 4)), attn_resolutions=(16,))
+    cfg = VQVAEConfig(ddconfig=dd, embed_dim=32, n_embed=64, latent_shape=(16, 16, 32),
+                      code_shape=(16, 16, 1))
+    hp = dataclasses.replace(STAGE_HYPERS["I"], warmup_iter=2, milestones=(3,))
+    rng = np.random.default_rng(46)
+    batches = [torch.from_numpy(rng.integers(0, 256, (2, 3, 32, 32, 3), dtype=np.uint8))
+               for _ in range(3)]
+
+    def trainer(seed):
+        tr = Stage1Trainer(cfg, hp, device=dev, dtype=torch.bfloat16,
+                           disc=VQGANDiscriminator(ndf=16, n_layers=2))
+        return tr, tr.init_state(torch.Generator().manual_seed(seed))
+
+    def tensors(tr, state):
+        out = {f"g.{k}": v.detach().clone() for k, v in tr.model.state_dict().items()}
+        out.update({f"ema.{k}": v.clone() for k, v in state.g.ema_params.items()})
+        out.update({f"d.{k}": v.detach().clone() for k, v in tr.disc.state_dict().items()})
+        for name, opt in (("opt_g", tr.opt_g), ("opt_d", tr.opt_d)):
+            for i, st in opt.state_dict()["state"].items():
+                out.update({f"{name}.{i}.{k}": v.clone() for k, v in st.items()})
+        return out
+
+    def lrs(tr):
+        return [g["lr"] for opt in (tr.opt_g, tr.opt_d) for g in opt.param_groups]
+
+    cudnn = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        tr, state = trainer(47)
+        step = tr.make_step()
+        for b in batches[:2]:
+            state, _ = step(state, b)
+        ck = CheckpointManager(str(tmp_path))
+        ck.save(state.step, state, tr)
+        saved, saved_rng, saved_lr = tensors(tr, state), state.rng.get_state(), lrs(tr)
+        state, ref = step(state, batches[2])
+        after = tensors(tr, state)
+
+        tr2, state2 = trainer(48)
+        ck.restore(state2, tr2)
+        assert state2.rng.device.type == "cuda"
+        assert torch.equal(state2.rng.get_state(), saved_rng)
+        assert all(st["exp_avg"].device.type == "cuda" for st in tr2.opt_g.state.values())
+        assert tr2.sched_g.last_epoch == tr2.sched_d.last_epoch == 2
+        assert lrs(tr2) == saved_lr
+        got = tensors(tr2, state2)
+        assert got.keys() == saved.keys()
+        for k in saved:
+            assert got[k].device == saved[k].device and torch.equal(got[k], saved[k]), k
+        state2, m = tr2.make_step()(state2, batches[2])
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+    got = tensors(tr2, state2)
+    diff = max(float((got[k].float() - after[k].float()).abs().max()) for k in after)
+    print(f"after the restored step: tensors at most {diff:.3e} from the uninterrupted "
+          f"step's; metrics {({k: float(v) for k, v in m.items()})} vs "
+          f"{({k: float(v) for k, v in ref.items()})}")
+    assert lrs(tr2) == lrs(tr)
+    for k, v in ref.items():
+        assert abs(float(m[k]) - float(v)) <= 5e-2 * max(abs(float(v)), 0.1), k
+    assert {k: float(v) for k, v in m.items()} == {k: float(v) for k, v in ref.items()}
+    assert got.keys() == after.keys()
+    for k in after:
+        assert torch.equal(got[k], after[k]), k
