@@ -83,9 +83,25 @@ Phases, in order; any failure exits non-zero:
     `[train_loop:...]` lines with steps/s, the loader's batch assembly and
     the step's wait, checkpoint bytes and save/restore seconds, validation
     seconds and peak memory, and the card;
-11. a JSON line of kernel numbers (each with its backward route, its
-    launches per training step and in the training run), then the device
-    JSON as the last line.
+11. evaluation end to end through `eval_cli.main` (`phase_eval`): a seeded
+    VFHQ-Test tree of 512x512 PNGs (2 clips x 5 frames) in a temporary
+    directory, the serving phase's seeded weights as a reference-format
+    .pth and a seeded IResNet-50 state dict; first K1 (both shifts at the
+    three layer shapes) and K6 at the eval forward's batches of 4 and 2
+    against their plain versions; `--batch 4 --face-metrics --niqe-fit-gt
+    --arcface-weights --save-dir` (10 samples), then `--rotate
+    --inter-space 2` (6 samples); every column printed and finite, exact
+    launches (22 K1 + 9 K6 a forward, no other kernel), the saved PNGs
+    equal (0 LSB) to a direct `PGTFormer.forward(middle_only=True)` of the
+    same batches, ArcFace, LPIPS and the parser's class maps and landmarks
+    on the card against the CPU in fp32 (ArcFace and LPIPS also read with
+    TF32 on, the failure the limits are set to catch); `[eval:...]` lines
+    with the CLI's setup seconds and seconds per sample split into loading,
+    the forward, LPIPS, the face metrics, NIQE features, PSNR/SSIM and the
+    rest, peak memory and the card;
+12. a JSON line of kernel numbers (each with its backward route, its
+    launches per training step, in the training run and in evaluation),
+    then the device JSON as the last line.
 
 Launch counts are set to 0 just before each path is driven and read just
 after it; launches made to compare or time a kernel do not count.
@@ -1824,6 +1840,365 @@ def phase_train_loop(smi: str):
     return out
 
 
+# -- evaluation end to end (eval_cli) ------------------------------------------
+
+EVAL_RES = 512
+EVAL_CLIPS, EVAL_FRAMES = 2, 5     # the seeded VFHQ-Test tree: GT/<clip>/%08d.png
+EVAL_BATCH = 4
+EVAL_PER_FORWARD = dict(sw_block=22, dense_mha_bnhd=9)
+# the eval forward's kernel shapes: its batches of 4 clips and the tails of 2
+EVAL_K1_SHAPES = [(b, 3, h, h, c) for b in (4, 2) for h, c in ((128, 256), (64, 256), (32, 512))]
+EVAL_MHA_BATCHES = (4, 2)      # K6 at [B, 3072, 8, 64]
+# Card (fp32, TF32 off) against CPU (fp32), the same module and weights on
+# the same restored frames; only the summation order differs.  Each limit
+# lies between that reading and the control's, the card with TF32 on (the
+# failure to catch), both read by `_eval_metric_nets` on an H100: ArcFace
+# 6.1e-6 against 1.7e-3, LPIPS 0 against 1.2e-4.
+EVAL_ARC_TOL = 1e-4      # ArcFace: max|e_card - e_cpu| <= this * max|e_cpu| (IResNet-50)
+EVAL_LPIPS_TOL = 1e-5    # LPIPS: |d_card - d_cpu| <= this * d_cpu (VGG16 at 512x512)
+# Parser: a class-map cell may differ only where the CPU's top two logits lie
+# within this * max|logit| of each other (argmax near-tie); landmarks are a
+# function of the class map, so equal maps must give equal landmarks
+EVAL_NEAR_TIE = 1e-3
+EVAL_PARTS = ("loading", "forward", "lpips", "face", "niqe", "psnr_ssim")
+
+
+class _EvalObserver:
+    """Times `eval_cli.main` from outside: wraps the module's calls (the
+    loader's batches, the restoration forward under CUDA events, the LPIPS
+    metric, the face metrics of a frame, NIQE's features, PSNR/SSIM) and
+    sums their seconds; the setup is the time from `t0` to the loader's
+    first call.  The run is otherwise unchanged.  Undone on exit."""
+
+    def __init__(self, t0: float):
+        self.t0 = t0
+
+    def __enter__(self):
+        import torch
+        from pgtformer_tpu_torch import eval_cli
+        from pgtformer_tpu_torch.data import vfhq
+        self.mods = {eval_cli: ("restore_middle", "calculate_lpips_fn", "face_metrics_frame",
+                                "image_niqe_features", "calculate_psnr", "calculate_ssim"),
+                     vfhq: ("clip_batches",)}
+        self.saved = {(m, n): getattr(m, n) for m, names in self.mods.items() for n in names}
+        saved = {n: fn for (_, n), fn in self.saved.items()}
+        self.s = {p: 0.0 for p in EVAL_PARTS}
+        self.setup_s = None
+        self.batch_ms, self.batch_sizes = [], []
+        obs = self
+
+        def timed(part, fn):
+            def call(*a, **k):
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                obs.s[part] += time.perf_counter() - t0
+                return out
+            return call
+
+        def clip_batches(*a, **k):
+            obs.setup_s = time.perf_counter() - obs.t0
+            it = saved["clip_batches"](*a, **k)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                finally:
+                    obs.s["loading"] += time.perf_counter() - t0
+                yield batch
+
+        def restore_middle(model, lq, w):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = saved["restore_middle"](model, lq, w)     # ends in a readback
+            end.record()
+            end.synchronize()
+            obs.batch_ms.append(start.elapsed_time(end))
+            obs.batch_sizes.append(len(lq))
+            obs.s["forward"] += obs.batch_ms[-1] / 1e3
+            return out
+
+        def lpips_fn(*a, **k):
+            metric = saved["calculate_lpips_fn"](*a, **k)
+            timed_metric = timed("lpips", metric)
+            timed_metric.random_weights = metric.random_weights
+            return timed_metric
+
+        vfhq.clip_batches = clip_batches
+        eval_cli.restore_middle = restore_middle
+        eval_cli.calculate_lpips_fn = lpips_fn
+        eval_cli.face_metrics_frame = timed("face", saved["face_metrics_frame"])
+        eval_cli.image_niqe_features = timed("niqe", saved["image_niqe_features"])
+        eval_cli.calculate_psnr = timed("psnr_ssim", saved["calculate_psnr"])
+        eval_cli.calculate_ssim = timed("psnr_ssim", saved["calculate_ssim"])
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n), fn in self.saved.items():
+            setattr(m, n, fn)
+        return False
+
+
+def _eval_run(tag: str, argv, n_samples: int, smi: str):
+    """One `eval_cli.main(argv)` with the launch counts set to 0 just before
+    and read just after; asserts rc 0, every column printed and finite,
+    exact launches.  Returns this run's numbers."""
+    import contextlib
+    import io
+    import statistics
+    import torch
+    from pgtformer_tpu_torch import eval_cli
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()       # what earlier phases left
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with _EvalObserver(t0) as obs, contextlib.redirect_stdout(out):
+        rc = eval_cli.main(argv)
+    wall = time.perf_counter() - t0
+    forwards = len(obs.batch_ms)
+    counts = expect_counts(f"[eval:{tag}] eval_cli.main", **{
+        k: v * forwards for k, v in EVAL_PER_FORWARD.items()})
+    peak = torch.cuda.max_memory_allocated() - resident
+    text = out.getvalue()
+    for line in text.splitlines():
+        log(f"[eval:{tag}] | {line}")
+    if rc != 0:
+        raise SystemExit(f"[eval:{tag}] eval_cli.main returned {rc}")
+    cols = {}
+    for line in text.strip().splitlines():
+        k, v = line.rsplit(":", 1)
+        cols[k] = float(v)
+    want = ["samples", "psnr", "ssim", "lpips(random-vgg)", "deg", "lmd(parser-lm)",
+            "msrl(own-def)", "niqe(gt-fit)", "tlme(parser-lm)"]
+    if list(cols) != want or cols["samples"] != n_samples or not all(
+            math.isfinite(v) for v in cols.values()):
+        raise SystemExit(f"[eval:{tag}] columns {cols}, expected the finite columns {want} "
+                         f"over {n_samples} samples")
+    if sum(obs.batch_sizes) != n_samples or forwards != math.ceil(n_samples / EVAL_BATCH):
+        raise SystemExit(f"[eval:{tag}] forwards of {obs.batch_sizes}")
+    setup = obs.setup_s
+    per = {p: obs.s[p] / n_samples for p in EVAL_PARTS}
+    per["rest"] = (wall - setup) / n_samples - sum(per.values())
+    full = [ms for ms, b in zip(obs.batch_ms, obs.batch_sizes) if b == EVAL_BATCH]
+    log(f"[eval:{tag}] eval_cli.main in {wall:.2f} s, {n_samples} samples, {forwards} "
+        f"forwards (batches {obs.batch_sizes}): setup {setup:.2f} s (the model's build and "
+        f"load, the metric networks' builds, the dataset), then {(wall - setup) / n_samples:.4f} "
+        f"s per sample: loading {per['loading']:.4f}, forward {per['forward']:.4f} (CUDA "
+        f"events; each batch: {' '.join(f'{ms:.1f}' for ms in obs.batch_ms)} ms), LPIPS "
+        f"{per['lpips']:.4f}, face metrics (parser + ArcFace + MSRL) {per['face']:.4f}, NIQE "
+        f"features {per['niqe']:.4f}, PSNR/SSIM {per['psnr_ssim']:.4f}, the rest "
+        f"{per['rest']:.4f}; peak device memory {peak / 2 ** 30:.2f} GiB above the "
+        f"{resident / 2 ** 30:.2f} GiB resident before it; "
+        f"launches {{{', '.join(f'{k}: {v}' for k, v in counts.items() if v)}}} "
+        f"({', '.join(f'{v}/forward' for v in EVAL_PER_FORWARD.values())}); card: {smi}")
+    return dict(wall_s=wall, setup_s=setup, samples=n_samples, forwards=forwards,
+                batch_ms=obs.batch_ms, batch_sizes=obs.batch_sizes,
+                batch4_ms_median=statistics.median(full) if full else None,
+                s_per_sample=per, s_per_sample_after_setup=(wall - setup) / n_samples,
+                peak_gib=peak / 2 ** 30, resident_gib=resident / 2 ** 30, columns=cols,
+                launches={k: v for k, v in counts.items() if v})
+
+
+def _eval_kernel_checks():
+    """K1 (both shifts) and K6 at the eval forward's shapes, its batches of
+    4 clips and its tails of 2, against their plain versions (K1_TOL,
+    K2_TOL; K6 through `_mha_check`, which also holds K2 and the two
+    layouts bit-equal)."""
+    from pgtformer_tpu_torch.ops.sw_block import sw_block, sw_block_plain
+    rows = []
+    for i, shape in enumerate(EVAL_K1_SHAPES):
+        for shift in ((0, 0), (2, 2)):
+            j = 400 + 2 * i + any(shift)
+            w = _sw_block_weights(shape[-1], 8, shape[1], seed=j)
+            x = _case_input(j, shape)
+            err, mag = _compare(f"K1 {shape} {shift} (eval)", sw_block(x, w, shift),
+                                sw_block_plain(x, w, shift), K1_TOL)
+            log(f"[eval:kernels] K1 x{list(shape)} shift{shift}: max|d|={err:.3e} "
+                f"(max|ref|={mag:.3e}, tol {K1_TOL}*max|ref|) OK")
+            rows.append(dict(kernel="sw_block", shape=list(shape), shift=list(shift),
+                             max_abs_err=err, max_abs_ref=mag))
+    for i, b in enumerate(EVAL_MHA_BATCHES):
+        shape = [b, 3072, 8, 64]
+        checked = _mha_check(f"{shape} (eval)", *mha_operands(b, 8, 3072, 64, "normal",
+                                                              seed=420 + i), 8)
+        _, err, mag = checked["bnhd"]
+        log(f"[eval:kernels] K6 dense_mha_bnhd {shape}: max|d|={err:.3e} (max|ref|={mag:.3e}, "
+            f"tol {K2_TOL}*max|ref|); bhnd max|d|={checked['bhnd'][1]:.3e}, two launches "
+            f"bit-equal, bnhd == bhnd OK")
+        rows.append(dict(kernel="dense_mha_bnhd", shape=shape, max_abs_err=err, max_abs_ref=mag))
+    return rows
+
+
+def _eval_metric_nets(tag: str, frames, gts, cond_sd, arc_path: str):
+    """The metric networks on the card against the same modules on the CPU
+    in fp32, on restored frames (and their GT for LPIPS).  ArcFace and LPIPS
+    are also read with TF32 on (the control: the failure EVAL_ARC_TOL and
+    EVAL_LPIPS_TOL are set to catch), logged beside the sound reading."""
+    import numpy as np
+    import torch
+    from pgtformer_tpu_torch.eval.arcface import ArcFaceEmbedder
+    from pgtformer_tpu_torch.eval.landmarks import ParserLandmarkDetector, landmarks_from_parsing
+    from pgtformer_tpu_torch.eval.metrics import calculate_lpips_fn
+    from pgtformer_tpu_torch.ops.image import imagenet_normalize
+    det = {d: ParserLandmarkDetector(cond_sd, device=d) for d in ("cuda", "cpu")}
+    arc = {d: ArcFaceEmbedder(arc_path, detector=det["cpu"], device=d) for d in ("cuda", "cpu")}
+    lp = {d: calculate_lpips_fn(device=d) for d in ("cuda", "cpu")}
+    flags = torch.backends.cudnn, torch.backends.cuda.matmul
+    worst = dict(arc=0.0, arc_deg=0.0, lpips=0.0, arc_tf32=0.0, lpips_tf32=0.0, lm_px=0.0,
+                 cells=0, ties=0)
+    for img, gt in zip(frames, gts):
+        e_cpu = arc["cpu"](img).astype(np.float64)
+        d_cpu = lp["cpu"](img, gt)
+        for key, tf32 in (("", False), ("_tf32", True)):
+            before = [f.allow_tf32 for f in flags]
+            for f in flags:
+                f.allow_tf32 = tf32
+            try:
+                e = arc["cuda"](img).astype(np.float64)
+                d = lp["cuda"](img, gt)
+            finally:
+                for f, v in zip(flags, before):
+                    f.allow_tf32 = v
+            worst["arc" + key] = max(worst["arc" + key],
+                                     float(np.abs(e - e_cpu).max() / np.abs(e_cpu).max()))
+            worst["lpips" + key] = max(worst["lpips" + key], abs(d - d_cpu) / d_cpu)
+            if not tf32:
+                cos = float(np.dot(e, e_cpu) / np.linalg.norm(e) / np.linalg.norm(e_cpu))
+                worst["arc_deg"] = max(worst["arc_deg"], math.degrees(math.acos(min(1.0, cos))))
+        maps = {k: det[k].class_map(img) for k in det}
+        differ = maps["cuda"] != maps["cpu"]
+        if differ.any():
+            with torch.no_grad():
+                logits = det["cpu"].net(imagenet_normalize(torch.from_numpy(img)[None]))
+            top2 = logits[0, :, :, :19].topk(2, dim=-1).values.numpy()
+            gap = top2[..., 0] - top2[..., 1]
+            worst["ties"] += int((gap[differ] <= EVAL_NEAR_TIE * np.abs(top2).max()).sum())
+        worst["cells"] += int(differ.sum())
+        lm = {k: landmarks_from_parsing(maps[k], img.shape[0]) for k in maps}
+        if not differ.any() and not np.array_equal(lm["cuda"], lm["cpu"]):
+            raise SystemExit(f"[eval:{tag}] landmarks differ on equal class maps")
+        worst["lm_px"] = max(worst["lm_px"],
+                             float(np.linalg.norm(lm["cuda"] - lm["cpu"], axis=-1).max()))
+    ok = (worst["arc"] <= EVAL_ARC_TOL and worst["lpips"] <= EVAL_LPIPS_TOL
+          and worst["ties"] == worst["cells"])
+    log(f"[eval:{tag}] metric networks on the card vs the CPU (fp32, {len(frames)} restored "
+        f"frames): ArcFace IResNet-50 max|d|/max|e| {worst['arc']:.3e} (tol {EVAL_ARC_TOL}; "
+        f"with TF32 on {worst['arc_tf32']:.3e}), angle {worst['arc_deg']:.4f} deg; LPIPS max "
+        f"rel {worst['lpips']:.3e} (tol {EVAL_LPIPS_TOL}; with TF32 on "
+        f"{worst['lpips_tf32']:.3e}); parser: {worst['cells']} class-map cells differ of "
+        f"{len(frames) * 64 * 64}, {worst['ties']} of them near-ties (<= {EVAL_NEAR_TIE} of "
+        f"max|logit|), landmarks equal where the maps are, max {worst['lm_px']:.3f} px apart "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"[eval:{tag}] metric networks disagree between card and CPU")
+    return worst
+
+
+def phase_eval(smi: str):
+    """Evaluation end to end through `eval_cli.main` at the full width and
+    depth of RELEASE_PGTFORMER (512x512, T=3, bf16, the default plan: K1 and
+    K6), on a seeded VFHQ-Test tree of PNGs in a temporary directory (2
+    clips x 5 frames), the serving phase's seeded random weights as a
+    reference-format .pth (`--weights`) and a seeded IResNet-50 state dict
+    (`--arcface-weights`: the strict load and the ArcFace forward run on the
+    card; its `deg` therefore comes from random weights):
+      `--batch 4 --face-metrics --niqe-fit-gt --arcface-weights ... --save-dir`
+      (10 samples, 3 forwards), then `--rotate --inter-space 2` with the same
+      flags but `--save-dir` (6 samples, 2 forwards).
+    First K1 and K6 at the forward's shapes against their plain versions.
+    Exact launches per forward; every column printed and finite; the saved
+    PNGs against a direct `PGTFormer.forward(middle_only=True)` of the same
+    batches by a model loaded from the same file (0 LSB); ArcFace, LPIPS and
+    the parser's landmarks on the card against the CPU."""
+    import os
+    import shutil
+    import tempfile
+    import cv2
+    import numpy as np
+    import torch
+    from pgtformer_tpu_torch.config import RELEASE_PGTFORMER
+    from pgtformer_tpu_torch.convert import load_checkpoint, load_into
+    from pgtformer_tpu_torch.data.vfhq import VFHQTestDataset, clip_batches
+    from pgtformer_tpu_torch.eval.arcface import IRESNET50_LAYERS, IResNet
+    from pgtformer_tpu_torch.models.pgtformer import PGTFormer
+    from pgtformer_tpu_torch.nn.blocks import init_weights
+    kernel_checks = _eval_kernel_checks()
+    root = tempfile.mkdtemp(prefix="pgt_eval_")
+    try:
+        rng = np.random.default_rng(31)
+        data = os.path.join(root, "vfhq_test")
+        for c in range(EVAL_CLIPS):
+            d = os.path.join(data, "GT", f"clip_{c}")
+            os.makedirs(d)
+            for i in range(EVAL_FRAMES):
+                cv2.imwrite(os.path.join(d, f"{i:08d}.png"),
+                            rng.integers(0, 256, (EVAL_RES, EVAL_RES, 3), dtype=np.uint8))
+        weights = os.path.join(root, "pgtformer_seed0.pth")
+        model = PGTFormer(RELEASE_PGTFORMER, generator=torch.Generator().manual_seed(0))
+        torch.save({"params_ema": model.state_dict()}, weights)
+        cond_sd = {k: v.clone() for k, v in model.conditionnet.state_dict().items()}
+        del model
+        # a seeded IResNet-50 with non-trivial BatchNorm statistics, and the
+        # `num_batches_tracked` entries a released backbone.pth carries
+        g = torch.Generator().manual_seed(32)
+        arc_sd = init_weights(IResNet(IRESNET50_LAYERS), g).state_dict()
+        for k in list(arc_sd):
+            if k.endswith("running_var"):
+                arc_sd[k] = torch.rand(arc_sd[k].shape, generator=g) + 0.5
+            elif k.endswith("running_mean"):
+                arc_sd[k] = torch.randn(arc_sd[k].shape, generator=g) * 0.1
+                arc_sd[k[:-len("running_mean")] + "num_batches_tracked"] = torch.tensor(100)
+        arc = os.path.join(root, "arcface_r50_seed32.pth")
+        torch.save(arc_sd, arc)
+        log(f"[eval] seeded VFHQ-Test tree ({EVAL_CLIPS} clips x {EVAL_FRAMES} frames, "
+            f"{EVAL_RES}x{EVAL_RES}), --weights {os.path.getsize(weights) / 2 ** 20:.1f} MiB "
+            f"(the serving phase's seed-0 weights), --arcface-weights "
+            f"{os.path.getsize(arc) / 2 ** 20:.1f} MiB (a seeded IResNet-50: RANDOM weights, "
+            f"so 'deg' measures nothing yet)")
+        saved = os.path.join(root, "saved")
+        common = ["--data-root", data, "--weights", weights, "--batch", str(EVAL_BATCH),
+                  "--face-metrics", "--niqe-fit-gt", "--arcface-weights", arc]
+        n1 = EVAL_CLIPS * EVAL_FRAMES
+        run1 = _eval_run("test", common + ["--save-dir", saved], n1, smi)
+        n2 = EVAL_CLIPS * len(range(0, EVAL_FRAMES, 2))
+        run2 = _eval_run("rotate", common + ["--rotate", "--inter-space", "2"], n2, smi)
+        torch.cuda.empty_cache()
+
+        # the saved frames are the model's: a direct forward of the same batches
+        model = load_into(PGTFormer(RELEASE_PGTFORMER), load_checkpoint(weights))
+        model = model.to("cuda", torch.bfloat16).eval().requires_grad_(False)
+        ds = VFHQTestDataset(data, r=1, degradation="blr")
+        worst, n, frames, gts = 0, 0, [], []
+        for batch in clip_batches(ds, EVAL_BATCH, drop_last=False):
+            with torch.no_grad():
+                outs = model(torch.from_numpy(batch["lq"]).cuda(), w=1.0,
+                             middle_only=True)[0].float().clamp(0, 1).cpu().numpy()
+            for i, out in enumerate(outs):
+                mine = (out[..., ::-1] * 255).astype(np.uint8)
+                png = cv2.imread(os.path.join(saved, batch["path"][i].replace("/", "_")))
+                worst = max(worst, int(np.abs(mine.astype(int) - png.astype(int)).max()))
+                n += 1
+                if len(frames) < 2:
+                    frames.append(out)
+                    gts.append(batch["gt"][i][1])
+        if n != n1 or worst != 0:
+            raise SystemExit(f"[eval] {n} saved frames, max {worst} LSB from the model's own "
+                             "forward")
+        log(f"[eval] the {n} saved PNGs equal a direct PGTFormer.forward(middle_only=True) of "
+            f"the same batches by a model loaded from the same .pth: max 0 LSB OK")
+        del model
+        torch.cuda.empty_cache()
+        nets = _eval_metric_nets("nets", frames, gts, cond_sd, arc)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(test=run1, rotate=run2, metric_nets=nets, saved_frames_lsb=worst,
+                kernel_checks=kernel_checks, card=smi)
+
+
 def _mix(rows, key):
     """Per-launch average over the serving step's mix of shapes."""
     return sum(r[key] * r["per_step"] for r in rows) / sum(r["per_step"] for r in rows)
@@ -1871,6 +2246,8 @@ def main() -> int:
     train = phase_train(smi)
     torch.cuda.empty_cache()
     train_loop = phase_train_loop(smi)
+    torch.cuda.empty_cache()
+    ev = phase_eval(smi)
 
     step = serve["step_ms"]
     mha_src = "pgtformer_tpu_torch/csrc/dense_mha.cu"
@@ -1917,11 +2294,13 @@ def main() -> int:
         k["launches_train_loop"] = {
             tag: {part: train_loop[tag][f"{part}_launches"].get(name, 0)
                   for part in ("train", "val")} for tag in ("I", "I+resume", "III")}
+        k["launches_eval"] = {tag: ev[tag]["launches"].get(name, 0) for tag in ("test", "rotate")}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "default_step_ms": step,
                       "train": {stage: {key: v for key, v in r.items() if key != "per_step"}
                                 for stage, r in train.items()},
                       "train_loop": train_loop,
+                      "eval": ev,
                       "variant_step_ms": {k: v["step_ms"] for k, v in variants.items()},
                       "autoencoder_ms": {k: v for k, v in vae.items() if k.endswith("_ms")}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -95,7 +95,9 @@ def test_import_with_jax_blocked():
                 "pgtformer_tpu_torch.utils.img", "pgtformer_tpu_torch.data.vfhq",
                 "pgtformer_tpu_torch.data.loader", "pgtformer_tpu_torch.data.degradations",
                 "pgtformer_tpu_torch.data.align", "pgtformer_tpu_torch.eval.metrics",
-                "pgtformer_tpu_torch.train.stages", "pgtformer_tpu_torch.cli"):
+                "pgtformer_tpu_torch.train.stages", "pgtformer_tpu_torch.cli",
+                "pgtformer_tpu_torch.eval_cli", "pgtformer_tpu_torch.eval.niqe",
+                "pgtformer_tpu_torch.eval.landmarks", "pgtformer_tpu_torch.eval.arcface"):
         assert new in mods
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'flax', 'orbax', 'pgtformer_tpu'):\n"
@@ -127,7 +129,8 @@ def test_no_jax_or_reference_package_imports():
                 "train/schedule.py", "train/ema.py", "train/state.py", "train_cli.py",
                 "registry.py", "train/trainer.py", "train/validate.py", "utils/checkpoint.py",
                 "utils/logging.py", "utils/img.py", "data/vfhq.py", "data/loader.py",
-                "data/degradations.py", "data/align.py", "eval/metrics.py"):
+                "data/degradations.py", "data/align.py", "eval/metrics.py", "eval_cli.py",
+                "eval/niqe.py", "eval/landmarks.py", "eval/arcface.py"):
         assert PORT / new in files
     for f in files:
         for mod in _imported_modules(f):

@@ -866,3 +866,62 @@ def test_stage1_checkpoint_resume_on_the_card(tmp_path):
     assert got.keys() == after.keys()
     for k in after:
         assert torch.equal(got[k], after[k]), k
+
+
+def test_eval_cli_on_the_card(tmp_path, monkeypatch, capsys):
+    """`eval_cli.main` on the card at a small geometry (bf16 model, seeded
+    weights, a seeded 32x32 tree, batch 2 with a tail): every column
+    printed and finite, K1 and K6 launched as often as a direct forward
+    launches them, once per batch, and no other kernel; then the ArcFace
+    IResNet-50 of a seeded state dict on the card against the same
+    embedder on the CPU, fp32: max|d| <= 1e-4 * max|e| (chip_smoke.py's
+    EVAL_ARC_TOL: summation order only, well below what TF32 gives)."""
+    dev = _card()
+    import cv2
+    from pgtformer_tpu_torch import config, eval_cli
+    from pgtformer_tpu_torch.config import DDConfig, PGTFormerConfig, VQVAEConfig
+    from pgtformer_tpu_torch.eval.arcface import IRESNET50_LAYERS, ArcFaceEmbedder, IResNet
+    from pgtformer_tpu_torch.models.pgtformer import PGTFormer
+    dd = DDConfig(z_channels=32, resolution=32, ch=32, ch_mult=(1, 2), depths=(2, 2),
+                  num_heads=(4, 4), window_sizes=((4, 4), (4, 4)), attn_resolutions=(16,))
+    cfg = PGTFormerConfig(vqvae=VQVAEConfig(ddconfig=dd, embed_dim=32, n_embed=64,
+                                            latent_shape=(16, 16, 32), code_shape=(16, 16, 1)),
+                          dim_embd=64, n_head=4, n_layers=2, connect_list=("16", "32"),
+                          w=1.0, adain=True)
+    monkeypatch.setattr(config, "RELEASE_PGTFORMER", cfg)
+    rng = np.random.default_rng(0)
+    (tmp_path / "GT" / "clip_a").mkdir(parents=True)
+    for i in range(3):
+        cv2.imwrite(str(tmp_path / "GT" / "clip_a" / f"{i:08d}.png"),
+                    rng.integers(0, 256, (32, 32, 3), dtype=np.uint8))
+    model = PGTFormer(cfg, generator=torch.Generator().manual_seed(3))
+    torch.save({"params_ema": model.state_dict()}, str(tmp_path / "w.pth"))
+    arc_sd = init_weights(IResNet(IRESNET50_LAYERS), torch.Generator().manual_seed(4)).state_dict()
+    torch.save(arc_sd, str(tmp_path / "arc.pth"))
+    wrappers = (sw_block, sw_block_tokens, sw_block_pair, dense_mha_bhnd, dense_mha_bnhd,
+                nearest_code, gn_silu_conv3x3, subpixel_up_conv3x3)
+    x = torch.from_numpy(rng.uniform(0, 1, (2, 3, 32, 32, 3)).astype(np.float32)).to(dev)
+    gpu = model.to(dev, torch.bfloat16).eval()
+    before = [w.launches for w in wrappers]
+    with torch.no_grad():
+        gpu(x, middle_only=True)
+    per_forward = [w.launches - b for w, b in zip(wrappers, before)]
+    assert per_forward[0] > 0 and per_forward[4] == 2 and sum(per_forward) == per_forward[0] + 2
+    before = [w.launches for w in wrappers]
+    rc = eval_cli.main(["--data-root", str(tmp_path), "--weights", str(tmp_path / "w.pth"),
+                        "--batch", "2", "--face-metrics", "--arcface-weights",
+                        str(tmp_path / "arc.pth")])
+    assert rc == 0
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [2 * n for n in per_forward]
+    lines = dict(line.rsplit(":", 1) for line in capsys.readouterr().out.strip().splitlines())
+    assert list(lines) == ["samples", "psnr", "ssim", "lpips(random-vgg)", "deg",
+                           "lmd(parser-lm)", "msrl(own-def)", "tlme(parser-lm)"]
+    assert int(lines["samples"]) == 3
+    assert all(np.isfinite(float(v)) or k == "msrl(own-def)" for k, v in lines.items())
+    _exact_fp32()
+    img = rng.uniform(0, 1, (96, 96, 3)).astype(np.float32)
+    e_gpu = ArcFaceEmbedder(str(tmp_path / "arc.pth"), device=dev)(img)
+    e_cpu = ArcFaceEmbedder(str(tmp_path / "arc.pth"), device="cpu")(img)
+    assert np.isfinite(e_gpu).all()
+    rel = np.abs(e_gpu - e_cpu).max() / np.abs(e_cpu).max()
+    assert rel <= 1e-4, rel
