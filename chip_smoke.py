@@ -99,9 +99,36 @@ Phases, in order; any failure exits non-zero:
     with the CLI's setup seconds and seconds per sample split into loading,
     the forward, LPIPS, the face metrics, NIQE features, PSNR/SSIM and the
     rest, peak memory and the card;
-12. a JSON line of kernel numbers (each with its backward route, its
-    launches per training step, in the training run and in evaluation),
-    then the device JSON as the last line.
+12. the file path (`phase_video`): the native libav I/O library built from
+    pgtformer_tpu_torch/io/native/videoio.cc (where it cannot be built, as
+    on a machine without libav's headers, the reason is logged, the native
+    cases do not run, and their GPU side runs instead: OpenCV I/O at
+    inflight 3 and 1, and yuv420 readback into a plane recorder standing in
+    for the encoder); a seeded 192-frame
+    512x512 clip (prime + 23 full chunks + a last chunk of 7 frames padded
+    with the last one: 24 steps, each with 8 valid outputs) restored by
+    `VideoRestorer.restore_video` on RELEASE_PGTFORMER, B=8, bf16 (a seed-0
+    restorer, checked bit-equal to the serving phase's on its first chunk)
+    with OpenCV I/O; native mpeg4 at inflight 3 and 1; native `auto`
+    (libx265 CRF 18 hvc1 where libav has it) with yuv420 readback. Each:
+    exactly 24 x 22 K1 + 24 x 9 K6 and no other kernel, 192 frames at the
+    input's fps, the hvc1 tag from libx265, the frames (or written planes)
+    bit-equal to restore_chunk over the frames the case's own reader
+    decodes, each chunk's host copy ending within a quarter step after its
+    own step (CUDA events: the copies do not wait for later steps), the
+    yuv420 planes within 1 LSB of `_rgb_to_yuv420` of the step's float
+    output on the CPU, the frames bit-equal across inflight, the yuv420
+    file's decoded luma within a mean 3 of the restored frames; `[video:...]`
+    lines with wall, frames/s, steady frames/s, startup, each phase's total
+    and mean, readback bytes, peak memory. Then the rate at inflight 1, 2
+    and 3, twice in an ABBA order (`[video:inflight]`), `cli.main --codec mpeg4
+    --encode-quality-check` (exact launches; PSNR, SSIM, vmaf(own-impl) and
+    VMAF's time), `profile_stages` (each stage and the whole step, ms) and
+    `bench_encode` (mpeg4, libx264, libx265 at their default presets, 48
+    frames at 512x512: the host's encoder frames/s);
+13. a JSON line of kernel numbers (each with its backward route, its
+    launches per training step, in the training run, in evaluation and on
+    the file path), then the device JSON as the last line.
 
 Launch counts are set to 0 just before each path is driven and read just
 after it; launches made to compare or time a kernel do not count.
@@ -109,6 +136,7 @@ after it; launches made to compare or time a kernel do not count.
 
 from __future__ import annotations
 
+import gc
 import hashlib
 import json
 import math
@@ -2199,6 +2227,431 @@ def phase_eval(smi: str):
                 kernel_checks=kernel_checks, card=smi)
 
 
+VIDEO_RES = 512
+# prime + 23 full chunks of 8 + 7 frames, whose chunk the last frame pads: every
+# step restores 8 frames, so the steady rate is not diluted by a 1-frame tail
+VIDEO_FRAMES = 192
+VIDEO_STEPS = 24
+VIDEO_FPS = 25.0
+VIDEO_FPS_TOL = 0.01     # |fps(output) - fps(input)| as the reader reports them
+VIDEO_PER_STEP = dict(sw_block=22, dense_mha_bnhd=9)
+VIDEO_YUV_LSB = 1        # written planes vs _rgb_to_yuv420 of the step's float output on the CPU
+VIDEO_LUMA_TOL = 3.0     # mean |luma(decoded yuv420 file) - luma(restored frames)|, as JAX's test
+VIDEO_COPY_SHARE = 0.25  # each chunk's host copy ends within this share of a step after its step
+VIDEO_CASES = (          # tag, io_backend, readback, inflight, codec
+    ("opencv", "opencv", "rgb", 3, "auto"),
+    ("mpeg4", "native", "rgb", 3, "mpeg4"),
+    ("mpeg4_inflight1", "native", "rgb", 1, "mpeg4"),
+    ("auto_yuv420", "native", "yuv420", 3, "auto"),
+)
+# where the native library cannot be built: the GPU side of the last three
+# (inflight, yuv420 readback) still runs, with OpenCV reading and, for
+# yuv420, a writer that keeps the planes in place of the encoder
+VIDEO_CASES_WITHOUT_NATIVE = (
+    ("opencv", "opencv", "rgb", 3, "auto"),
+    ("opencv_inflight1", "opencv", "rgb", 1, "auto"),
+    ("yuv420_no_encoder", "opencv", "yuv420", 3, "auto"),
+)
+
+
+def _video_clip(path: str):
+    """A seeded VIDEO_FRAMES-frame 512x512 clip at 25 fps (OpenCV, mp4v): smooth
+    gradients moving a little each frame, plus noise, so lossy codecs
+    round-trip meaningfully."""
+    import cv2
+    import numpy as np
+    rng = np.random.default_rng(41)
+    yy, xx = np.mgrid[0:VIDEO_RES, 0:VIDEO_RES].astype(np.float32) / VIDEO_RES
+    w = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), VIDEO_FPS, (VIDEO_RES, VIDEO_RES))
+    for i in range(VIDEO_FRAMES):
+        t = i / VIDEO_FRAMES
+        rgb = np.stack([np.sin(2 * np.pi * (xx + t)), np.sin(2 * np.pi * (1.3 * yy - t)),
+                        np.cos(2 * np.pi * (xx + yy + 0.5 * t))], -1)
+        rgb = 128 + 90 * rgb + rng.normal(0, 4, rgb.shape)
+        w.write(np.ascontiguousarray(np.clip(rgb, 0, 255).astype(np.uint8)[..., ::-1]))
+    w.release()
+
+
+def _video_decode(path: str, backend: str):
+    from pgtformer_tpu_torch.pipeline import _open_reader
+    rd = _open_reader(path, backend)
+    try:
+        return list(rd), rd.fps
+    finally:
+        rd.close()
+
+
+def _video_reference(r, frames, float_outs=None):
+    """restore_chunk over `frames` in restore_video's chunk schedule: the
+    restored frames (rgb) or planes (yuv420) of each chunk's valid rows.
+    With `float_outs` (a list), the float output each step converts is
+    appended to it (CPU copies of the valid rows)."""
+    import numpy as np
+    import torch
+    from pgtformer_tpu_torch import pipeline
+    B, outs = r.batch, []
+    convert = pipeline._rgb_to_yuv420
+    r.reset()
+    r.prime(frames[0])
+    rest, valid = list(frames[1:]), []
+    while len(rest) >= B:
+        valid.append((rest[:B], B))
+        rest = rest[B:]
+    needed = len(rest) + r.radius
+    while needed > 0:
+        valid.append((rest + [frames[-1]] * (B - len(rest)), min(B, needed)))
+        needed -= min(B, needed)
+        rest = []
+    try:
+        if float_outs is not None:
+            pipeline._rgb_to_yuv420 = lambda out: float_outs.append(out) or convert(out)
+        for chunk, n in valid:
+            got = r.restore_chunk(np.stack(chunk))
+            outs.append([t[:n].cpu().numpy() for t in (got if r.readback == "yuv420" else [got])])
+    finally:
+        pipeline._rgb_to_yuv420 = convert
+    torch.cuda.synchronize()
+    if float_outs is not None:
+        float_outs[:] = [o[:n].cpu() for o, (_, n) in zip(float_outs, valid)]
+    return [np.concatenate([o[i] for o in outs]) for i in range(len(outs[0]))]
+
+
+class _TimedEvents:
+    """Within the block every torch.cuda.Event records time, and each one
+    made is kept in order (restore_video makes two per chunk: its step's
+    end on the compute stream, its host copy's end on the copy stream)."""
+
+    def __enter__(self):
+        import torch
+        self.real, made = torch.cuda.Event, []
+
+        class Event(torch.cuda.Event):
+            def __new__(cls, enable_timing=False, blocking=False, interprocess=False):
+                ev = super().__new__(cls, enable_timing=True, blocking=blocking,
+                                     interprocess=interprocess)
+                made.append(ev)
+                return ev
+        self.made = made
+        torch.cuda.Event = Event
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.cuda.Event = self.real
+
+
+class _PlaneRecorder:
+    """Stands in for the native writer where it cannot be built: keeps the
+    yuv420 planes restore_video hands it and encodes nothing."""
+
+    def __init__(self, *a, **k):
+        pass
+
+    def write_yuv420(self, y, u, v):
+        pass
+
+    def close(self):
+        pass
+
+
+def _video_case(tag, r, src, backend, readback, inflight, codec, root, smi, step_ms,
+                x265: bool, encoder: bool = True):
+    """One restore_video run on the card with the launch counts set to 0
+    just before and read just after, then its checks against restore_chunk
+    over the frames the case's own reader decodes.  `encoder` False: the
+    yuv420 planes go to a `_PlaneRecorder` and no file is written."""
+    import os
+    import numpy as np
+    import torch
+    from pgtformer_tpu_torch import pipeline
+    decoded, src_fps = _video_decode(src, backend)
+    r.io_backend, r.readback, r.inflight = backend, readback, inflight
+    out = os.path.join(root, f"{tag}.mp4")
+    frames, planes = [], []
+    real_open_writer = pipeline._open_writer
+    if readback == "yuv420":
+        def open_writer(*a, **k):
+            w = real_open_writer(*a, **k) if encoder else _PlaneRecorder()
+            write = w.write_yuv420
+
+            def record(y, u, v):
+                planes.append((y.copy(), u.copy(), v.copy()))
+                write(y, u, v)
+            w.write_yuv420 = record
+            return w
+        pipeline._open_writer = open_writer
+    cb = None if readback == "yuv420" else (lambda i, f: frames.append(f.copy()))
+    # earlier phases' unreachable tensors go now, not inside the case, where
+    # their release would lower the peak read against `resident`
+    gc.collect()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    try:
+        with _TimedEvents() as ev:
+            reset_counts()
+            stats = r.restore_video(src, out, frame_callback=cb, codec=codec)
+            counts = expect_counts(f"[video:{tag}] restore_video", **{
+                k: v * VIDEO_STEPS for k, v in VIDEO_PER_STEP.items()})
+    finally:
+        pipeline._open_writer = real_open_writer
+    peak = torch.cuda.max_memory_allocated() - resident
+    # the allocator's side of the peak: what it held from the driver, and
+    # how often a cudaMalloc failed and it freed its cache to retry
+    reserved = torch.cuda.max_memory_reserved()
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
+    torch.cuda.synchronize()
+    if len(ev.made) != 2 * VIDEO_STEPS:
+        raise SystemExit(f"[video:{tag}] {len(ev.made)} CUDA events, expected 2 a chunk")
+    copy_ms = [a.elapsed_time(b) for a, b in zip(ev.made[::2], ev.made[1::2])]
+    if max(copy_ms) > VIDEO_COPY_SHARE * step_ms:
+        raise SystemExit(f"[video:{tag}] a host copy ended {max(copy_ms):.2f} ms after its "
+                         f"step (a step is {step_ms:.2f} ms): the copies wait for later steps")
+    # the output file: frame count, fps, and the hvc1 sample entry from libx265
+    got, fps, data = [], src_fps, b""
+    if encoder:
+        got, fps = _video_decode(out, backend)
+        data = open(out, "rb").read()
+    elif readback == "yuv420" and len(planes) != VIDEO_FRAMES:
+        raise SystemExit(f"[video:{tag}] {len(planes)} frames of planes written")
+    if (encoder and len(got) != VIDEO_FRAMES) or abs(fps - src_fps) > VIDEO_FPS_TOL or \
+            stats["frames"] != VIDEO_FRAMES:
+        raise SystemExit(f"[video:{tag}] output {len(got)} frames at {fps} fps, stats "
+                         f"{stats['frames']} frames; expected {VIDEO_FRAMES} at {src_fps}")
+    tagged = b"hvc1" in data and b"hev1" not in data
+    if codec == "auto" and backend == "native" and x265 and not tagged:
+        raise SystemExit(f"[video:{tag}] libx265 was picked but the file lacks the hvc1 tag")
+    # against restore_chunk over the frames this case's reader decodes
+    float_outs = [] if readback == "yuv420" else None
+    ref = _video_reference(r, decoded, float_outs)
+    res = dict(stats=stats, counts={k: v for k, v in counts.items() if v},
+               peak_gib=peak / 2 ** 30, resident_gib=resident / 2 ** 30,
+               peak_reserved_gib=reserved / 2 ** 30, alloc_retries=retries,
+               copy_after_step_ms=copy_ms, file_bytes=len(data), hvc1=tagged,
+               readback_bytes_per_frame=1.5 * VIDEO_RES ** 2 if readback == "yuv420"
+               else 3.0 * VIDEO_RES ** 2)
+    if readback == "rgb":
+        mine = np.stack(frames)
+        if mine.shape != ref[0].shape or not np.array_equal(mine, ref[0]):
+            raise SystemExit(f"[video:{tag}] frame_callback frames differ from restore_chunk "
+                             "over the same reader's frames")
+        res["frames"] = mine
+    else:
+        mine = [np.stack([p[i] for p in planes]) for i in range(3)]
+        if any(m.shape != f.shape or not np.array_equal(m, f) for m, f in zip(mine, ref)):
+            raise SystemExit(f"[video:{tag}] written planes differ from restore_chunk's")
+        cpu = pipeline._rgb_to_yuv420(torch.cat(float_outs))
+        lsb = max(int((torch.from_numpy(m).int() - c.int()).abs().max())
+                  for m, c in zip(mine, cpu))
+        if lsb > VIDEO_YUV_LSB:
+            raise SystemExit(f"[video:{tag}] planes {lsb} LSB from _rgb_to_yuv420 of the "
+                             "step's float output on the CPU")
+        res["yuv_lsb_vs_cpu"] = lsb
+    res["decoded"] = got
+    ph = stats["phases"]
+    log(f"[video:{tag}] restore_video({backend}, readback={readback}, inflight={inflight}, "
+        f"codec={codec}) RELEASE_PGTFORMER {VIDEO_RES}x{VIDEO_RES} B={r.batch} bf16, "
+        f"{VIDEO_FRAMES} frames: wall {stats['seconds']:.3f} s, {stats['fps']:.3f} frames/s, "
+        f"steady {stats['steady_fps']:.3f} frames/s, startup_seconds "
+        f"{stats['startup_seconds']:.3f}; phases (total s / mean ms): "
+        + ", ".join(f"{k} {v['total_s']:.3f} / {v['mean_ms']:.2f} (x{v['count']})"
+                    for k, v in ph.items())
+        + f"; readback {res['readback_bytes_per_frame'] / VIDEO_RES ** 2:g} B/pixel; each "
+        f"chunk's host copy ended {min(copy_ms):.2f}-{max(copy_ms):.2f} ms after its step; "
+        f"peak {peak / 2 ** 30:.2f} GiB above the {resident / 2 ** 30:.2f} GiB resident "
+        f"({reserved / 2 ** 30:.2f} GiB reserved at most, {retries} allocation retries); "
+        f"launches {res['counts']}; "
+        + (f"file {len(data)} bytes{' hvc1' if tagged else ''}; " if encoder else
+           "no file: the planes went to a recorder in place of the native writer; ")
+        + (f"planes {res['yuv_lsb_vs_cpu']} LSB from the CPU conversion; "
+           if readback == "yuv420" else "")
+        + f"frames equal restore_chunk over the same reader's frames OK; card: {smi}")
+    return res
+
+
+def _video_inflight_sweep(r, src, root, smi, depths=(1, 2, 3, 3, 2, 1)):
+    """restore_video at each inflight depth, in an ABBA order against drift:
+    OpenCV I/O, rgb, no frame callback (the CLI without --dump-frames);
+    exact launches each run.  Returns {depth: [(frames/s, steady), ...]}."""
+    import os
+    r.io_backend, r.readback = "opencv", "rgb"
+    rates = {}
+    for depth in depths:
+        r.inflight = depth
+        reset_counts()
+        st = r.restore_video(src, os.path.join(root, "sweep.mp4"))
+        expect_counts(f"[video:inflight] restore_video(inflight={depth})", **{
+            k: v * VIDEO_STEPS for k, v in VIDEO_PER_STEP.items()})
+        rates.setdefault(depth, []).append((st["fps"], st["steady_fps"]))
+    log(f"[video:inflight] restore_video(opencv, rgb, no callback), {VIDEO_FRAMES} frames, "
+        f"depths in the order {depths}: "
+        + "; ".join(f"inflight {d}: " + ", ".join(f"{fps:.3f} ({steady:.3f} steady)"
+                                                  for fps, steady in runs)
+                    for d, runs in sorted(rates.items()))
+        + f" frames/s; card: {smi}")
+    return rates
+
+
+def _video_cli(src, root, smi, native_ok):
+    """cli.main on the clip with `--codec mpeg4 --encode-quality-check`:
+    exact launches, its printed lines, the quality check's and VMAF's time."""
+    import contextlib
+    import io
+    import os
+    from pgtformer_tpu_torch import cli
+    from pgtformer_tpu_torch.eval import vmaf
+    spent = {"quality_check": 0.0, "vmaf": 0.0}
+    real_qc, real_update = cli.quality_check, vmaf.VmafScorer.update
+
+    def qc(*a, **k):
+        t0 = time.perf_counter()
+        real_qc(*a, **k)
+        spent["quality_check"] += time.perf_counter() - t0
+
+    def update(self, *a, **k):
+        t0 = time.perf_counter()
+        real_update(self, *a, **k)
+        spent["vmaf"] += time.perf_counter() - t0
+    text = io.StringIO()
+    cli.quality_check, vmaf.VmafScorer.update = qc, update
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            rc = cli.main(["-i", src, "-o", os.path.join(root, "cli.mp4"), "--codec", "mpeg4",
+                           "--encode-quality-check"])
+        wall = time.perf_counter() - t0
+        counts = expect_counts("[video:cli] cli.main", **{
+            k: v * VIDEO_STEPS for k, v in VIDEO_PER_STEP.items()})
+    finally:
+        cli.quality_check, vmaf.VmafScorer.update = real_qc, real_update
+    lines = text.getvalue().splitlines()
+    for line in lines:
+        log(f"[video:cli] | {line}")
+    q = [ln for ln in lines if ln.startswith("encode quality")]
+    v = [ln for ln in lines if ln.startswith("vmaf(own-impl)")]
+    nums = [float(x) for x in re.findall(r"(?:psnr|ssim|:) (-?[\d.]+)", " ".join(q + v))]
+    if rc != 0 or len(q) != 1 or len(v) != 1 or len(nums) != 3 or not all(
+            math.isfinite(x) for x in nums):
+        raise SystemExit(f"[video:cli] rc {rc}; quality lines {q + v}")
+    log(f"[video:cli] cli.main in {wall:.2f} s ({'native' if native_ok else 'OpenCV'} I/O): "
+        f"psnr {nums[0]} dB, ssim {nums[1]}, vmaf(own-impl) {nums[2]}; the quality check "
+        f"{spent['quality_check']:.2f} s, of it VMAF {spent['vmaf']:.2f} s over 16 frames; "
+        f"launches {({k: n for k, n in counts.items() if n})}; card: {smi}")
+    return dict(wall_s=wall, psnr=nums[0], ssim=nums[1], vmaf=nums[2],
+                quality_check_s=spent["quality_check"], vmaf_s=spent["vmaf"],
+                counts={k: n for k, n in counts.items() if n})
+
+
+def phase_video(smi: str, serve: dict):
+    """The file path on the card (`VideoRestorer.restore_video`, the CLI,
+    the stage profiler and the encoder bench): see the module docstring."""
+    import os
+    import shutil
+    import tempfile
+    import cv2
+    import numpy as np
+    import torch
+    from pgtformer_tpu_torch import bench_encode, profile_stages
+    from pgtformer_tpu_torch.config import RELEASE_PGTFORMER
+    from pgtformer_tpu_torch.io import native
+    from pgtformer_tpu_torch.pipeline import VideoRestorer
+    t0 = time.perf_counter()
+    try:
+        native.load_library()
+        native_ok, why = True, ""
+        log(f"[video] native I/O: built in {time.perf_counter() - t0:.2f} s "
+            f"({native.LIBRARY})")
+    except native.NativeVideoUnavailable as e:
+        native_ok, why = False, str(e).strip().splitlines()[-1] if str(e).strip() else repr(e)
+        log(f"[video] native I/O: unavailable: {e}")
+        log(f"[video] the native cases ({', '.join(c[0] for c in VIDEO_CASES[1:])}: "
+            f"native decode and encode, libx265, the yuv420 file) did NOT run on this "
+            f"machine: {why}; instead "
+            f"{', '.join(c[0] for c in VIDEO_CASES_WITHOUT_NATIVE[1:])} run the GPU side "
+            "(inflight, yuv420 readback) with OpenCV reading and no yuv420 encoder")
+    x265 = False
+    root = tempfile.mkdtemp(prefix="pgt_video_")
+    try:
+        if native_ok:
+            try:
+                native.NativeVideoWriter(os.path.join(root, "probe.mp4"), VIDEO_FPS,
+                                         (64, 64), codec="libx265").close()
+                x265 = True
+            except IOError:
+                pass
+        src = os.path.join(root, "in.mp4")
+        _video_clip(src)
+        log(f"[video] seeded clip: {VIDEO_FRAMES} frames {VIDEO_RES}x{VIDEO_RES} at "
+            f"{VIDEO_FPS} fps (OpenCV mp4v, {os.path.getsize(src)} bytes); libx265 in this libav "
+            f"build: {x265}")
+        # the serving phase's model: the same seed, checked on its first chunk
+        r = VideoRestorer(None, RELEASE_PGTFORMER, batch_windows=8, dtype=torch.bfloat16,
+                          device="cuda", seed=0)
+        r.prime(serve["frames"][0])
+        if not torch.equal(r.restore_chunk(serve["frames"][1:9]), serve["outs"][0]):
+            raise SystemExit("[video] the seed-0 restorer differs from the serving phase's")
+        step_ms = serve["step_ms"]
+        cases = {}
+        for tag, backend, readback, inflight, codec in (
+                VIDEO_CASES if native_ok else VIDEO_CASES_WITHOUT_NATIVE):
+            cases[tag] = _video_case(tag, r, src, backend, readback, inflight, codec,
+                                     root, smi, step_ms, x265,
+                                     encoder=native_ok or readback == "rgb")
+        a, b = ((cases["mpeg4"], cases["mpeg4_inflight1"]) if native_ok else
+                (cases["opencv"], cases["opencv_inflight1"]))
+        if not np.array_equal(a["frames"], b["frames"]):
+            raise SystemExit("[video] frames differ between inflight 3 and 1")
+        log("[video] frames bit-equal across inflight 3 and 1 OK")
+        if native_ok:
+            a = a["frames"]
+            luma = lambda fs: np.stack([cv2.cvtColor(f, cv2.COLOR_RGB2YUV)[..., 0]
+                                        for f in fs]).astype(np.int32)
+            d_luma = float(np.abs(luma(cases["auto_yuv420"]["decoded"]) - luma(a)).mean())
+            b_luma = float(np.abs(luma(cases["mpeg4"]["decoded"]) - luma(a)).mean())
+            if d_luma >= VIDEO_LUMA_TOL:
+                raise SystemExit(f"[video] yuv420 file's decoded luma {d_luma:.3f} from the "
+                                 "restored frames")
+            log(f"[video] decoded luma mean|d| from the restored frames: yuv420 ({'libx265' if x265 else 'auto'}) "
+                f"{d_luma:.4f} (tol {VIDEO_LUMA_TOL}), mpeg4 rgb {b_luma:.4f}; yuv420 planes "
+                f"{cases['auto_yuv420']['yuv_lsb_vs_cpu']} LSB from the CPU conversion")
+            cases["auto_yuv420"]["luma_vs_restored"] = d_luma
+            cases["mpeg4"]["luma_vs_restored"] = b_luma
+        sweep = _video_inflight_sweep(r, src, root, smi)
+        del r
+        torch.cuda.empty_cache()
+        cli_run = _video_cli(src, root, smi, native_ok)
+        torch.cuda.empty_cache()
+        prof = profile_stages.profile(batch=8, iters=5, device="cuda")
+        log(f"[video:stages] profile_stages, serving step B=8 {VIDEO_RES}x{VIDEO_RES} bf16, "
+            f"CUDA events over 5 calls: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in prof["stages_ms"].items())
+            + f" ms; stage sum {prof['stage_sum_ms']:.3f} ms, whole step "
+            f"{prof['step_ms']:.3f} ms; card: {smi}")
+        torch.cuda.empty_cache()
+        enc = None
+        if native_ok:
+            enc = bench_encode.bench(frames=48, size=VIDEO_RES,
+                                     codecs=("mpeg4", "libx264", "libx265"))
+            log(f"[video:encode] bench_encode, 48 frames {VIDEO_RES}x{VIDEO_RES}, "
+                f"{enc['host_cores']} host cores, default presets: "
+                + ", ".join(f"{row['codec']} " + (f"{row['fps']:.2f} frames/s "
+                                                  f"{row['kbits_per_frame']:.1f} kbit/frame"
+                                                  if "fps" in row else "unavailable")
+                            for row in enc["rows"]))
+        else:
+            log(f"[video:encode] bench_encode did NOT run: native I/O unavailable ({why})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for c in cases.values():
+        for k in ("frames", "decoded"):
+            c.pop(k, None)
+    log(f"[video] phase in {time.perf_counter() - t0:.1f} s")
+    return dict(native=native_ok, native_unavailable=why or None, libx265=x265, cases=cases,
+                inflight_sweep=sweep, cli=cli_run, stages=prof, encode=enc, card=smi)
+
+
 def _mix(rows, key):
     """Per-launch average over the serving step's mix of shapes."""
     return sum(r[key] * r["per_step"] for r in rows) / sum(r["per_step"] for r in rows)
@@ -2248,6 +2701,8 @@ def main() -> int:
     train_loop = phase_train_loop(smi)
     torch.cuda.empty_cache()
     ev = phase_eval(smi)
+    torch.cuda.empty_cache()
+    video = phase_video(smi, serve)
 
     step = serve["step_ms"]
     mha_src = "pgtformer_tpu_torch/csrc/dense_mha.cu"
@@ -2295,12 +2750,15 @@ def main() -> int:
             tag: {part: train_loop[tag][f"{part}_launches"].get(name, 0)
                   for part in ("train", "val")} for tag in ("I", "I+resume", "III")}
         k["launches_eval"] = {tag: ev[tag]["launches"].get(name, 0) for tag in ("test", "rotate")}
+        k["launches_video"] = {tag: c["counts"].get(name, 0) for tag, c in video["cases"].items()}
+        k["launches_video"]["cli"] = video["cli"]["counts"].get(name, 0)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "default_step_ms": step,
                       "train": {stage: {key: v for key, v in r.items() if key != "per_step"}
                                 for stage, r in train.items()},
                       "train_loop": train_loop,
                       "eval": ev,
+                      "video": video,
                       "variant_step_ms": {k: v["step_ms"] for k, v in variants.items()},
                       "autoencoder_ms": {k: v for k, v in vae.items() if k.endswith("_ms")}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

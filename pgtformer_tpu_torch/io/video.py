@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import Iterator, Tuple
+from typing import Iterator, List, Tuple
 
 import numpy as np
 
@@ -21,6 +21,9 @@ class VideoReader:
         if not self.cap.isOpened():
             raise IOError(f"cannot open video: {path}")
         self.fps = self.cap.get(cv2.CAP_PROP_FPS) or 25.0
+        self.width = int(self.cap.get(cv2.CAP_PROP_FRAME_WIDTH))
+        self.height = int(self.cap.get(cv2.CAP_PROP_FRAME_HEIGHT))
+        self.frame_count = int(self.cap.get(cv2.CAP_PROP_FRAME_COUNT))
 
     def __iter__(self) -> Iterator[np.ndarray]:
         while True:
@@ -48,3 +51,26 @@ class VideoWriter:
 
     def close(self):
         self.writer.release()
+
+
+def sliding_windows(frames: Iterator[np.ndarray], radius: int = 1
+                    ) -> Iterator[List[np.ndarray]]:
+    """Yield (2r+1)-frame windows centered on every input frame, with
+    first/last-frame duplication padding (as the reference's inference)."""
+    buf: List[np.ndarray] = []
+    for frame in frames:
+        if not buf:
+            buf = [frame] * (radius + 1)   # left padding
+        else:
+            buf.append(frame)
+        if len(buf) == 2 * radius + 1:
+            yield list(buf)
+            buf.pop(0)
+    if not buf:
+        return
+    for _ in range(radius):                # right padding
+        buf.append(buf[-1])
+        if len(buf) == 2 * radius + 1:
+            yield list(buf)
+            buf.pop(0)
+

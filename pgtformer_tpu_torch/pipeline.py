@@ -6,11 +6,22 @@ prior, encoder trunk) are computed once (``encode_frames``); a device-side
 tail keeps the features of the last 2r frames, so each step gathers B
 sliding windows of T frames from ``concat(tail, new)`` and restores only
 their middle frames (``restore_windows(middle_only=True)``).
+
+``restore_video`` overlaps four things, as the JAX version does: the
+decode on the host, the device (`inflight` chunks enqueued before the
+oldest is read back), the readback (a 2-worker pool; on a card each chunk
+is copied on a side stream into pinned host memory, so a copy waits only
+for its own step), and the encode (a writer thread).  Decode and encode
+run on the native libav shim (io/native.py) or on OpenCV.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 import time
+import warnings
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
 import numpy as np
@@ -21,10 +32,7 @@ from pgtformer_tpu_torch.config import PGTFormerConfig, RELEASE_PGTFORMER
 from pgtformer_tpu_torch.convert import load_into
 from pgtformer_tpu_torch.io.video import VideoReader, VideoWriter
 from pgtformer_tpu_torch.models.pgtformer import PGTFormer
-
-# restored chunks left on the device before the oldest is read back, so the
-# host's decode and upload of the next chunk overlap the device's work
-_INFLIGHT = 2
+from pgtformer_tpu_torch.utils.profiling import StageTimer
 
 
 def _rgb_to_yuv420(out: torch.Tensor):
@@ -42,23 +50,80 @@ def _rgb_to_yuv420(out: torch.Tensor):
     return q(y), q(u), q(v)
 
 
+def _open_reader(path: str, backend: str):
+    """`backend` 'native' (libav shim), 'opencv', or 'auto' (native, else
+    OpenCV)."""
+    if backend in ("native", "auto"):
+        try:
+            from pgtformer_tpu_torch.io.native import NativeVideoReader
+            return NativeVideoReader(path)
+        except Exception:
+            if backend == "native":
+                raise
+    return VideoReader(path)
+
+
+def _open_writer(path: str, fps: float, size_hw, backend: str, codec: str = "auto"):
+    """As `_open_reader`; `codec` reaches the native writer only (OpenCV
+    writes mp4v).  Under 'auto' a codec that the native writer cannot open
+    (no library, or an explicitly requested encoder missing from libav)
+    falls back to OpenCV mp4v as in the JAX package; an explicit codec that
+    falls back is warned about, and `restore_video` reports the writer."""
+    if backend in ("native", "auto"):
+        try:
+            from pgtformer_tpu_torch.io.native import NativeVideoWriter
+            return NativeVideoWriter(path, fps, size_hw, codec=codec)
+        except Exception as e:
+            if backend == "native":
+                raise
+            if codec != "auto":
+                warnings.warn(f"codec {codec!r} not written: the native writer failed "
+                              f"({str(e).strip().splitlines()[-1] if str(e).strip() else e!r}); "
+                              "writing OpenCV mp4v instead (io_backend='native' raises)",
+                              RuntimeWarning, stacklevel=2)
+    return VideoWriter(path, fps, size_hw)
+
+
+def _describe(io, codec=None) -> str:
+    """Which backend `_open_reader` / `_open_writer` chose: 'opencv',
+    'opencv:mp4v' (the writer), 'native' or 'native:<requested codec>'."""
+    if isinstance(io, VideoReader):
+        return "opencv"
+    if isinstance(io, VideoWriter):
+        return "opencv:mp4v"
+    return "native" if codec is None else f"native:{codec}"
+
+
 class VideoRestorer:
     """Batched sliding-window restorer around a PGTFormer.
 
     `weights`: a reference-format state_dict (numpy or torch values); None
     initializes every weight from `seed` (for smoke tests and benchmarks).
     `device`: `cuda` unless given; without a card this raises.
-    `readback`: 'rgb' (uint8 [B, H, W, 3]) or 'yuv420' (device-side BT.601
-    planes from :meth:`restore_chunk`; :meth:`restore_video` writes RGB).
-    `mha_layout`: the code transformer's attention plan ("bnhd" or "bhnd")."""
+    `readback`: 'rgb' (uint8 [B, H, W, 3]) or 'yuv420' (the device converts
+    to BT.601 YUV420P planes: half the device->host bytes and no host
+    swscale; :meth:`restore_video` then needs the native writer and even
+    H/W, and has no RGB frames for a callback).
+    `mha_layout`: the code transformer's attention plan ("bnhd" or "bhnd").
+    `io_backend`: 'auto' (native libav, else OpenCV), 'native' or 'opencv'.
+    `inflight`: chunks left on the device before the oldest is read back
+    (at least 1): deeper hides more readback latency at `inflight` chunks
+    of device memory.  The default is the JAX package's; on one H100 the
+    side-stream copies leave no latency to hide, and depths 1-3 restore a
+    file within about 1% of each other (PERF.md, the inflight sweep)."""
 
     def __init__(self, weights=None, cfg: PGTFormerConfig = RELEASE_PGTFORMER,
                  w: float = 1.0, batch_windows: int = 8,
                  dtype: torch.dtype = torch.bfloat16, device=None,
-                 readback: str = "rgb", seed: int = 0, mha_layout: str = "bnhd"):
+                 readback: str = "rgb", seed: int = 0, mha_layout: str = "bnhd",
+                 io_backend: str = "auto", inflight: int = 3):
         if readback not in ("rgb", "yuv420"):
             raise ValueError(f"readback {readback!r}")
+        if io_backend not in ("auto", "native", "opencv"):
+            raise ValueError(f"io_backend {io_backend!r}")
         self.device = resolve_device(device)
+        self.io_backend = io_backend
+        self.inflight = max(1, inflight)
         self.cfg = cfg
         self.w = float(w)
         self.batch = batch_windows
@@ -80,6 +145,10 @@ class VideoRestorer:
 
     def _upload(self, frames_u8) -> torch.Tensor:
         t = torch.as_tensor(np.ascontiguousarray(frames_u8))
+        if self.device.type == "cuda":
+            # from pinned memory the copy is enqueued without waiting for
+            # the steps ahead of it on the stream
+            return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
 
     def _encode(self, frames_u8: torch.Tensor) -> List[torch.Tensor]:
@@ -138,45 +207,164 @@ class VideoRestorer:
         return self._step(self._upload(new_frames_u8))
 
     def restore_video(self, input_path: str, output_path: str,
-                      progress: bool = False, frame_callback=None) -> dict:
-        """Restore a video file to an mp4v file; returns frame count and
-        timing.  `frame_callback(index, rgb_u8)` runs per restored frame."""
-        if self.readback != "rgb":
-            raise ValueError("restore_video writes RGB frames; use readback='rgb'")
-        reader = VideoReader(input_path)
-        writer = None
+                      progress: bool = False, frame_callback=None,
+                      codec: str = "auto") -> dict:
+        """Restore a video file into `output_path`, encoded by the native
+        writer with `codec` ('auto' = libx265 CRF 18 hvc1, else libx264,
+        else mpeg4; or 'libx265' / 'libx264' / 'mpeg4', with optional
+        ':preset=' / ':params=' suffixes) or by OpenCV (mp4v).
+        `frame_callback(index, rgb_u8)` runs per restored frame (readback
+        'rgb' only).  Returns the frame count, wall seconds, frames/s,
+        `startup_seconds` (prime and first chunk; the JAX package names it
+        `compile_seconds`), steady frames/s, the `reader` and `writer`
+        backends (`_describe`: under io_backend 'auto' a codec the native
+        writer cannot open falls back to 'opencv:mp4v', with a warning when
+        it was named) and `phases`: wall time of
+        `decode`, `first_chunk` (the first chunk's dispatch, run to its end;
+        the JAX package names it `compile`), `dispatch` (upload and enqueue
+        of each later chunk), `readback` (the main thread's wait for a
+        chunk's host copy) and `encode(threaded)` (the writer thread)."""
+        yuv = self.readback == "yuv420"
+        if yuv and frame_callback is not None:
+            raise ValueError("frame_callback needs readback='rgb' "
+                             "(yuv420 mode never materializes RGB on host)")
+        timer = StageTimer()
+        reader = _open_reader(input_path, self.io_backend)
         B, r = self.batch, self.radius
         n_frames = 0
-        pending: List = []
+        pending: List = []     # (readback future, n_valid)
         self.reset()
         t0 = time.perf_counter()
 
+        # the CPU-bound encoder runs in a writer thread, overlapping the
+        # device and the readback
+        wq: "queue.Queue" = queue.Queue(maxsize=4)
+        werr: List[BaseException] = []
+        encode_s = [0.0]
+        opened = [None]        # the writer's backend, once it is open
+
+        def writer_main():
+            writer = None
+            try:
+                while True:
+                    frames = wq.get()
+                    if frames is None:
+                        break
+                    te = time.perf_counter()
+                    if yuv:
+                        y, u, v = frames
+                        if writer is None:
+                            writer = _open_writer(output_path, reader.fps, y.shape[1:3],
+                                                  "native", codec)
+                            opened[0] = _describe(writer, codec)
+                        for i in range(y.shape[0]):
+                            writer.write_yuv420(y[i], u[i], v[i])
+                    else:
+                        for f in frames:
+                            if writer is None:
+                                writer = _open_writer(output_path, reader.fps, f.shape[:2],
+                                                      self.io_backend, codec)
+                                opened[0] = _describe(writer, codec)
+                            writer.write(f)
+                    encode_s[0] += time.perf_counter() - te
+            except BaseException as e:  # surfaced after join
+                werr.append(e)
+            finally:
+                if writer is not None:
+                    writer.close()
+
+        wthread = threading.Thread(target=writer_main, name="restore_video-writer", daemon=True)
+        wthread.start()
+
+        # device->host copies of chunk k overlap the dispatch and decode of
+        # chunk k+1 and each other; `drain` only joins the future
+        rb_pool = ThreadPoolExecutor(max_workers=2)
+        cuda = self.device.type == "cuda"
+        copy_stream = torch.cuda.Stream(self.device) if cuda else None
+
+        def submit(dev_out, n_valid):
+            outs = list(dev_out) if yuv else [dev_out]
+            outs = [t[:n_valid] for t in outs]
+            if not cuda:
+                return rb_pool.submit(lambda: [t.numpy() for t in outs]), n_valid
+            # the copy waits for this step only, not for the steps enqueued
+            # after it on the compute stream; the pool worker waits for the
+            # copy, keeping the device tensors alive until it is done
+            step_done = torch.cuda.Event()
+            step_done.record()
+            with torch.cuda.stream(copy_stream):
+                copy_stream.wait_event(step_done)
+                host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in outs]
+                for h, t in zip(host, outs):
+                    h.copy_(t, non_blocking=True)
+                copied = torch.cuda.Event()
+                copied.record(copy_stream)
+
+            def fetch(keep=outs):
+                copied.synchronize()
+                return [h.numpy() for h in host]
+            return rb_pool.submit(fetch), n_valid
+
+        def put_to_writer(item):
+            # a bounded put that re-checks the writer's health every second:
+            # a writer that dies after a one-shot check would otherwise leave
+            # this thread blocked on the full queue
+            while True:
+                if werr:
+                    raise werr[0]
+                try:
+                    wq.put(item, timeout=1.0)
+                    return
+                except queue.Full:
+                    continue
+
         def drain(entry):
-            nonlocal writer, n_frames
-            out, n_valid = entry
-            frames = out[:n_valid].cpu().numpy()
-            for f in frames:
-                if writer is None:
-                    writer = VideoWriter(output_path, reader.fps, f.shape[:2])
-                writer.write(f)
-                if frame_callback is not None:
+            nonlocal n_frames
+            fut, n_valid = entry
+            with timer.stage("readback"):
+                frames = fut.result()
+            put_to_writer(tuple(frames) if yuv else frames[0])
+            if frame_callback is not None:
+                for f in frames[0]:
                     frame_callback(n_frames, f)
-                n_frames += 1
+                    n_frames += 1
+            else:
+                n_frames += n_valid
             if progress and n_frames % 64 < n_valid:
                 print(f"  {n_frames} frames...", flush=True)
 
         def flush(chunk, n_valid):
-            pending.append((self.restore_chunk(np.stack(chunk)), n_valid))
-            if len(pending) > _INFLIGHT:
+            # the first chunk's dispatch runs to its end (startup)
+            name = "dispatch" if self._first_chunk_s is not None else "first_chunk"
+            with timer.stage(name):
+                out = self.restore_chunk(np.stack(chunk))
+            pending.append(submit(out, n_valid))
+            if len(pending) > self.inflight:
                 drain(pending.pop(0))
+
+        def signal_writer_stop():
+            # bounded: a live writer frees a slot; a dead one needs no signal
+            while wthread.is_alive():
+                try:
+                    wq.put(None, timeout=1.0)
+                    return
+                except queue.Full:
+                    if werr:
+                        return
 
         # prime() consumes frame 0; then every chunk of B new frames yields B
         # restored centers.  At stream end the q buffered frames owe q + r
         # more outputs, produced from chunks padded with the last frame.
+        finished = False
         try:
             chunk: List[np.ndarray] = []
             last_frame = None
-            for frame in reader:
+            reader_it = iter(reader)
+            while True:
+                with timer.stage("decode"):
+                    frame = next(reader_it, None)
+                if frame is None:
+                    break
                 if last_frame is None:
                     self.prime(frame)
                     last_frame = frame
@@ -187,6 +375,7 @@ class VideoRestorer:
                     flush(chunk, B)
                     chunk = []
             if last_frame is None:
+                finished = True
                 return {"frames": 0, "seconds": 0.0, "fps": 0.0}
             needed = len(chunk) + r
             while needed > 0:
@@ -195,17 +384,28 @@ class VideoRestorer:
                 flush(chunk, n_valid)
                 needed -= n_valid
                 chunk = []
-            for entry in pending:
-                drain(entry)
+            while pending:
+                drain(pending.pop(0))
+            finished = True
         finally:
+            # every exit releases the decoder, the readback pool and the
+            # writer thread; the success path waits for the encoder to
+            # finish the file, an error path joins with a bound
+            rb_pool.shutdown(wait=finished, cancel_futures=not finished)
             reader.close()
-            if writer is not None:
-                writer.close()
+            signal_writer_stop()
+            wthread.join(timeout=None if finished else 60.0)
+        if werr:
+            raise werr[0]
+        timer.totals["encode(threaded)"] = encode_s[0]
+        timer.counts["encode(threaded)"] = 1
         dt = time.perf_counter() - t0
         startup = (self._first_chunk_s or 0.0) + self._prime_s
-        steady = dt - startup
+        steady = dt - startup if startup else dt
         steady_frames = max(n_frames - B, 0)
         return {"frames": n_frames, "seconds": dt,
                 "fps": n_frames / dt if dt > 0 else 0.0,
                 "startup_seconds": startup,
-                "steady_fps": steady_frames / steady if steady > 0 else 0.0}
+                "steady_fps": steady_frames / steady if steady > 0 else 0.0,
+                "reader": _describe(reader), "writer": opened[0],
+                "phases": timer.summary()}

@@ -97,7 +97,10 @@ def test_import_with_jax_blocked():
                 "pgtformer_tpu_torch.data.align", "pgtformer_tpu_torch.eval.metrics",
                 "pgtformer_tpu_torch.train.stages", "pgtformer_tpu_torch.cli",
                 "pgtformer_tpu_torch.eval_cli", "pgtformer_tpu_torch.eval.niqe",
-                "pgtformer_tpu_torch.eval.landmarks", "pgtformer_tpu_torch.eval.arcface"):
+                "pgtformer_tpu_torch.eval.landmarks", "pgtformer_tpu_torch.eval.arcface",
+                "pgtformer_tpu_torch.io.native", "pgtformer_tpu_torch.io.video",
+                "pgtformer_tpu_torch.utils.profiling", "pgtformer_tpu_torch.eval.vmaf",
+                "pgtformer_tpu_torch.profile_stages", "pgtformer_tpu_torch.bench_encode"):
         assert new in mods
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'flax', 'orbax', 'pgtformer_tpu'):\n"
@@ -130,7 +133,9 @@ def test_no_jax_or_reference_package_imports():
                 "registry.py", "train/trainer.py", "train/validate.py", "utils/checkpoint.py",
                 "utils/logging.py", "utils/img.py", "data/vfhq.py", "data/loader.py",
                 "data/degradations.py", "data/align.py", "eval/metrics.py", "eval_cli.py",
-                "eval/niqe.py", "eval/landmarks.py", "eval/arcface.py"):
+                "eval/niqe.py", "eval/landmarks.py", "eval/arcface.py", "io/native.py",
+                "io/video.py", "utils/profiling.py", "eval/vmaf.py", "profile_stages.py",
+                "bench_encode.py"):
         assert PORT / new in files
     for f in files:
         for mod in _imported_modules(f):

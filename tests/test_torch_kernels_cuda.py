@@ -925,3 +925,55 @@ def test_eval_cli_on_the_card(tmp_path, monkeypatch, capsys):
     assert np.isfinite(e_gpu).all()
     rel = np.abs(e_gpu - e_cpu).max() / np.abs(e_cpu).max()
     assert rel <= 1e-4, rel
+
+
+def test_restore_video_on_the_card(tmp_path):
+    """`restore_video` on the card at a small geometry (bf16, seeded
+    weights, a seeded 10-frame 32x32 clip, B=4: 3 steps): the frames passed
+    to `frame_callback` bit-equal across `inflight` 1 and 3 and to
+    `restore_chunk` over the frames the same reader decodes (the side-stream
+    readback changes no byte), and each run launches exactly 3 steps' K1
+    and K6 and no other kernel."""
+    dev = _card()
+    import cv2
+    from pgtformer_tpu_torch import pipeline
+    from pgtformer_tpu_torch.config import DDConfig, PGTFormerConfig, VQVAEConfig
+    dd = DDConfig(z_channels=32, resolution=32, ch=32, ch_mult=(1, 2), depths=(2, 2),
+                  num_heads=(4, 4), window_sizes=((4, 4), (4, 4)), attn_resolutions=(16,))
+    cfg = PGTFormerConfig(vqvae=VQVAEConfig(ddconfig=dd, embed_dim=32, n_embed=64,
+                                            latent_shape=(16, 16, 32), code_shape=(16, 16, 1)),
+                          dim_embd=64, n_head=4, n_layers=2, connect_list=("16", "32"),
+                          w=1.0, adain=True)
+    src = str(tmp_path / "in.mp4")
+    w = cv2.VideoWriter(src, cv2.VideoWriter_fourcc(*"mp4v"), 10, (32, 32))
+    rng = np.random.default_rng(0)
+    for _ in range(10):
+        w.write(rng.integers(0, 256, (32, 32, 3), dtype=np.uint8))
+    w.release()
+    wrappers = (sw_block, sw_block_tokens, sw_block_pair, dense_mha_bhnd, dense_mha_bnhd,
+                nearest_code, gn_silu_conv3x3, subpixel_up_conv3x3)
+    r = pipeline.VideoRestorer(None, cfg, batch_windows=4, dtype=torch.bfloat16, device=dev,
+                               seed=3)
+    reader = pipeline._open_reader(src, r.io_backend)
+    decoded = list(reader)
+    reader.close()
+    r.prime(decoded[0])
+    before = [w.launches for w in wrappers]
+    ref, rest = [], decoded[1:]
+    for c in range(3):           # 4 + 4 new frames, then 1 + the end padding
+        chunk = rest[4 * c:4 * c + 4]
+        n = len(chunk) if c < 2 else len(chunk) + 1
+        chunk = chunk + [decoded[-1]] * (4 - len(chunk))
+        ref.append(r.restore_chunk(np.stack(chunk))[:n].cpu().numpy())
+    per_3_steps = [w.launches - b for w, b in zip(wrappers, before)]
+    assert per_3_steps[0] > 0 and per_3_steps[4] == 6 and sum(per_3_steps) == per_3_steps[0] + 6
+    ref = np.concatenate(ref)
+    for inflight in (1, 3):
+        r.inflight = inflight
+        frames = []
+        before = [w.launches for w in wrappers]
+        stats = r.restore_video(src, str(tmp_path / f"out{inflight}.mp4"),
+                                frame_callback=lambda i, f: frames.append(f.copy()))
+        assert [w.launches - b for w, b in zip(wrappers, before)] == per_3_steps
+        assert stats["frames"] == 10 and len(frames) == 10
+        assert np.array_equal(np.stack(frames), ref), inflight

@@ -26,7 +26,7 @@ def restorers(small_pgt):
     jr = JaxVideoRestorer(v, jc, w=1.0, batch_windows=4, dtype=jnp.float32,
                           io_backend="opencv")
     tr = VideoRestorer(flax_to_state_dict(v), tc, w=1.0, batch_windows=4,
-                       dtype=torch.float32, device="cpu")
+                       dtype=torch.float32, device="cpu", io_backend="opencv")
     return jr, tr
 
 
