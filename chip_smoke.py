@@ -126,9 +126,32 @@ Phases, in order; any failure exits non-zero:
     VMAF's time), `profile_stages` (each stage and the whole step, ms) and
     `bench_encode` (mpeg4, libx264, libx265 at their default presets, 48
     frames at 512x512: the host's encoder frames/s);
-13. a JSON line of kernel numbers (each with its backward route, its
-    launches per training step, in the training run, in evaluation and on
-    the file path), then the device JSON as the last line.
+13. several ranks (`phase_multi`, `parallel/`): (a) two ranks spawned on the
+    one card over gloo (CUDA tensors on cuda:0, the collectives staged
+    through host memory) serve RELEASE_PGTFORMER 512x512 bf16 with B=8 (4
+    windows a rank) over the serving phase's seeded weights and first 3
+    chunks of frames: rank 0's gathered frames bit-equal to one process at
+    batch_windows=4 over the same frames, the largest difference from the
+    B=8 step printed, exactly 22 K1 + 9 K6 a step on each rank; (b) the
+    stage-I and stage-III steps of phase 9 at full width, 2 ranks x 1 clip
+    for 2 steps each: after every step the ranks' parameters, Adam moments,
+    EMA, codebook buffers and BatchNorm statistics bit-equal (sha256), the
+    averaged losses within MULTI_LOSS_TOL of one process over both clips
+    taking each step from the same state (the seeded start; then the
+    ranks' state after step 1, saved by rank 0 and restored), exact
+    launches per rank and step; step ms and peak memory per rank,
+    time-sliced on one card (stage I without codebook restarts, which draw
+    from rank 0's clip across ranks and from both clips in one process; the
+    EMA update with restarts is held apart: bit-equal across the ranks,
+    every restarted code one of rank 0's latents); (c) where the call has
+    two or more cards, (a) and (b) over NCCL with rank k on card k ((a) also
+    over all the call's cards), with frames/s per world size; on one card
+    one line says that NCCL and scaling are unmeasured.  `[multi:...]`
+    lines;
+14. a JSON line of kernel numbers (each with its backward route, its
+    launches per training step, in the training run, in evaluation, on
+    the file path and per rank in phase_multi), then the device JSON as
+    the last line.
 
 Launch counts are set to 0 just before each path is driven and read just
 after it; launches made to compare or time a kernel do not count.
@@ -2652,6 +2675,376 @@ def phase_video(smi: str, serve: dict):
                 inflight_sweep=sweep, cli=cli_run, stages=prof, encode=enc, card=smi)
 
 
+# -- several ranks (phase_multi) ------------------------------------------------
+
+MULTI_B = 8                   # the serving chunk: Bl = 4 windows a rank at two ranks
+MULTI_CHUNKS = 3
+MULTI_SERVE_PER_STEP = dict(sw_block=22, dense_mha_bnhd=9)    # per rank and step
+MULTI_TRAIN_STEPS = 2
+MULTI_TRAIN_PER_STEP = {"I": dict(sw_block=22, vq_nearest=1),
+                        "III": dict(sw_block=30, vq_nearest=1, dense_mha_bnhd=9)}
+MULTI_LOSS_TOL = 5e-2         # |loss(ranks) - loss(one process)| <= this * max(|ref|, 0.1),
+                              # the card test's bf16 step tolerance
+MULTI_TIMEOUT_S = 600.0
+
+
+def _multi_group(rank: int, world: int, store: str, backend: str):
+    """A rank of phase_multi: gloo with every rank on cuda:0 (two ranks
+    time-sliced on one card), or NCCL with rank k on cuda:k."""
+    import torch
+    from pgtformer_tpu_torch import parallel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if backend == "gloo":
+        return parallel.init_group(rank, world, store, device="cuda:0", backend="gloo",
+                                   share_device=True, timeout_s=MULTI_TIMEOUT_S)
+    return parallel.init_group(rank, world, store, device=f"cuda:{rank}",
+                               timeout_s=MULTI_TIMEOUT_S)
+
+
+def _launches() -> dict:
+    return {name: fn.launches for name, fn in _wrappers().items() if fn.launches}
+
+
+def _multi_serve_rank(rank: int, world: int, store: str, backend: str, frames):
+    """One rank of the sharded serving step: prime + MULTI_CHUNKS chunks of
+    MULTI_B frames (rank 0 holds them); each chunk timed on the host clock
+    to its synchronize.  Returns rank 0's gathered frames, the rank's
+    launches, step times and peak memory."""
+    import numpy as np
+    import torch
+    from pgtformer_tpu_torch import parallel
+    from pgtformer_tpu_torch.config import RELEASE_PGTFORMER
+    from pgtformer_tpu_torch.pipeline import VideoRestorer
+    g = _multi_group(rank, world, store, backend)
+    try:
+        r = VideoRestorer(None, RELEASE_PGTFORMER, w=1.0, batch_windows=MULTI_B,
+                          dtype=torch.bfloat16, seed=0, group=g)
+        r.prime(frames[0] if rank == 0 else None)
+        torch.cuda.reset_peak_memory_stats(g.device)
+        reset_counts()
+        outs, times = [], []
+        for c in range(MULTI_CHUNKS):
+            t0 = time.perf_counter()
+            out = r.restore_chunk(frames[1 + c * MULTI_B:1 + (c + 1) * MULTI_B]
+                                  if rank == 0 else None)
+            torch.cuda.synchronize(g.device)
+            times.append((time.perf_counter() - t0) * 1e3)
+            if out is not None:
+                outs.append(out.cpu().numpy())
+        return dict(frames=np.concatenate(outs) if rank == 0 else None, counts=_launches(),
+                    step_ms=times, peak=torch.cuda.max_memory_allocated(g.device),
+                    device=str(g.device))
+    finally:
+        parallel.destroy_group()
+
+
+def _multi_trainer(kind: str, group=None):
+    """phase_train's trainers (same seeds, random LPIPS VGG, bf16), on the
+    group's device or cuda."""
+    import dataclasses
+    import torch
+    from pgtformer_tpu_torch.config import RELEASE_PGTFORMER
+    from pgtformer_tpu_torch.models.vae import TDCRQVAE3
+    from pgtformer_tpu_torch.train.lpips import make_lpips_fn
+    from pgtformer_tpu_torch.train.stages import STAGE_HYPERS, PGTFormerTrainer, Stage1Trainer
+    dev = group.device if group is not None else torch.device("cuda")
+    lpips_fn = make_lpips_fn(device=dev, warn_random=False)
+    hp = dataclasses.replace(STAGE_HYPERS[kind], warmup_iter=-1)
+    if kind == "I":
+        # no restarts: across ranks a restart draws from rank 0's clip (the
+        # reference's DDP broadcast), in one process from both clips, so the
+        # runs would part after the first step; _multi_restart_check holds
+        # the restart's broadcast on the card
+        vq = dataclasses.replace(RELEASE_PGTFORMER.vqvae, restart_unused_codes=False)
+        tr = Stage1Trainer(vq, hp, lpips_fn=lpips_fn, device=dev,
+                           dtype=torch.bfloat16, group=group)
+        return tr, tr.init_state(torch.Generator().manual_seed(11))
+    teacher = TDCRQVAE3(RELEASE_PGTFORMER.vqvae, generator=torch.Generator().manual_seed(12))
+    tr = PGTFormerTrainer(RELEASE_PGTFORMER, "III", hp, lpips_fn=lpips_fn, device=dev,
+                          dtype=torch.bfloat16, group=group)
+    return tr, tr.init_state(torch.Generator().manual_seed(13), teacher.state_dict())
+
+
+def _trained_digest(tr, state) -> str:
+    """sha256 over every tensor a data-parallel step keeps equal across the
+    ranks: parameters and buffers of both networks (codebooks and their
+    EMAs, BatchNorm statistics), the parameters' EMA, both Adams' moments."""
+    import torch
+    h = hashlib.sha256()
+    named = {f"g.{k}": v for k, v in tr.model.state_dict().items()}
+    named.update({f"ema.{k}": v for k, v in state.g.ema_params.items()})
+    named.update({f"d.{k}": v for k, v in tr.disc.state_dict().items()})
+    for name, opt in (("opt_g", tr.opt_g), ("opt_d", tr.opt_d)):
+        for i, st in opt.state_dict()["state"].items():
+            named.update({f"{name}.{i}.{k}": v for k, v in st.items() if torch.is_tensor(v)})
+    for k in sorted(named):
+        h.update(k.encode())
+        h.update(named[k].detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()[:16]
+
+
+def _multi_batch(kind: str, rows):
+    """phase_train's clip (seed 5) and a second one: [2, 3, 512, 512, 3] uint8."""
+    import numpy as np
+    rng = np.random.default_rng(5)
+    gt = rng.integers(0, 256, (2, 3, TRAIN_RES, TRAIN_RES, 3), dtype=np.uint8)
+    lq = np.clip(gt.astype(np.int16) + rng.integers(-24, 25, gt.shape), 0, 255).astype(np.uint8)
+    gt, lq = gt[rows], lq[rows]
+    return gt if kind == "I" else {"lq": lq, "gt": gt}
+
+
+def _train_steps(tr, state, batch, digest: bool, steps: int = MULTI_TRAIN_STEPS,
+                 after_first=None):
+    """`steps` steps on `batch`, each timed to its synchronize, with its
+    launches, metrics and (with `digest`) the digest of the trained tensors;
+    `after_first(state)` runs untimed after the first."""
+    import torch
+    step = tr.make_step()
+    out = []
+    for i in range(steps):
+        reset_counts()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize(tr.device)
+        ms = (time.perf_counter() - t0) * 1e3
+        out.append(dict(ms=ms, counts=_launches(),
+                        metrics={k: float(v) for k, v in metrics.items()},
+                        digest=_trained_digest(tr, state) if digest else None))
+        if i == 0 and after_first is not None:
+            after_first(state)
+    return out
+
+
+def _multi_restart_check(group):
+    """The codebook EMA update with restarts across the ranks on the card,
+    at the deployed codebook (1024 x 512) and one clip's 3072 latents a rank
+    (seeded per rank): returns the digest of the updated buffers and whether
+    every restarted code is one of rank 0's latents."""
+    import torch
+    from pgtformer_tpu_torch.models.quantizer import ema_codebook_update
+    dev = group.device
+    g = torch.Generator().manual_seed(21)
+    weight = torch.randn(1025, 512, generator=g).to(dev)
+    weight[-1] = 0
+    cluster = (torch.rand(1024, generator=g) * 2).to(dev)
+    embed_ema = torch.randn(1024, 512, generator=g).to(dev)
+    vecs = [torch.randn(TRAIN_VQ_ROWS, 512, generator=torch.Generator().manual_seed(30 + r))
+            .to(dev) for r in (0, group.rank)]
+    idx = torch.randint(0, 512, (TRAIN_VQ_ROWS,), generator=torch.Generator()
+                        .manual_seed(40 + group.rank)).to(dev)        # half the codes unused
+    ema_codebook_update(weight, cluster, embed_ema, vecs[1], idx, decay=0.99,
+                        restart_unused_codes=True,
+                        generator=torch.Generator(device=dev).manual_seed(50), group=group)
+    restarted = cluster == 1.0
+    rows = embed_ema[restarted]
+    from_rank0 = bool((torch.cdist(rows, vecs[0], compute_mode="donot_use_mm_for_euclid_dist")
+                       .min(dim=1).values == 0).all())
+    h = hashlib.sha256()
+    for t in (weight, cluster, embed_ema):
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return dict(digest=h.hexdigest()[:16], restarted=int(restarted.sum()), from_rank0=from_rank0)
+
+
+def _multi_train_rank(rank: int, world: int, store: str, backend: str, kind: str,
+                      save_dir: str):
+    """One rank of the data-parallel step: its clip of the two, the steps'
+    times, launches, metrics and the digest of its trained tensors.  After
+    the first step rank 0 saves the training state into `save_dir`, from
+    which one process takes the second step on both clips."""
+    import torch
+    from pgtformer_tpu_torch import parallel
+    from pgtformer_tpu_torch.utils.checkpoint import CheckpointManager
+    g = _multi_group(rank, world, store, backend)
+
+    def save(state):
+        if rank == 0:
+            CheckpointManager(save_dir).save(1, state, tr)
+        parallel.barrier(g)
+
+    try:
+        t0 = time.perf_counter()
+        tr, state = _multi_trainer(kind, g)
+        built = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(g.device)
+        per = 2 // world
+        steps = _train_steps(tr, state, _multi_batch(kind, slice(rank * per, (rank + 1) * per)),
+                             digest=True, after_first=save)
+        return dict(steps=steps, peak=torch.cuda.max_memory_allocated(g.device),
+                    built_s=built, device=str(g.device),
+                    restart=_multi_restart_check(g) if kind == "I" else None)
+    finally:
+        parallel.destroy_group()
+
+
+def _multi_serving(tag: str, backend: str, world: int, frames, ref, serve: dict, smi: str):
+    """(a) / (c): the sharded step on `world` ranks against one process at
+    MULTI_B / world windows (bit for bit) and the B=8 default step."""
+    import numpy as np
+    from pgtformer_tpu_torch import parallel
+    t0 = time.perf_counter()
+    res = parallel.spawn(_multi_serve_rank, world, args=(backend, frames),
+                         timeout_s=MULTI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    for k, r in enumerate(res):
+        want = {n: v * MULTI_CHUNKS for n, v in MULTI_SERVE_PER_STEP.items()}
+        if r["counts"] != want:
+            raise SystemExit(f"[multi:{tag}] rank {k} launched {r['counts']}, expected {want}")
+    got = res[0]["frames"]
+    if got.shape != ref.shape or not np.array_equal(got, ref):
+        diff = (np.abs(got.astype(int) - ref.astype(int)).max() if got.shape == ref.shape
+                else f"shape {got.shape}")
+        raise SystemExit(f"[multi:{tag}] rank 0's frames differ from one process at "
+                         f"batch_windows={MULTI_B // world}: {diff}")
+    b8 = np.concatenate([o.cpu().numpy() for o in serve["outs"][:MULTI_CHUNKS]])
+    d8 = np.abs(got.astype(int) - b8.astype(int))
+    step_ms = max(sorted(r["step_ms"][1:])[len(r["step_ms"][1:]) // 2] for r in res)
+    log(f"[multi:{tag}] {world} ranks over {backend} on {', '.join(r['device'] for r in res)}, "
+        f"RELEASE_PGTFORMER 512x512 B={MULTI_B} (Bl={MULTI_B // world} windows a rank), "
+        f"{MULTI_CHUNKS} chunks: rank 0's frames bit-equal to one process at batch_windows="
+        f"{MULTI_B // world} OK; vs the one-process B={MULTI_B} step max {d8.max()} LSB, "
+        f"mean {d8.mean():.4f}; launches per rank "
+        f"{[{n: v // MULTI_CHUNKS for n, v in r['counts'].items()} for r in res]} a step "
+        f"(exact); step ms per rank (first, then steady) "
+        f"{[[round(t, 2) for t in r['step_ms']] for r in res]}; frames/s "
+        f"{MULTI_B * 1e3 / step_ms:.3f} (one process B={MULTI_B}: "
+        f"{MULTI_B * 1e3 / serve['step_ms']:.3f}); peak_mem_GiB per rank "
+        f"{[round(r['peak'] / 2 ** 30, 2) for r in res]}; spawn to end {wall:.1f} s"
+        + ("; time-sliced on one card: no throughput claim" if backend == "gloo" else "")
+        + f"; card: {smi}")
+    return dict(world=world, backend=backend, step_ms=[r["step_ms"] for r in res],
+                frames_per_s=MULTI_B * 1e3 / step_ms, vs_b8_max_lsb=int(d8.max()),
+                vs_b8_mean_lsb=float(d8.mean()), counts=res[0]["counts"],
+                peak_gib=[r["peak"] / 2 ** 30 for r in res])
+
+
+def _multi_training(tag: str, backend: str, kind: str, ref_first, smi: str):
+    """(b) / (c): one stage's data-parallel steps on two ranks against one
+    process over both clips, each step from the same state: the first from
+    the seeded start (`ref_first`), the second from the ranks' state after
+    the first (saved by rank 0, restored into one process)."""
+    import gc
+    import shutil
+    import tempfile
+    import torch
+    from pgtformer_tpu_torch import parallel
+    from pgtformer_tpu_torch.utils.checkpoint import CheckpointManager
+    root = tempfile.mkdtemp(prefix="pgt_multi_")
+    try:
+        res = parallel.spawn(_multi_train_rank, 2, args=(backend, kind, root),
+                             timeout_s=MULTI_TIMEOUT_S)
+        tr, state = _multi_trainer(kind)
+        CheckpointManager(root).restore(state, tr)
+        ref_steps = [ref_first] + _train_steps(tr, state, _multi_batch(kind, slice(0, 2)),
+                                               digest=False, steps=MULTI_TRAIN_STEPS - 1)
+        del tr, state
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = MULTI_TRAIN_PER_STEP[kind]
+    for i in range(MULTI_TRAIN_STEPS):
+        digests = [r["steps"][i]["digest"] for r in res]
+        if len(set(digests)) != 1:
+            raise SystemExit(f"[multi:{tag}] step {i + 1}: the ranks' trained tensors differ "
+                             f"({digests})")
+        for k, r in enumerate(res):
+            if r["steps"][i]["counts"] != want:
+                raise SystemExit(f"[multi:{tag}] rank {k} step {i + 1} launched "
+                                 f"{r['steps'][i]['counts']}, expected {want}")
+        ours, ref = res[0]["steps"][i]["metrics"], ref_steps[i]["metrics"]
+        if res[1]["steps"][i]["metrics"] != ours:
+            raise SystemExit(f"[multi:{tag}] step {i + 1}: the ranks' metrics differ")
+        bad = {k: (ours[k], v) for k, v in ref.items()
+               if not abs(ours[k] - v) <= MULTI_LOSS_TOL * max(abs(v), 0.1)}
+        if bad or ours.keys() != ref.keys():
+            raise SystemExit(f"[multi:{tag}] step {i + 1}: losses (ranks, one process) "
+                             f"outside {MULTI_LOSS_TOL}: {bad}")
+    restart = ""
+    if kind == "I":
+        rs = [r["restart"] for r in res]
+        if len({r["digest"] for r in rs}) != 1 or not all(r["from_rank0"] for r in rs) \
+                or not rs[0]["restarted"]:
+            raise SystemExit(f"[multi:{tag}] the codebook restart across the ranks: {rs}")
+        restart = (f"; the EMA update with restarts (1024 x 512 codebook, {TRAIN_VQ_ROWS} "
+                   f"latents a rank): {rs[0]['restarted']} codes restarted, each from rank 0's "
+                   f"latents, buffers bit-equal across the ranks OK")
+    log(f"[multi:{tag}] stage {kind}, 2 ranks x 1 clip over {backend} on "
+        f"{', '.join(r['device'] for r in res)}, 512x512, bf16: after each of "
+        f"{MULTI_TRAIN_STEPS} steps parameters, Adam moments, EMA, codebook and BatchNorm "
+        f"statistics bit-equal across the ranks (sha256 {[r['steps'][-1]['digest'] for r in res][0]}) OK; "
+        f"launches per rank and step {want} (exact); losses within {MULTI_LOSS_TOL} of one "
+        f"process x 2 clips OK: "
+        + " (each step from the same state: the seeded start, then the ranks' state after "
+        "step 1 restored into one process); "
+        + "; ".join(f"step {i + 1} " + " ".join(
+            f"{k}={res[0]['steps'][i]['metrics'][k]:.5f}/{v:.5f}"
+            for k, v in ref_steps[i]["metrics"].items()) for i in range(MULTI_TRAIN_STEPS))
+        + f"; step ms per rank {[[round(s['ms'], 2) for s in r['steps']] for r in res]} "
+        f"(one process x 2 clips {[round(s['ms'], 2) for s in ref_steps]})"
+        + (" time-sliced on one card" if backend == "gloo" else "")
+        + f"; peak_mem_GiB per rank {[round(r['peak'] / 2 ** 30, 2) for r in res]}; trainer "
+        f"built in {[round(r['built_s'], 1) for r in res]} s{restart}; card: {smi}")
+    return dict(backend=backend, digests=[s["digest"] for s in res[0]["steps"]],
+                step_ms=[[s["ms"] for s in r["steps"]] for r in res],
+                one_process_ms=[s["ms"] for s in ref_steps],
+                metrics=[s["metrics"] for s in res[0]["steps"]],
+                one_process_metrics=[s["metrics"] for s in ref_steps],
+                peak_gib=[r["peak"] / 2 ** 30 for r in res], counts=res[0]["steps"][0]["counts"])
+
+
+def phase_multi(smi: str, serve: dict, nccl_only: bool = False):
+    """Serving and training across ranks (the module docstring, phase 13)."""
+    import gc
+    import numpy as np
+    import torch
+    from pgtformer_tpu_torch.config import RELEASE_PGTFORMER
+    from pgtformer_tpu_torch.pipeline import VideoRestorer
+    t0 = time.perf_counter()
+    frames = serve["frames"][:1 + MULTI_CHUNKS * MULTI_B]
+    cards = torch.cuda.device_count()
+    worlds = sorted({2, cards} - {1}) if cards >= 2 else []
+    refs = {}
+    for world in ([2] if not nccl_only else []) + worlds:
+        bl = MULTI_B // world
+        if bl in refs:
+            continue
+        r = VideoRestorer(None, RELEASE_PGTFORMER, w=1.0, batch_windows=bl,
+                          dtype=torch.bfloat16, device="cuda", seed=0)
+        r.prime(frames[0])
+        refs[bl] = np.concatenate([r.restore_chunk(frames[1 + c * bl:1 + (c + 1) * bl])
+                                   .cpu().numpy() for c in range(MULTI_CHUNKS * world)])
+        del r
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"serve": {}, "train": {}}
+    if not nccl_only:
+        out["serve"]["gloo_one_card"] = _multi_serving(
+            "serve", "gloo", 2, frames, refs[MULTI_B // 2], serve, smi)
+    for world in worlds:
+        out["serve"][f"nccl_{world}"] = _multi_serving(
+            f"serve:nccl{world}", "nccl", world, frames, refs[MULTI_B // world], serve, smi)
+    for kind in ("I", "III"):
+        tr, state = _multi_trainer(kind)
+        ref_first = _train_steps(tr, state, _multi_batch(kind, slice(0, 2)), digest=False,
+                                 steps=1)[0]
+        del tr, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not nccl_only:
+            out["train"][f"{kind}:gloo_one_card"] = _multi_training(
+                f"train:{kind}", "gloo", kind, ref_first, smi)
+        if cards >= 2:
+            out["train"][f"{kind}:nccl_2"] = _multi_training(
+                f"train:{kind}:nccl", "nccl", kind, ref_first, smi)
+    if cards < 2:
+        log(f"[multi:nccl] this call has {cards} card: NCCL across cards and any scaling "
+            "with the card count are unmeasured on it")
+    log(f"[multi] phase in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def _mix(rows, key):
     """Per-launch average over the serving step's mix of shapes."""
     return sum(r[key] * r["per_step"] for r in rows) / sum(r["per_step"] for r in rows)
@@ -2703,6 +3096,8 @@ def main() -> int:
     ev = phase_eval(smi)
     torch.cuda.empty_cache()
     video = phase_video(smi, serve)
+    torch.cuda.empty_cache()
+    multi = phase_multi(smi, serve)
 
     step = serve["step_ms"]
     mha_src = "pgtformer_tpu_torch/csrc/dense_mha.cu"
@@ -2752,6 +3147,10 @@ def main() -> int:
         k["launches_eval"] = {tag: ev[tag]["launches"].get(name, 0) for tag in ("test", "rotate")}
         k["launches_video"] = {tag: c["counts"].get(name, 0) for tag, c in video["cases"].items()}
         k["launches_video"]["cli"] = video["cli"]["counts"].get(name, 0)
+        # per rank, over the sharded serving run and per data-parallel training step
+        k["launches_multi"] = {
+            **{f"serve:{tag}": c["counts"].get(name, 0) for tag, c in multi["serve"].items()},
+            **{f"train:{tag}": c["counts"].get(name, 0) for tag, c in multi["train"].items()}}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "default_step_ms": step,
                       "train": {stage: {key: v for key, v in r.items() if key != "per_step"}
@@ -2759,6 +3158,7 @@ def main() -> int:
                       "train_loop": train_loop,
                       "eval": ev,
                       "video": video,
+                      "multi": multi,
                       "variant_step_ms": {k: v["step_ms"] for k, v in variants.items()},
                       "autoencoder_ms": {k: v for k, v in vae.items() if k.endswith("_ms")}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

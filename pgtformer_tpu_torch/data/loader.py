@@ -23,7 +23,11 @@ Two differences from the JAX package's loader:
     dataset is never written, and a fresh run's batches equal the JAX
     package's bit for bit;
   * a loader can start inside an epoch (:meth:`PrefetchLoader.seek`): a
-    resumed run sees the batches an uninterrupted run would have seen.
+    resumed run sees the batches an uninterrupted run would have seen;
+  * under data parallelism (`shard`) each rank's loader assembles only its
+    rows of each global batch, in the one shuffled order every rank draws
+    (the JAX package assembles the whole batch on its one host, then
+    shards it).
 
 :func:`device_prefetch` uploads batches ahead of the step on a transfer
 thread; on the card :func:`upload_fn` pins each batch and copies it on a
@@ -36,7 +40,7 @@ import queue
 import threading
 import time
 from collections import deque
-from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -76,13 +80,22 @@ class PrefetchLoader:
     Exceptions raised in workers propagate to the consumer.  `load_seconds`
     keeps the assembly time (decode, degradation, collate) of the last 1000
     batches, each on the worker that made it.
+
+    `shard` = (rank, world): `batch_size` is the global batch, and this
+    loader yields rank's rows [rank * b, (rank + 1) * b) of each, b =
+    batch_size / world; the batch count, the epochs and the positions
+    (:meth:`position_at`) are the global batches'.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  seed: int = 0, num_workers: int = 4, prefetch: int = 2,
                  drop_last: bool = True, backend: str = "thread",
-                 keys=("gt", "lq", "llq"), reseed_dataset: bool = False):
+                 keys=("gt", "lq", "llq"), reseed_dataset: bool = False,
+                 shard: Optional[Tuple[int, int]] = None):
         assert backend in ("thread", "process", "sync")
+        if shard is not None and (batch_size % shard[1] or not 0 <= shard[0] < shard[1]):
+            raise ValueError(f"shard {shard} of a batch of {batch_size}")
+        self.shard = shard
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -137,6 +150,10 @@ class PrefetchLoader:
         batches = _batch_orders(len(self.dataset), self.batch_size,
                                 self.shuffle, self.seed + self.epoch,
                                 self.drop_last)[self.skip:]
+        if self.shard is not None:
+            rank, world = self.shard
+            per = self.batch_size // world
+            batches = [b[rank * per:(rank + 1) * per] for b in batches]
         seed = self.sample_seed(self.epoch)
         self.epoch += 1
         self.skip = 0

@@ -10,7 +10,8 @@ points:
   the nearest-code search (kernel K5, ``ops/vq.py``, on a CUDA tensor
   unless ``EXACT_VQ=1``; the exact argmin on the CPU) and the lookup;
 * :func:`ema_codebook_update`: one EMA step of a codebook's buffers, with
-  dead-code restarts drawn from a ``torch.Generator``;
+  dead-code restarts drawn from a ``torch.Generator`` (across the ranks of
+  a group: the statistics summed, rank 0's restart vectors on every rank);
 * :class:`RQBottleneck`: ``__call__`` -> (quantized with the straight-through
   sum, commitment loss, codes), ``quantize`` (with ``train=True`` each depth
   updates its codebook after taking its codes), ``embed_code``,
@@ -31,6 +32,7 @@ import torch.nn as nn
 from pgtformer_tpu_torch import knobs
 from pgtformer_tpu_torch.nn.blocks import KeepFloat32
 from pgtformer_tpu_torch.ops.vq import nearest_code
+from pgtformer_tpu_torch.parallel import group as P
 
 
 def compute_distances(weight: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -67,7 +69,8 @@ def embed(weight: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def ema_codebook_update(weight: torch.Tensor, cluster_size_ema: torch.Tensor,
                         embed_ema: torch.Tensor, vectors: torch.Tensor, idxs: torch.Tensor, *,
                         decay: float, restart_unused_codes: bool,
-                        generator: Optional[torch.Generator], eps: float = 1e-5):
+                        generator: Optional[torch.Generator], eps: float = 1e-5,
+                        group: Optional[P.Group] = None):
     """One EMA step of a codebook, in place on its buffers (weight
     [n_embed + 1, D], cluster_size_ema [n_embed], embed_ema [n_embed, D]);
     returns them.  The JAX package's ``ema_codebook_update`` (reference
@@ -76,7 +79,14 @@ def ema_codebook_update(weight: torch.Tensor, cluster_size_ema: torch.Tensor,
     codes used less than once restarted from the batch's vectors (a random
     permutation of them, tiled with uniform noise of 0.01/sqrt(D) when
     there are fewer vectors than codes, drawn from `generator`), then the
-    Laplace-smoothed re-estimate of every code but the padding row."""
+    Laplace-smoothed re-estimate of every code but the padding row.
+
+    With a `group` (the JAX package's `axis_name`; reference
+    tdcrqvae3_arch.py:157-171) each rank passes its own `vectors`: the
+    counts and vector sums are summed over the ranks before the EMA, and
+    every rank draws its restart candidates from its own vectors with its
+    own generator (so the generators, seeded alike, stay in step), then
+    takes rank 0's.  Every rank ends with the same buffers."""
     if restart_unused_codes and generator is None:
         raise ValueError("restart_unused_codes requires a generator")
     n_embed, dim = embed_ema.shape
@@ -85,9 +95,9 @@ def ema_codebook_update(weight: torch.Tensor, cluster_size_ema: torch.Tensor,
     n_vectors = vecs.shape[0]
     cluster_size = torch.bincount(flat_idx, minlength=n_embed)[:n_embed].float()
     vectors_sum = torch.zeros_like(embed_ema).index_add_(0, flat_idx, vecs)
-    # several processes: all-reduce (sum) cluster_size and vectors_sum here,
-    # and broadcast rank 0's restart_vecs below (reference
-    # tdcrqvae3_arch.py:157-171)
+    if group is not None:
+        stats = P.all_reduce_(torch.cat([cluster_size[:, None], vectors_sum], dim=1), group)
+        cluster_size, vectors_sum = stats[:, 0], stats[:, 1:]
     cluster_size_ema.mul_(decay).add_(cluster_size * (1 - decay))
     embed_ema.mul_(decay).add_(vectors_sum * (1 - decay))
 
@@ -99,6 +109,8 @@ def ema_codebook_update(weight: torch.Tensor, cluster_size_ema: torch.Tensor,
             cands = cands + noise * (0.01 / math.sqrt(dim))
         perm = torch.randperm(cands.shape[0], generator=generator, device=cands.device)
         restart_vecs = cands[perm[:n_embed]]
+        if group is not None:
+            P.broadcast_(restart_vecs, group)
         usage = (cluster_size_ema >= 1.0).float()
         embed_ema.copy_(embed_ema * usage[:, None] + restart_vecs * (1 - usage[:, None]))
         cluster_size_ema.copy_(cluster_size_ema * usage + (1 - usage))
@@ -135,12 +147,15 @@ class VQEmbedding(KeepFloat32):
 class RQBottleneck(nn.Module):
     """Residual quantization over `code_shape[-1]` depths.  `decay` (one per
     depth or shared) and `restart_unused_codes` drive the EMA update of
-    ``quantize(train=True)``."""
+    ``quantize(train=True)``; with a `group` that update runs across its
+    ranks (:func:`ema_codebook_update`)."""
 
     def __init__(self, latent_shape: Tuple[int, int, int],
                  code_shape: Tuple[int, int, int], n_embed=1024, decay=0.99,
-                 shared_codebook: bool = False, restart_unused_codes: bool = True):
+                 shared_codebook: bool = False, restart_unused_codes: bool = True,
+                 group: Optional[P.Group] = None):
         super().__init__()
+        self.group = group
         if any(l % c for l, c in zip(latent_shape[:2], code_shape[:2])):
             raise ValueError("incompatible code shape or latent shape")
         self.latent_shape = tuple(latent_shape)
@@ -200,7 +215,7 @@ class RQBottleneck(nn.Module):
                 ema_codebook_update(weight, book.cluster_size_ema, book.embed_ema, residual,
                                     idx, decay=self.decay_list[i],
                                     restart_unused_codes=self.restart_unused_codes,
-                                    generator=generator)
+                                    generator=generator, group=self.group)
             residual = residual - quant
             aggregated = aggregated + quant
             quant_list.append(aggregated)

@@ -251,9 +251,11 @@ class TDCRQVAE3(nn.Module):
     z_q, commitment loss, codes [B*T, h, w, depth]).  With `train` the
     quantizer takes its EMA codebook step (restarts drawn from the forward's
     `generator`); without it no buffer changes.  With `generator`, every
-    weight is initialized from it."""
+    weight is initialized from it.  `group`: the ranks over which the
+    quantizer's EMA update runs (data-parallel training)."""
 
-    def __init__(self, cfg: VQVAEConfig, generator: Optional[torch.Generator] = None):
+    def __init__(self, cfg: VQVAEConfig, generator: Optional[torch.Generator] = None,
+                 group=None):
         super().__init__()
         if cfg.loss_type not in ("mse", "l1"):
             raise ValueError(f"loss_type {cfg.loss_type!r} (choices: mse, l1)")
@@ -264,7 +266,7 @@ class TDCRQVAE3(nn.Module):
         self.encoder = Encoder3D(dd, num_frames=cfg.tf)
         self.decoder = Decoder3D(dd, num_frames=cfg.tf)
         self.quantizer = RQBottleneck(cfg.latent_shape, cfg.code_shape, cfg.n_embed, cfg.decay,
-                                      cfg.shared_codebook, cfg.restart_unused_codes)
+                                      cfg.shared_codebook, cfg.restart_unused_codes, group=group)
         self.quant_conv = nn.Conv2d(dd.z_channels, cfg.embed_dim, 1)
         self.post_quant_conv = nn.Conv2d(cfg.embed_dim, dd.z_channels, 1)
         if generator is not None:

@@ -14,6 +14,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from pgtformer_tpu_torch.nn.blocks import KeepFloat32, conv_nhwc
+from pgtformer_tpu_torch.parallel import group as P
 
 
 class BatchNorm(KeepFloat32):
@@ -26,10 +27,16 @@ class BatchNorm(KeepFloat32):
     running statistics by running = 0.9 * running + 0.1 * batch, also with
     the biased variance (``torch.nn.BatchNorm2d`` would store the unbiased
     one).  In eval mode it normalizes with the running statistics.  The
-    affine and the statistics stay fp32; the output has x's dtype."""
+    affine and the statistics stay fp32; the output has x's dtype.
+
+    With a `group` (flax's ``axis_name``), the batch mean and mean of squares
+    are the means over the ranks' batches (equal per rank), summed with a
+    gradient (``parallel.sync_sum``): synced batch statistics, which
+    ``torch.nn.SyncBatchNorm`` would give only on CUDA tensors."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
+        self.group = None
         self.eps = eps
         self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(num_features))
@@ -42,7 +49,11 @@ class BatchNorm(KeepFloat32):
         xf = x.float()
         if train:
             mean = xf.mean(dim=(0, 1, 2))
-            var = ((xf * xf).mean(dim=(0, 1, 2)) - mean * mean).clamp_min(0.0)
+            mean_sq = (xf * xf).mean(dim=(0, 1, 2))
+            if self.group is not None:
+                mean, mean_sq = P.sync_sum(torch.stack([mean, mean_sq]),
+                                           self.group) / self.group.world
+            var = (mean_sq - mean * mean).clamp_min(0.0)
             if update_stats:
                 with torch.no_grad():
                     m = self.momentum
@@ -63,7 +74,8 @@ class VQGANDiscriminator(nn.Module):
     In train mode every BatchNorm uses the batch's statistics and (with
     `update_stats`) advances its running ones, so a training step that runs
     the discriminator several times threads them from pass to pass, as the
-    JAX trainers thread `batch_stats`."""
+    JAX trainers thread `batch_stats`.  :meth:`set_group` syncs the
+    BatchNorms' batch statistics over the ranks of a group."""
 
     def __init__(self, nc: int = 3, ndf: int = 64, n_layers: int = 4):
         super().__init__()
@@ -78,6 +90,14 @@ class VQGANDiscriminator(nn.Module):
                    BatchNorm(ndf * mult), nn.LeakyReLU(0.2),
                    nn.Conv2d(ndf * mult, 1, 4, stride=1, padding=1)]
         self.main = nn.Sequential(*layers)
+
+    def set_group(self, group) -> "VQGANDiscriminator":
+        """Sync every BatchNorm's batch statistics over `group` (None: each
+        process its own); the JAX package's ``clone(axis_name=...)``."""
+        for m in self.modules():
+            if isinstance(m, BatchNorm):
+                m.group = group
+        return self
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 update_stats: bool = True) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """The four-stage training recipe: one training step per stage, on one
-device (PyTorch port of the JAX package's ``train/stages.py``).
+device or data-parallel across the ranks of a group (PyTorch port of the
+JAX package's ``train/stages.py``).
 
   * stage I   - TDCRQVAE3 VQGAN pretrain: L1 + LPIPS + 0.25 * commitment +
                 hinge GAN, EMA codebook (:class:`Stage1Trainer`);
@@ -29,6 +30,18 @@ On the card the forwards launch the hand-written kernels (K1, K5, K6, or
 K3/K4/K2 under their plans); their backwards recompute through the plain
 versions (``ops/sw_block.py``, ``ops/dense_mha.py``), so a backward launches
 no kernel.  The fused decoder tail (``FUSED_TAIL``) stays inference-only.
+
+With a ``group`` of ranks (``parallel/group.py``; the JAX package's mesh,
+its ``shard_map`` and ``_pmean_if``) every rank builds the same trainer,
+``init_state`` takes rank 0's modules on every rank, and each step takes
+the rank's rows of the global batch: the gradients of each optimizer are
+averaged over the ranks after the backward (one all-reduce of its
+flattened gradient; ``DistributedDataParallel`` would rename the state
+dict's keys and need unused-parameter detection for the frozen parts), as
+are the metrics; the codebook's EMA statistics are summed and rank 0's
+restart vectors taken (``models/quantizer.py``), and the discriminator's
+BatchNorms sync their batch statistics (``models/vqgan.py``).  Every rank
+then holds the same parameters, optimizer state and buffers.
 """
 
 from __future__ import annotations
@@ -48,6 +61,7 @@ from pgtformer_tpu_torch.models.quantizer import VQEmbedding
 from pgtformer_tpu_torch.models.vae import TDCRQVAE3
 from pgtformer_tpu_torch.models.vqgan import VQGANDiscriminator
 from pgtformer_tpu_torch.nn.blocks import init_weights
+from pgtformer_tpu_torch.parallel import group as P
 from pgtformer_tpu_torch.train import losses as L
 from pgtformer_tpu_torch.train.ema import ema_init, ema_update
 from pgtformer_tpu_torch.train.schedule import make_adam, multistep_with_warmup
@@ -149,11 +163,15 @@ class _Trainer:
     model: nn.Module
     disc: Optional[VQGANDiscriminator]
 
-    def __init__(self, hp: StageHyper, lpips_fn: Optional[Callable], device, dtype: torch.dtype):
+    def __init__(self, hp: StageHyper, lpips_fn: Optional[Callable], device, dtype: torch.dtype,
+                 group: Optional[P.Group] = None):
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype {dtype} (choices: float32, bfloat16)")
+        if group is not None and device is not None and torch.device(device) != group.device:
+            raise ValueError(f"device {device} is not the group's {group.device}")
         self.hp = hp
-        self.device = resolve_device(device)
+        self.group = group if group is not None and group.world > 1 else None
+        self.device = group.device if group is not None else resolve_device(device)
         self.dtype = dtype
         self.lpips_fn = lpips_fn
         self.hinge = L.HingeGANLoss("hinge", hp.gan_weight)
@@ -178,8 +196,13 @@ class _Trainer:
 
     def _make_state(self, rng_seed: int, frozen: Sequence[str] = ()) -> TrainState:
         """Freeze, build the optimizers and the state over the modules as
-        they now stand on the device."""
+        they now stand on the device (with a group: as they stand on rank
+        0)."""
         hp = self.hp
+        if self.group is not None:
+            nets = [m for m in (self.model, getattr(self, "teacher", None), self.disc)
+                    if m is not None]
+            P.broadcast_tensors_([t for m in nets for t in m.state_dict().values()], self.group)
         cb_weights, cb_tensors = _codebook_names(self.model)
         mask = trainable_mask(self.model, frozen)
         named = dict(self.model.named_parameters())
@@ -216,10 +239,26 @@ class _Trainer:
             raise ValueError("this state was not made by this trainer's init_state "
                              "(its tensors are the trainer's modules' own)")
 
+    def _mean_grads(self, params) -> None:
+        """With a group: each gradient replaced by its mean over the ranks
+        (the JAX package's ``_pmean_if`` of the gradients)."""
+        if self.group is not None:
+            P.mean_tensors_([p.grad for p in params if p.grad is not None], self.group)
+
+    def _metrics(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Detached fp32 scalars; with a group, their means over the ranks."""
+        out = {k: torch.as_tensor(v, device=self.device).detach().float()
+               for k, v in metrics.items()}
+        if self.group is not None:
+            P.mean_tensors_(list(out.values()), self.group)
+        return out
+
     def _g_update(self, state: TrainState, total: torch.Tensor) -> None:
         """Backward of the generator's loss into its trainable parameters
-        only, then Adam, the schedule and the EMA."""
+        only (their gradients averaged over a group's ranks), then Adam, the
+        schedule and the EMA."""
         total.backward(inputs=self._g_trainable)
+        self._mean_grads(self._g_trainable)
         self.opt_g.step()
         self.sched_g.step()
         ema_update(state.g.ema_params, state.g.params, self.hp.ema_decay)
@@ -234,6 +273,7 @@ class _Trainer:
             fake_logits = self.disc(fake.detach(), train=True)
         loss = self.hinge.d_loss(real_logits, fake_logits)
         loss.backward()
+        self._mean_grads(self.disc.parameters())
         self.opt_d.step()
         self.sched_d.step()
         return loss.detach()
@@ -255,16 +295,19 @@ class Stage1Trainer(_Trainer):
     """VQGAN pretrain of the temporal RQ-VAE (reference stage I).
 
     `lpips_fn`: ``train/lpips.py:make_lpips_fn()`` or None (no perceptual
-    term).  `dtype`: the compute dtype (fp32, or bf16 under autocast)."""
+    term).  `dtype`: the compute dtype (fp32, or bf16 under autocast).
+    `group`: train data-parallel over its ranks (module docstring); the
+    device is then the group's."""
 
     def __init__(self, cfg: VQVAEConfig, hp: StageHyper = STAGE_HYPERS["I"],
                  lpips_fn: Optional[Callable] = None, device=None,
                  dtype: torch.dtype = torch.float32,
-                 disc: Optional[VQGANDiscriminator] = None):
-        super().__init__(hp, lpips_fn, device, dtype)
+                 disc: Optional[VQGANDiscriminator] = None,
+                 group: Optional[P.Group] = None):
+        super().__init__(hp, lpips_fn, device, dtype, group)
         self.cfg = cfg
-        self.model = TDCRQVAE3(cfg)
-        self.disc = disc if disc is not None else VQGANDiscriminator()
+        self.model = TDCRQVAE3(cfg, group=self.group)
+        self.disc = (disc if disc is not None else VQGANDiscriminator()).set_group(self.group)
 
     def init_state(self, generator: torch.Generator, state_dict: Optional[Mapping] = None,
                    disc_state_dict: Optional[Mapping] = None) -> TrainState:
@@ -323,7 +366,7 @@ class Stage1Trainer(_Trainer):
                    "l_g_gan": l_gan, "l_g_total": total, "l_d": l_d}
         if hp.gan_weight_mode == "adaptive":
             metrics["d_weight"] = d_weight
-        return self._finish(state), {k: v.detach().float() for k, v in metrics.items()}
+        return self._finish(state), self._metrics(metrics)
 
 
 class PGTFormerTrainer(_Trainer):
@@ -338,16 +381,17 @@ class PGTFormerTrainer(_Trainer):
     def __init__(self, cfg: PGTFormerConfig, stage: str = "III",
                  hp: Optional[StageHyper] = None, lpips_fn: Optional[Callable] = None,
                  device=None, dtype: torch.dtype = torch.float32,
-                 disc: Optional[VQGANDiscriminator] = None):
+                 disc: Optional[VQGANDiscriminator] = None,
+                 group: Optional[P.Group] = None):
         if stage not in ("II", "III", "IV"):
             raise ValueError(f"stage {stage!r} (choices: II, III, IV)")
-        super().__init__(hp or STAGE_HYPERS[stage], lpips_fn, device, dtype)
+        super().__init__(hp or STAGE_HYPERS[stage], lpips_fn, device, dtype, group)
         self.cfg = cfg
         self.stage = stage
         self.code_only = stage == "II"
         self.model = PGTFormer(cfg)
         self.teacher = TDCRQVAE3(cfg.vqvae)
-        self.disc = ((disc if disc is not None else VQGANDiscriminator())
+        self.disc = ((disc if disc is not None else VQGANDiscriminator()).set_group(self.group)
                      if self.hp.use_gan else None)
 
     def frozen_modules(self) -> List[str]:
@@ -455,4 +499,4 @@ class PGTFormerTrainer(_Trainer):
         metrics["l_g_total"] = total
         if gan:
             metrics["l_d"] = self._d_step(gt_flat, out)
-        return self._finish(state), {k: v.detach().float() for k, v in metrics.items()}
+        return self._finish(state), self._metrics(metrics)

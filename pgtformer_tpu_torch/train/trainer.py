@@ -16,6 +16,13 @@ the clock stops while a checkpoint is written or validation runs.  The
 time the loop waits for each batch, each checkpoint's seconds and bytes,
 the restore's, and each validation's seconds and peak device memory go to
 ``timings.jsonl`` (one line per ``fit``) and to the log.
+
+Under data parallelism (`group`) every rank runs the loop on its rows of
+each batch and restores the same state; rank 0 alone writes the states,
+exports, ``metrics.jsonl``, ``timings.jsonl``, TensorBoard and the
+validation (its images and metrics, from the EMA weights every rank
+holds), and the others wait for it at a barrier after each save and each
+validation.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from typing import Any, Callable, Iterator, Optional
 
 import torch
 
+from pgtformer_tpu_torch.parallel import group as P
 from pgtformer_tpu_torch.utils.checkpoint import CheckpointManager, generator_export
 from pgtformer_tpu_torch.utils.logging import TBLogger, get_root_logger
 
@@ -36,21 +44,24 @@ class Trainer:
     """`loader`, when given (``data/loader.py:PrefetchLoader``), is the
     source of `batches`: its position is saved with each checkpoint and, on
     resume, read back to start the loader where the saved run stood; its
-    batch assembly times are reported."""
+    batch assembly times are reported.  `group`: the ranks of a
+    data-parallel run (module docstring)."""
 
     def __init__(self, stage_trainer, exp_dir: str,
                  print_freq: int = 100,
                  save_checkpoint_freq: int = 10000,
                  val_freq: int = 20000,
                  use_tb_logger: bool = True,
-                 loader=None):
+                 loader=None, group: Optional[P.Group] = None):
+        self.group = group if group is not None and group.world > 1 else None
+        self.writes = self.group is None or self.group.rank == 0
         self.stage = stage_trainer
         self.exp_dir = exp_dir
         self.print_freq = print_freq
         self.save_freq = save_checkpoint_freq
         self.val_freq = val_freq
         self.logger = get_root_logger()
-        self.tb = TBLogger(f"{exp_dir}/tb" if use_tb_logger else None)
+        self.tb = TBLogger(f"{exp_dir}/tb" if use_tb_logger and self.writes else None)
         self.ckpt = CheckpointManager(exp_dir)
         self.loader = loader
 
@@ -64,6 +75,12 @@ class Trainer:
             self.ckpt.export_params_ema(step, self.stage.disc.state_dict(), prefix="net_d")
 
     def _save(self, step, state, timings):
+        if self.writes:
+            self._write(step, state, timings)
+        if self.group is not None:
+            P.barrier(self.group)
+
+    def _write(self, step, state, timings):
         t0 = time.perf_counter()
         pos = self.loader.position_at(step) if self.loader is not None else None
         _, nbytes = self.ckpt.save(step, state, self.stage, loader_position=pos)
@@ -77,11 +94,19 @@ class Trainer:
 
     def _append_jsonl(self, rec: dict, name: str = "metrics.jsonl"):
         """Machine-readable training curve (exp_dir/metrics.jsonl)."""
+        if not self.writes:
+            return
         os.makedirs(self.exp_dir, exist_ok=True)
         with open(os.path.join(self.exp_dir, name), "a") as f:
             f.write(json.dumps(rec) + "\n")
 
     def _validate(self, val_fn, state, step, timings):
+        if self.writes:
+            self._run_val(val_fn, state, step, timings)
+        if self.group is not None:
+            P.barrier(self.group)
+
+    def _run_val(self, val_fn, state, step, timings):
         cuda = self.stage.device.type == "cuda"
         if cuda:
             torch.cuda.synchronize(self.stage.device)

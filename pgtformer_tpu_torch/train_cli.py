@@ -17,12 +17,19 @@ where it stopped.  Stage II–IV runs chain through the exports:
 ``--teacher-ckpt``/``--student-ckpt`` take a previous stage's
 ``net_g_<step>.pth``, ``--disc-ckpt`` its ``net_d_<step>.pth``.
 
+``--devices N`` trains data-parallel over min(N, cards) cards, as the JAX
+package's CLI does over its devices: the global batch is N times the
+per-device batch, and the CLI spawns one process per card itself
+(``parallel.spawn``; NCCL, each rank on ``cuda:<rank>``).  Under
+``--device cpu`` it spawns N ranks on the CPU over gloo.  Each rank's loader
+assembles only its rows of each global batch, and rank 0 alone writes the
+experiment directory (``train/trainer.py``).
+
 Differences from the JAX package's CLI:
 
-  * ``--devices N`` with N > 1 raises: data-parallel training (DDP, with
-    the all-reduce of the codebook statistics) is not ported yet (ROADMAP
-    A.3).  There is no ``--pallas``: on a CUDA tensor the kernels always
-    run.
+  * There is no ``--pallas``: on a CUDA tensor the kernels always run.
+  * ``--devices`` counts processes (one per card), not the devices of one
+    controller, and defaults to 1 (the JAX CLI takes every device).
   * Resuming stage II–IV needs ``--teacher-ckpt``: the frozen teacher is no
     part of the training state (in either package), and the JAX package's
     resume builds only an abstract teacher that no step can run.
@@ -80,12 +87,13 @@ def detect_stage(opt: dict, options_path: str) -> str:
 
 
 def build_from_options(opt: dict, stage: str, data_root: str = None,
-                       lpips_fn=None, dtype=None, device=None):
+                       lpips_fn=None, dtype=None, device=None, group=None):
     """(stage trainer, StageHyper) from an option tree: the YAML's `train:`
     subtree overrides the stage's defaults, and its loss blocks pick the
     loss recipe.  Unlike the JAX package, the `network_d` block's `nc`,
     `ndf` and `n_layers` size the discriminator (the reference builds it
-    from that block; every YAML in configs/ names only its type)."""
+    from that block; every YAML in configs/ names only its type).  `group`:
+    the ranks of a data-parallel run."""
     import torch
     from pgtformer_tpu_torch.config import (
         pgtformer_config_from_options, vqvae_config_from_options)
@@ -148,15 +156,15 @@ def build_from_options(opt: dict, stage: str, data_root: str = None,
     if stage == "I":
         cfg = vqvae_config_from_options(opt, network_key="network_g")
         trainer = Stage1Trainer(cfg, hp, lpips_fn=lpips_fn, device=device, dtype=dtype,
-                                disc=disc)
+                                disc=disc, group=group)
     else:
         cfg = pgtformer_config_from_options(opt, network_key="network_g")
         trainer = PGTFormerTrainer(cfg, stage=stage, hp=hp, lpips_fn=lpips_fn,
-                                   device=device, dtype=dtype, disc=disc)
+                                   device=device, dtype=dtype, disc=disc, group=group)
     return trainer, hp
 
 
-def main(argv=None):
+def _parse(argv):
     parser = argparse.ArgumentParser(description="pgtformer_tpu_torch trainer")
     parser.add_argument("-opt", "--options", required=True,
                         help="reference-style option YAML")
@@ -195,8 +203,10 @@ def main(argv=None):
                              "val loop (PSNR/SSIM + saved images)")
     parser.add_argument("--val-samples", type=int, default=8)
     parser.add_argument("--devices", type=int, default=None,
-                        help="number of cards (only 1: data-parallel "
-                             "training is not ported yet)")
+                        help="train data-parallel on the first N cards (at "
+                             "most the cards present; default 1), one "
+                             "process each; with --device cpu, N ranks on "
+                             "the CPU")
     parser.add_argument("--num-workers", type=int, default=None,
                         help="loader workers (default: YAML "
                              "num_worker_per_gpu); 0 = synchronous")
@@ -215,12 +225,60 @@ def main(argv=None):
     knobs.add_cli_flags(parser)
     args = parser.parse_args(argv)
     knobs.apply_cli_args(args)
+    return parser, args
 
-    if args.devices is not None and args.devices > 1:
-        raise SystemExit("--devices > 1: data-parallel training (DDP with the "
-                         "codebook statistics' all-reduce) is not ported yet "
-                         "(ROADMAP A.3); train on one card")
 
+def main(argv=None):
+    parser, args = _parse(argv)
+    n_dev = _world(args)
+    if n_dev > 1:
+        # one process per device; each parses `argv` again and joins the group
+        import torch
+        from pgtformer_tpu_torch.parallel import spawn
+        argv = list(argv) if argv is not None else sys.argv[1:]
+        try:
+            results = spawn(_rank_main, n_dev, args=(argv, torch.get_num_threads()))
+        except RuntimeError as e:
+            raise SystemExit(f"data-parallel training on {n_dev} ranks failed: {e}") from None
+        return max(results)
+    return _train(args, parser, None)
+
+
+def _world(args) -> int:
+    """Ranks of the run: `--devices`, at most the cards present on the card
+    (as the JAX CLI takes at most the devices present), as asked on the
+    CPU."""
+    if args.devices is None:
+        return 1
+    if args.devices < 1:
+        raise SystemExit(f"--devices {args.devices}: at least 1")
+    if args.device is not None and not str(args.device).startswith("cuda"):
+        return args.devices
+    import torch
+    return max(1, min(args.devices, torch.cuda.device_count()))
+
+
+RANK_TIMEOUT_S = 1800.0   # a collective or barrier waits this long for the other ranks
+
+
+def _rank_main(rank: int, world: int, store: str, argv, threads: int) -> int:
+    """One rank of `main`'s run; on the CPU the ranks share the parent's
+    torch threads."""
+    from pgtformer_tpu_torch import parallel
+    parser, args = _parse(argv)
+    import torch
+    cpu = args.device is not None and not str(args.device).startswith("cuda")
+    if cpu:
+        torch.set_num_threads(max(1, threads // world))
+    group = parallel.init_group(rank, world, store, device="cpu" if cpu else f"cuda:{rank}",
+                                timeout_s=RANK_TIMEOUT_S)
+    try:
+        return _train(args, parser, group)
+    finally:
+        parallel.destroy_group()
+
+
+def _train(args, parser, group) -> int:
     import torch
     from pgtformer_tpu_torch import resolve_device
     from pgtformer_tpu_torch.config import load_options
@@ -234,10 +292,13 @@ def main(argv=None):
         CheckpointManager, merge_pretrained, read_export)
     from pgtformer_tpu_torch.utils.logging import get_root_logger
 
-    device = resolve_device(args.device)
+    device = group.device if group is not None else resolve_device(args.device)
     if device.type == "cuda" and not args.bf16:
         parser.error("training on the card needs --bf16: the CUDA kernels take bf16")
+    world, rank = (group.world, group.rank) if group is not None else (1, 0)
     logger = get_root_logger()
+    if rank:
+        logger.setLevel("WARNING")      # rank 0 reports
     opt = load_options(args.options)
     stage = args.stage or detect_stage(opt, args.options)
     exp_dir = args.exp_dir or f"exp/{opt.get('name', 'run')}"
@@ -247,10 +308,10 @@ def main(argv=None):
         weights_path=args.lpips_weights, device=device)
     trainer, hp = build_from_options(
         opt, stage, args.data_root, lpips_fn=lpips_fn,
-        dtype=torch.bfloat16 if args.bf16 else torch.float32, device=device)
+        dtype=torch.bfloat16 if args.bf16 else torch.float32, device=device, group=group)
 
     ds_opt = opt.get("datasets", {}).get("train", {})
-    batch = args.batch_size or int(ds_opt.get("batch_size_per_gpu", 1))
+    batch = (args.batch_size or int(ds_opt.get("batch_size_per_gpu", 1))) * world
     dataset = VFHQTrainDataset(
         args.data_root, r=int(ds_opt.get("r", 1)),
         is_aligned=bool(ds_opt.get("is_aligned", False)),
@@ -264,7 +325,7 @@ def main(argv=None):
         num_workers=num_workers, prefetch=args.prefetch,
         backend="sync" if num_workers == 0 else "thread",
         keys=("gt",) if stage == "I" else ("gt", "lq"),
-        reseed_dataset=True)
+        reseed_dataset=True, shard=(rank, world) if group is not None else None)
     if len(loader) == 0:
         raise SystemExit(f"{args.data_root}: {len(dataset)} samples, fewer than one batch "
                          f"of {batch}")
@@ -354,7 +415,7 @@ def main(argv=None):
                    save_checkpoint_freq=int(float(log_opt.get("save_checkpoint_freq", 1e4))),
                    val_freq=int(float(opt.get("val", {}).get("val_freq", 2e4))),
                    use_tb_logger=bool(log_opt.get("use_tb_logger", True)),
-                   loader=loader)
+                   loader=loader, group=group)
     batches = epoch_repeat(iter_batches)
     try:
         loop.fit(state, batches, total_iter=args.total_iter or hp.total_iter, val_fn=val_fn)

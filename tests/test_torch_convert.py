@@ -100,13 +100,15 @@ def test_import_with_jax_blocked():
                 "pgtformer_tpu_torch.eval.landmarks", "pgtformer_tpu_torch.eval.arcface",
                 "pgtformer_tpu_torch.io.native", "pgtformer_tpu_torch.io.video",
                 "pgtformer_tpu_torch.utils.profiling", "pgtformer_tpu_torch.eval.vmaf",
-                "pgtformer_tpu_torch.profile_stages", "pgtformer_tpu_torch.bench_encode"):
+                "pgtformer_tpu_torch.profile_stages", "pgtformer_tpu_torch.bench_encode",
+                "pgtformer_tpu_torch.parallel", "pgtformer_tpu_torch.parallel.group"):
         assert new in mods
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'flax', 'orbax', 'pgtformer_tpu'):\n"
             "    sys.modules[m] = None\n"
             + "".join(f"import {m}\n" for m in mods)
             + "import chip_smoke\n"
+            "import tests.torch_parallel_workers\n"
             "assert not any(k == 'jax' or k.startswith(('jax.', 'flax', 'orbax', 'pgtformer_tpu.'))\n"
             "               for k in sys.modules if sys.modules[k] is not None)\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -125,7 +127,10 @@ def _imported_modules(path: Path):
 
 
 def test_no_jax_or_reference_package_imports():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    """The port, chip_smoke.py and the rank functions that the parallel
+    tests spawn (tests/torch_parallel_workers.py) import no JAX."""
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                          REPO / "tests" / "torch_parallel_workers.py"]
     assert len(files) > 10
     for new in ("knobs.py", "ops/vq.py", "models/vae.py", "models/quantizer.py",
                 "models/vqgan.py", "ops/autograd.py", "train/stages.py", "train/lpips.py", "train/losses.py",
@@ -135,7 +140,7 @@ def test_no_jax_or_reference_package_imports():
                 "data/degradations.py", "data/align.py", "eval/metrics.py", "eval_cli.py",
                 "eval/niqe.py", "eval/landmarks.py", "eval/arcface.py", "io/native.py",
                 "io/video.py", "utils/profiling.py", "eval/vmaf.py", "profile_stages.py",
-                "bench_encode.py"):
+                "bench_encode.py", "parallel/__init__.py", "parallel/group.py"):
         assert PORT / new in files
     for f in files:
         for mod in _imported_modules(f):

@@ -34,7 +34,9 @@ same step in fp32 on the CPU: every metric within 5e-2 of max(|CPU value|,
 A checkpoint of that trainer on the card restores bit for bit (modules,
 EMA, Adam's device tensors, schedulers, the CUDA generator), and the next
 step after the restore meets the same metric tolerance against the step
-taken without the save.
+taken without the save.  Two ranks on the one card (gloo, spawned, the
+collectives staged through host memory) serve the small model bit-equal
+to one process at B/2.
 """
 
 import numpy as np
@@ -977,3 +979,35 @@ def test_restore_video_on_the_card(tmp_path):
         assert [w.launches - b for w, b in zip(wrappers, before)] == per_3_steps
         assert stats["frames"] == 10 and len(frames) == 10
         assert np.array_equal(np.stack(frames), ref), inflight
+
+
+def test_sharded_serving_two_ranks_on_one_card(tmp_path):
+    """Two gloo ranks spawned on the one card serve the small bf16 model
+    (seeded weights, B=4: 2 windows a rank, 3 chunks): rank 0's gathered
+    frames bit-equal to one process at batch_windows=2 over the same frames,
+    and each rank launches per step the K1 and K6 of that process's step."""
+    dev = _card()
+    from pgtformer_tpu_torch import parallel
+    from pgtformer_tpu_torch import pipeline
+    from pgtformer_tpu_torch.config import DDConfig, PGTFormerConfig, VQVAEConfig
+    from tests import torch_parallel_workers as W
+    dd = DDConfig(z_channels=32, resolution=32, ch=32, ch_mult=(1, 2), depths=(2, 2),
+                  num_heads=(4, 4), window_sizes=((4, 4), (4, 4)), attn_resolutions=(16,))
+    cfg = PGTFormerConfig(vqvae=VQVAEConfig(ddconfig=dd, embed_dim=32, n_embed=64,
+                                            latent_shape=(16, 16, 32), code_shape=(16, 16, 1)),
+                          dim_embd=64, n_head=4, n_layers=2, connect_list=("16", "32"),
+                          w=1.0, adain=True)
+    frames = np.random.default_rng(4).integers(0, 256, (13, 32, 32, 3), dtype=np.uint8)
+    kw = dict(state_dict=None, cfg=cfg, frames=frames, B=4, dtype=torch.bfloat16, seed=3)
+    ranks = parallel.spawn(W.serve, 2, args=(kw, "cuda"), timeout_s=300,
+                           store_dir=str(tmp_path))
+    r = pipeline.VideoRestorer(None, cfg, batch_windows=2, dtype=torch.bfloat16, device=dev,
+                               seed=3)
+    r.prime(frames[0])
+    before = sw_block.launches, dense_mha_bnhd.launches
+    ref = np.concatenate([r.restore_chunk(frames[1 + 2 * c:3 + 2 * c]).cpu().numpy()
+                          for c in range(6)])
+    per_rank = ((sw_block.launches - before[0]) // 2, (dense_mha_bnhd.launches - before[1]) // 2)
+    assert per_rank[0] > 0 and per_rank[1] == 6
+    assert [tuple(x["launches"]) for x in ranks] == [per_rank, per_rank]
+    assert np.array_equal(ranks[0]["frames"], ref)

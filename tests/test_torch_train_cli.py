@@ -251,13 +251,14 @@ def test_resume_is_exact(runs, stage):
 
 
 def test_train_cli_refusals(runs, tmp_path):
-    """--devices 2, a stage-III resume without --teacher-ckpt, an orbax
-    export directory as a checkpoint, a dataset smaller than one batch, and
-    a resume with another batch size (which would place the restored step
-    elsewhere in the epochs) are refused."""
+    """--devices 2 with a global batch (2 ranks x 4) larger than the dataset
+    (a rank's refusal fails the run), a stage-III resume without
+    --teacher-ckpt, an orbax export directory as a checkpoint, a dataset
+    smaller than one batch, and a resume with another batch size (which
+    would place the restored step elsewhere in the epochs) are refused."""
     root, run = runs
-    with pytest.raises(SystemExit, match="ROADMAP A.3"):
-        run("I", "refused", "--devices", "2")
+    with pytest.raises(SystemExit, match="fewer than one batch of 8"):
+        run("I", "refused", "--devices", "2", "--batch-size", "4", "--no-lpips")
     os.makedirs(root / "exp" / "resume_III")
     (root / "exp" / "resume_III" / "latest").write_text("2")
     with pytest.raises(SystemExit, match="needs --teacher-ckpt"):
