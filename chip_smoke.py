@@ -48,6 +48,18 @@ Phases, in order; any failure exits non-zero:
     TDCRQVAE3 (latent error, code agreement, forced-code decode); and a
     small PGTFormer whose geometry passes the fused tail's guard, under
     FUSED_TAIL=1: CUDA bf16 (kernels) against CPU bf16 (the plain chain);
+ 7b. the secondary architectures (`phase_secondary`, after phase 7): K6 and
+    K2 at CodeFormer's [4, 256, 8, 64] against their plain versions; RQVAE
+    (2 x 512x512, the release YAML's autoencoder: 1 K5), TDRQVAE (1 clip x 3
+    frames, with its 3-D Swin layers: 1 K5), VQAutoEncoder (4 x 512x512, the
+    published VQGAN: no kernel), CodeFormer (4 x 512x512, w=0.5, AdaIN: 9
+    K6) and DecoderLayer (2 x 3 x 32x32 x 512: no kernel) at full width in
+    bf16, seeded weights: exact launches, shapes, finite values, codes in
+    range, forward ms (CUDA events) and peak memory; K5 against its plain
+    version on RQVAE's 2 x 1024 and TDRQVAE's 3 x 1024 latent rows; the
+    full-width CodeFormer on one image against the port's CPU fp32; each
+    model at a small geometry, CUDA bf16 against CPU fp32 (the SMALL_*
+    limits; code agreement against a CPU bf16 run of the plain versions);
  8. the kernels' gradients (after phase 3, before the serving step): each
     autograd Function (K1 at the six K1_CASES and at the training step's
     three B=1 shapes with both shifts, K3 and K4 at one serving shape and at
@@ -150,8 +162,8 @@ Phases, in order; any failure exits non-zero:
     lines;
 14. a JSON line of kernel numbers (each with its backward route, its
     launches per training step, in the training run, in evaluation, on
-    the file path and per rank in phase_multi), then the device JSON as
-    the last line.
+    the file path, per rank in phase_multi and per full-width forward of
+    each secondary architecture), then the device JSON as the last line.
 
 Launch counts are set to 0 just before each path is driven and read just
 after it; launches made to compare or time a kernel do not count.
@@ -569,6 +581,35 @@ def _fp64_gap(x, codes, a, b):
     return (da - db).abs(), (da - db).abs() / db
 
 
+def _k5_check(what, xs, cs, need_rate=True, tag="k5"):
+    """K5 against its plain version on (xs, cs): indices in range, agreement
+    on >= K5_AGREE of the rows (unless `need_rate` is off), every other row
+    a near-tie in fp64.  Returns (rows differing, worst absolute and
+    relative fp64 gap)."""
+    import torch
+    from pgtformer_tpu_torch.ops.vq import nearest_code, nearest_code_plain
+    out = nearest_code(xs, cs)
+    ref = nearest_code_plain(xs, cs)
+    torch.cuda.synchronize()
+    if out.dtype != torch.int64 or out.shape != (xs.shape[0],):
+        raise SystemExit(f"K5 {what}: output {out.dtype} {tuple(out.shape)}")
+    if int(out.min()) < 0 or int(out.max()) >= cs.shape[0]:
+        raise SystemExit(f"K5 {what}: index out of range")
+    differ = torch.nonzero(out != ref).flatten()
+    agree = 1.0 - len(differ) / xs.shape[0]
+    abs_gap = gap = 0.0
+    if len(differ):
+        ag, rg = _fp64_gap(xs[differ], cs, out[differ], ref[differ])
+        abs_gap, gap = ag.max().item(), rg.max().item()
+    ok = (agree >= K5_AGREE or not need_rate) and gap <= K5_NEAR_TIE
+    log(f"[{tag}] {what}: x{list(xs.shape)} codes{list(cs.shape)} agreement={agree:.6f} "
+        f"({f'need >= {K5_AGREE}' if need_rate else 'no rate asked'}) rows_differing={len(differ)} worst_fp64_gap={gap:.3e} "
+        f"(need <= {K5_NEAR_TIE}) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"K5 {what} disagrees with its plain version")
+    return len(differ), abs_gap, gap
+
+
 def phase_k5(iters: int):
     """K5 at the deployed shape (8 clips x 3 frames x 32x32 latents against
     the 1024 x 512 codebook), a ragged shape and an exact tie."""
@@ -578,28 +619,7 @@ def phase_k5(iters: int):
     g = torch.Generator(device="cuda").manual_seed(11)
     x = torch.randn((N, D), generator=g, device="cuda")
     codes = torch.randn((n, D), generator=g, device="cuda")
-
-    def check(what, xs, cs, need_rate=True):
-        out = nearest_code(xs, cs)
-        ref = nearest_code_plain(xs, cs)
-        torch.cuda.synchronize()
-        if out.dtype != torch.int64 or out.shape != (xs.shape[0],):
-            raise SystemExit(f"K5 {what}: output {out.dtype} {tuple(out.shape)}")
-        if int(out.min()) < 0 or int(out.max()) >= cs.shape[0]:
-            raise SystemExit(f"K5 {what}: index out of range")
-        differ = torch.nonzero(out != ref).flatten()
-        agree = 1.0 - len(differ) / xs.shape[0]
-        abs_gap = gap = 0.0
-        if len(differ):
-            ag, rg = _fp64_gap(xs[differ], cs, out[differ], ref[differ])
-            abs_gap, gap = ag.max().item(), rg.max().item()
-        ok = (agree >= K5_AGREE or not need_rate) and gap <= K5_NEAR_TIE
-        log(f"[k5] {what}: x{list(xs.shape)} codes{list(cs.shape)} agreement={agree:.6f} "
-            f"({f'need >= {K5_AGREE}' if need_rate else 'no rate asked'}) rows_differing={len(differ)} worst_fp64_gap={gap:.3e} "
-            f"(need <= {K5_NEAR_TIE}) {'OK' if ok else 'FAIL'}")
-        if not ok:
-            raise SystemExit(f"K5 {what} disagrees with its plain version")
-        return len(differ), abs_gap, gap
+    check = _k5_check
 
     n_diff, abs_gap, gap = check("deployed shape", x, codes)
     check("training shape (1 clip x 3 frames)", x[:TRAIN_VQ_ROWS], codes)
@@ -1211,6 +1231,324 @@ def phase_small_vae():
         f"mean|d|/max|ref|={out_err:.3e} (tol {SMALL_OUT_TOL}) {'OK' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("small-geometry TDCRQVAE3 check failed")
+
+
+# -- the secondary architectures (ROADMAP A.6) -----------------------------------
+
+# Full-width runs: name -> (input shape, kernel launches per forward).  RQVAE
+# and TDRQVAE quantize through RQBottleneck (K5, one depth); CodeFormer's 9
+# TransformerSALayers run K6 over its 16x16 = 256 latent tokens; the
+# VQAutoEncoder's quantizer and AttnBlock2D and the DecoderLayer's cross
+# blocks are plain PyTorch (JAX computes them with XLA too).
+SECONDARY_RUNS = {"RQVAE": ((2, 512, 512, 3), dict(vq_nearest=1)),
+                  "TDRQVAE": ((1, 3, 512, 512, 3), dict(vq_nearest=1)),
+                  "VQAutoEncoder": ((4, 512, 512, 3), {}),
+                  "CodeFormer": ((4, 512, 512, 3), dict(dense_mha_bnhd=9)),
+                  "DecoderLayer": ((2, 3, 32, 32, 512), {})}
+SECONDARY_W = 0.5        # CodeFormer's fidelity weight (adain on), as users run it
+
+
+def _rel(a, b) -> float:
+    """||a - b|| / ||b||, a on any device, b on the CPU."""
+    a = a.float().cpu()
+    return ((a - b.float()).norm() / b.float().norm()).item()
+
+
+class _ForcedCodes:
+    """A forward hook on CodeFormer's idx_pred_layer that replaces the
+    logits by a one-hot of given codes, so the decode of two runs can be
+    compared on the same codes."""
+
+    def __init__(self, model, codes):
+        self.codes = codes
+        self.handle = model.idx_pred_layer.register_forward_hook(self)
+
+    def __call__(self, module, inputs, out):
+        import torch.nn.functional as F
+        return F.one_hot(self.codes.to(out.device), out.shape[-1]).to(out.dtype)
+
+    def remove(self):
+        self.handle.remove()
+
+
+def _secondary_models(small: bool):
+    """name -> (build(generator) -> CPU fp32 model, input shape, forward(model,
+    x) -> outputs).  Full width: the release YAML's autoencoder for RQVAE and
+    TDRQVAE (its stages_atten 4, window (5,5,5), 8 heads), the published
+    VQGAN and CodeFormer (the class defaults), the decoder's 32x32 level of
+    width 512 for DecoderLayer.  Small: the small-model geometry."""
+    import dataclasses
+    from pgtformer_tpu_torch.config import RELEASE_PGTFORMER
+    from pgtformer_tpu_torch.models.codeformer import CodeFormer
+    from pgtformer_tpu_torch.models.rqvae import RQVAE
+    from pgtformer_tpu_torch.models.tdrqvae import TDRQVAE
+    from pgtformer_tpu_torch.models.vqgan import VQAutoEncoder
+    from pgtformer_tpu_torch.nn.blocks import DecoderLayer, init_weights
+    if not small:
+        vq = RELEASE_PGTFORMER.vqvae
+        ae, cf = {}, {}
+        dec = (512, 2, 8, 3, (4, 4))
+        shapes = {k: v[0] for k, v in SECONDARY_RUNS.items()}
+    else:
+        vq = _small_config().vqvae
+        vq = dataclasses.replace(vq, ddconfig=dataclasses.replace(
+            vq.ddconfig, stages_atten=2, window_size=(2, 4, 4), num_head=4))
+        ae = dict(img_size=32, nf=32, ch_mult=(1, 2), res_blocks=1, attn_resolutions=(16,),
+                  codebook_size=64, emb_dim=32)
+        cf = dict(dim_embd=64, n_head=4, n_layers=2, codebook_size=64, latent_size=64,
+                  connect_list=("16", "32", "64"), img_size=64, nf=32, ch_mult=(1, 2, 2, 4),
+                  res_blocks=1, attn_resolutions=(8,), emb_dim=32)
+        dec = (32, 2, 4, 3, (4, 4))
+        shapes = {"RQVAE": (2, 32, 32, 3), "TDRQVAE": (2, 3, 32, 32, 3),
+                  "VQAutoEncoder": (2, 32, 32, 3), "CodeFormer": (2, 64, 64, 3),
+                  "DecoderLayer": (2, 3, 8, 8, 32)}
+
+    class SmallCodeFormer(CodeFormer):
+        # the class tables of a 64x64 image through ch_mult (1, 2, 2, 4)
+        FUSE_ENCODER_BLOCK = {"64": 1, "32": 3, "16": 5, "8": 8}
+        FUSE_GENERATOR_BLOCK = {"8": 5, "16": 7, "32": 9, "64": 11}
+        CHANNELS = {"8": 128, "16": 64, "32": 64, "64": 32}
+
+    cf_cls = SmallCodeFormer if small else CodeFormer
+    return {
+        "RQVAE": (lambda g: RQVAE(vq, generator=g), shapes["RQVAE"],
+                  lambda m, x: m(x)),
+        "TDRQVAE": (lambda g: TDRQVAE(vq, generator=g), shapes["TDRQVAE"],
+                    lambda m, x: m(x)),
+        "VQAutoEncoder": (lambda g: VQAutoEncoder(**ae, generator=g), shapes["VQAutoEncoder"],
+                          lambda m, x: m(x)),
+        "CodeFormer": (lambda g: cf_cls(**cf, generator=g), shapes["CodeFormer"],
+                       lambda m, x: m(x, w=SECONDARY_W, adain=True)),
+        "DecoderLayer": (lambda g: init_weights(DecoderLayer(*dec, mlp_ratio=1.0), g),
+                         shapes["DecoderLayer"], lambda m, x: m(x[0], x[1])),
+    }
+
+
+def _secondary_input(name, shape, seed):
+    """A seeded input: frames in [0, 1] for CodeFormer (as users feed it),
+    [-1, 1] for the autoencoders, (x, attn_kv) normals for DecoderLayer."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    if name == "DecoderLayer":
+        return torch.from_numpy(rng.standard_normal((2, *shape), dtype=np.float32))
+    lo = 0.0 if name == "CodeFormer" else -1.0
+    return torch.from_numpy(rng.uniform(lo, 1.0, shape).astype(np.float32))
+
+
+def _check_secondary(name, out, shape, n_codes):
+    """Shapes, finite values, codes in range of one full-width forward;
+    returns a description."""
+    import torch
+    res = shape[-2]
+    if name == "DecoderLayer":
+        ok = out.shape == shape and bool(torch.isfinite(out).all())
+        desc = f"out {list(out.shape)} finite"
+    elif name == "CodeFormer":
+        img, logits, lq = out
+        ok = (img.shape == shape and logits.shape == (shape[0], 256, n_codes)
+              and lq.shape == (shape[0], 16, 16, 256)
+              and all(bool(torch.isfinite(a).all()) for a in out))
+        desc = (f"out {list(img.shape)} logits {list(logits.shape)} lq_feat {list(lq.shape)} "
+                f"finite, {len(logits.argmax(-1).unique())} distinct codes")
+    else:
+        img, loss, codes = out
+        if name == "VQAutoEncoder":
+            codes = codes["min_encoding_indices"]
+            want = (shape[0] * 16 * 16,)
+        else:
+            want = (*shape[:-3], res // 16, res // 16, 1)
+        ok = (img.shape == shape and bool(torch.isfinite(img).all())
+              and bool(torch.isfinite(loss)) and codes.shape == want
+              and int(codes.min()) >= 0 and int(codes.max()) < n_codes)
+        desc = (f"out {list(img.shape)} finite, loss={loss.item():.4f}, codes "
+                f"{list(codes.shape)} in [0,{n_codes}), {len(codes.unique())} distinct")
+    if not ok:
+        raise SystemExit(f"{name} full-width forward: {desc} (shapes, finite values or codes wrong)")
+    return desc
+
+
+def _secondary_small(name, build, shape, forward):
+    """One model at the small geometry: CUDA bf16 (kernels) against CPU fp32
+    (plain versions); codes also against a CPU bf16 run of the plain
+    versions, which flips as many near-ties as the card may."""
+    import copy
+    import torch
+    cpu = build(torch.Generator().manual_seed(21)).eval()
+    gpu = copy.deepcopy(cpu).to(device="cuda", dtype=torch.bfloat16)
+    cpu16 = copy.deepcopy(cpu).to(dtype=torch.bfloat16)
+    x = _secondary_input(name, shape, 22)
+    xg = x.cuda().to(torch.bfloat16)
+    rows = {}
+    with torch.inference_mode():
+        if name == "DecoderLayer":
+            rows["out_rel_err"] = (_rel(gpu(xg[0], xg[1]), cpu(x[0], x[1])), SMALL_LQ_TOL)
+            return rows, True
+        if name == "CodeFormer":
+            _, logits_c, lq_c = cpu(x, w=SECONDARY_W, adain=True)
+            _, logits_g, lq_g = gpu(xg, w=SECONDARY_W, adain=True)
+            _, logits_16, _ = cpu16(x.to(torch.bfloat16), w=SECONDARY_W, adain=True)
+            rows["lq_rel_err"] = (_rel(lq_g, lq_c), SMALL_LQ_TOL)
+            rows["logits_rel_err"] = (_rel(logits_g, logits_c), SMALL_LOGIT_TOL)
+            codes_c = logits_c.argmax(-1)
+            codes_g, codes_16 = logits_g.argmax(-1).cpu(), logits_16.argmax(-1)
+            out_c = cpu(x, w=SECONDARY_W, adain=True)[0]
+            hook = _ForcedCodes(gpu, codes_c)
+            try:
+                out_g = gpu(xg, w=SECONDARY_W, adain=True)[0]
+            finally:
+                hook.remove()
+        elif name == "VQAutoEncoder":
+            z_c, z_g = cpu.encoder(x), gpu.encoder(xg)
+            rows["z_rel_err"] = (_rel(z_g, z_c), SMALL_LQ_TOL)
+            ids = lambda m, z: m.quantize(z)[2]["min_encoding_indices"]
+            codes_c, codes_g = ids(cpu, z_c), ids(gpu, z_g).cpu()
+            codes_16 = ids(cpu16, cpu16.encoder(x.to(torch.bfloat16)))
+            feat = lambda m, c, dt: m.quantize.get_codebook_feat(c, z_c.shape).to(dt)
+            out_c = cpu.generator(feat(cpu, codes_c, torch.float32))
+            out_g = gpu.generator(feat(gpu, codes_c.cuda(), torch.bfloat16))
+        else:
+            latents = (lambda m, a: m._mixed_latents(a)) if name == "TDRQVAE" else (
+                lambda m, a: m.encode(a))
+            rows["z_rel_err"] = (_rel(latents(gpu, xg), latents(cpu, x)), SMALL_LQ_TOL)
+            codes_c, codes_g = cpu.get_codes(x), gpu.get_codes(xg).cpu()
+            codes_16 = cpu16.get_codes(x.to(torch.bfloat16))
+            if name == "RQVAE":
+                out_c, out_g = cpu.decode_code(codes_c), gpu.decode_code(codes_c.cuda())
+            else:      # TDRQVAE decodes its post-mixed latents: the CPU's, on both
+                z_q = cpu(x, code_only=True)[0]
+                z_q = z_q.reshape(-1, *z_q.shape[2:])
+                out_c, out_g = cpu.decode(z_q), gpu.decode(z_q.cuda())
+    agree = (codes_g == codes_c).float().mean().item()
+    agree16 = (codes_16 == codes_c).float().mean().item()
+    rows["code_agreement"] = (agree, max(SMALL_AGREE, agree16 - SMALL_AGREE_SLACK))
+    rows["cpu_bf16_agreement"] = (agree16, None)
+    err = ((out_g.float().cpu() - out_c).abs().mean() / out_c.abs().max()).item()
+    rows["forced_code_out_err"] = (err, SMALL_OUT_TOL)
+    return rows, bool(torch.isfinite(out_g).all())
+
+
+def _rows_ok(rows):
+    return all(lim is None or (v >= lim if k == "code_agreement" else v <= lim)
+               for k, (v, lim) in rows.items())
+
+
+def _fmt_rows(rows):
+    return " ".join(f"{k}={v:.4g}" + ("" if lim is None else
+                                       f" ({'need >=' if k == 'code_agreement' else 'tol'} "
+                                       f"{lim:.4g})") for k, (v, lim) in rows.items())
+
+
+def phase_secondary(smi: str):
+    """The secondary architectures (RQVAE, TDRQVAE, VQAutoEncoder,
+    CodeFormer, DecoderLayer): first K6 and K2 at CodeFormer's [4, 256, 8,
+    64] against their plain versions; each model at full width in bf16 with
+    seeded weights (exact launches, shapes, finite values, codes in range,
+    CUDA-event ms, peak memory above what was resident) and, for RQVAE and
+    TDRQVAE, K5 against its plain version on that forward's own latents;
+    the full-width CodeFormer on one image against the port's CPU fp32
+    (features, logits, code agreement, the decode on the CPU's codes);
+    then each model at the small geometry, CUDA bf16 against CPU fp32."""
+    import copy
+    import torch
+    t0 = time.perf_counter()
+    checked = _mha_check("[4, 256, 8, 64]", *mha_operands(4, 8, 256, 64, "normal", seed=31), 8)
+    out_bnhd = checked["bnhd"][0]
+    qk, vp = mha_operands(4, 8, 256, 64, "normal", seed=31)
+    from pgtformer_tpu_torch.ops.dense_mha import dense_mha_plain_bnhd
+    q, k, v = _mha_views(qk, vp, 8, "bnhd")
+    ref = dense_mha_plain_bnhd(q, k, v, 64 ** -0.5)
+    tail = (out_bnhd[:, 128:].float() - ref[:, 128:].float()).abs().max().item()
+    log(f"[secondary:mha] K6/K2 at [4, 256, 8, 64] (CodeFormer's 16x16 tokens, two 128-row "
+        f"query tiles): " + ", ".join(f"{lay} max|d|={e:.3e} (max|ref|={m:.3e})"
+                                      for lay, (_, e, m) in checked.items())
+        + f", last query tile max|d|={tail:.3e}, tol {K2_TOL}*max|ref|, two launches "
+          f"bit-equal, bnhd == bhnd OK")
+    res = {"mha_max_abs_err": {lay: e for lay, (_, e, _) in checked.items()}}
+    k5 = {}
+    for name, (build, shape, forward) in _secondary_models(small=False).items():
+        want = SECONDARY_RUNS[name][1]
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        t_build = time.perf_counter()
+        cpu_model = build(torch.Generator().manual_seed(20))
+        model = copy.deepcopy(cpu_model) if name == "CodeFormer" else cpu_model
+        model = model.to(device="cuda", dtype=torch.bfloat16).eval()
+        build_s = time.perf_counter() - t_build
+        x_cpu = _secondary_input(name, shape, 23)
+        x = x_cpu.cuda().to(torch.bfloat16)
+        n_codes = 1024
+        with torch.inference_mode():
+            fwd = lambda: forward(model, x)
+            fwd()                                         # warm-up (cuDNN plans)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            out = fwd()
+            torch.cuda.synchronize()
+            counts = expect_counts(f"{name} full-width forward", **want)
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            desc = _check_secondary(name, out, shape, n_codes)
+            del out
+            ms = time_ms(fwd, 3, warmup=0)
+            if name in ("RQVAE", "TDRQVAE"):
+                z = (model._mixed_latents(x) if name == "TDRQVAE" else model.encode(x))
+                rows = model.quantizer.to_code_shape(z.reshape(-1, *z.shape[-3:]))
+                rows = rows.reshape(-1, rows.shape[-1]).float().contiguous()
+                book = model.quantizer.codebooks[0].weight[:-1].float()
+                k5[name] = _k5_check(f"{name}'s latents", rows, book, tag="secondary:k5")
+        launched = {kk: vv for kk, vv in counts.items() if vv}
+        log(f"[secondary:{name}] input {list(shape)} bf16, seeded weights (built in "
+            f"{build_s:.1f} s): launches {launched or 'none'} (exact); {desc}; "
+            f"forward_ms={ms:.2f} peak_mem_GiB={peak:.2f} (weights included, above what was "
+            f"resident before the build) | {smi}")
+        res[name] = dict(ms=ms, peak_GiB=peak, counts=counts, input=list(shape))
+        if name == "CodeFormer":
+            res["CodeFormer_vs_cpu"] = _codeformer_full_vs_cpu(cpu_model, model, x_cpu[:1])
+        del model, cpu_model, x
+    res["k5"] = {n: dict(rows_differing=d, max_abs_err=a, worst_fp64_rel_gap=g)
+                 for n, (d, a, g) in k5.items()}
+    for name, (build, shape, forward) in _secondary_models(small=True).items():
+        rows, finite = _secondary_small(name, build, shape, forward)
+        ok = finite and _rows_ok(rows)
+        log(f"[secondary:small] {name} {list(shape)} CUDA bf16 vs CPU fp32: {_fmt_rows(rows)} "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"small-geometry {name} check failed")
+        res.setdefault("small", {})[name] = {k: v for k, (v, _) in rows.items()}
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[secondary] phase {res['seconds']:.1f} s")
+    return res
+
+
+def _codeformer_full_vs_cpu(cpu_model, gpu_model, x):
+    """The full-width CodeFormer on one image: card bf16 against the CPU
+    fp32 of the same weights (features, logits, codes at SMALL_AGREE, the
+    decode on the CPU's codes)."""
+    import torch
+    cpu_model = cpu_model.eval()
+    with torch.inference_mode():
+        out_c, logits_c, lq_c = cpu_model(x, w=SECONDARY_W, adain=True)
+        _, logits_g, lq_g = gpu_model(x.cuda().to(torch.bfloat16), w=SECONDARY_W, adain=True)
+        codes_c = logits_c.argmax(-1)
+        agree = (logits_g.argmax(-1).cpu() == codes_c).float().mean().item()
+        hook = _ForcedCodes(gpu_model, codes_c)
+        try:
+            out_g = gpu_model(x.cuda().to(torch.bfloat16), w=SECONDARY_W, adain=True)[0]
+        finally:
+            hook.remove()
+    rows = {"lq_rel_err": (_rel(lq_g, lq_c), SMALL_LQ_TOL),
+            "logits_rel_err": (_rel(logits_g, logits_c), SMALL_LOGIT_TOL),
+            "code_agreement": (agree, SMALL_AGREE),
+            "forced_code_out_err": (((out_g.float().cpu() - out_c).abs().mean()
+                                     / out_c.abs().max()).item(), SMALL_OUT_TOL)}
+    ok = bool(torch.isfinite(out_g).all()) and _rows_ok(rows)
+    log(f"[secondary:CodeFormer] full width, one 512x512 image, card bf16 vs CPU fp32: "
+        f"{_fmt_rows(rows)} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("full-width CodeFormer disagrees with the CPU")
+    return {k: v for k, (v, _) in rows.items()}
 
 
 # -- training: the kernels' gradients, then the step of stages I and III -------
@@ -3089,6 +3427,8 @@ def main() -> int:
     phase_small_fused_tail()
     serve.pop("restorer")
     torch.cuda.empty_cache()
+    secondary = phase_secondary(smi)
+    torch.cuda.empty_cache()
     train = phase_train(smi)
     torch.cuda.empty_cache()
     train_loop = phase_train_loop(smi)
@@ -3151,6 +3491,9 @@ def main() -> int:
         k["launches_multi"] = {
             **{f"serve:{tag}": c["counts"].get(name, 0) for tag, c in multi["serve"].items()},
             **{f"train:{tag}": c["counts"].get(name, 0) for tag, c in multi["train"].items()}}
+        # per full-width forward of each secondary architecture
+        k["launches_secondary"] = {m: secondary[m]["counts"].get(name, 0)
+                                   for m in SECONDARY_RUNS}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "default_step_ms": step,
                       "train": {stage: {key: v for key, v in r.items() if key != "per_step"}
@@ -3159,6 +3502,7 @@ def main() -> int:
                       "eval": ev,
                       "video": video,
                       "multi": multi,
+                      "secondary": secondary,
                       "variant_step_ms": {k: v["step_ms"] for k, v in variants.items()},
                       "autoencoder_ms": {k: v for k, v in vae.items() if k.endswith("_ms")}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

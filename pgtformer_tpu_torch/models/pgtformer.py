@@ -23,6 +23,7 @@ from pgtformer_tpu_torch.nn.blocks import ResnetBlock, conv_nhwc, init_weights, 
 from pgtformer_tpu_torch.nn.transformer import TransformerSALayer
 from pgtformer_tpu_torch.ops.image import (
     adaptive_instance_normalization, imagenet_normalize)
+from pgtformer_tpu_torch.registry import ARCH_REGISTRY
 
 
 class FuseSftBlock(nn.Module):
@@ -86,6 +87,7 @@ class FuseSftBlock(nn.Module):
         return out.reshape(B, t_out, H, W, -1)
 
 
+@ARCH_REGISTRY.register()
 class PGTFormer(nn.Module):
     """Blind video face restoration model.
 

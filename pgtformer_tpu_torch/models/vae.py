@@ -22,6 +22,7 @@ from pgtformer_tpu_torch.models.quantizer import RQBottleneck
 from pgtformer_tpu_torch.nn.blocks import (
     Downsample, EncoderLayer, GroupNorm, ResnetBlock, Upsample, conv_nhwc, init_weights)
 from pgtformer_tpu_torch.ops.fused_conv import fused_decoder_tail, subpixel_up_conv3x3
+from pgtformer_tpu_torch.registry import ARCH_REGISTRY
 
 
 def _encoder_layer(cfg: DDConfig, dim: int, level: int, num_frames: int) -> EncoderLayer:
@@ -244,6 +245,7 @@ class Decoder3D(nn.Module):
         return conv_nhwc(self.conv_out, h)
 
 
+@ARCH_REGISTRY.register()
 class TDCRQVAE3(nn.Module):
     """Temporal RQ-VAE, the stage-I autoencoder.
 

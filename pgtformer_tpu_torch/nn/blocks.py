@@ -1,8 +1,8 @@
 """Reusable blocks on channels-last tensors (PyTorch port).
 
 Counterparts of the JAX package's ``nn/blocks.py``: ResnetBlock,
-Downsample, Upsample, Mlp, WindowAttention3D, SWTransformerBlock and
-EncoderLayer.  Public I/O is ``[B, T, H, W, C]`` or ``[N, H, W, C]``; convs
+Downsample, Upsample, Mlp, WindowAttention3D, SWTransformerBlock (also its
+cross-attention form), EncoderLayer and DecoderLayer.  Public I/O is ``[B, T, H, W, C]`` or ``[N, H, W, C]``; convs
 run on permuted views (channels_last memory format, no copies).  Parameter
 names follow the reference state_dict (``blocks.1.attn.q.weight``, ...).
 
@@ -12,7 +12,10 @@ window (K1 by default; K3 under ``SW_KERNEL=tokens``, K4 under
 ``SW_PAIR=1``), and raises otherwise; on the CPU it runs the same math in
 plain PyTorch.  Under a recorded gradient it hands the kernels the live
 parameters, and they run through their autograd Functions, whose backward
-is the plain version's.
+is the plain version's.  :class:`DecoderLayer`'s cross blocks (self-attention,
+then cross-attention, then the MLP) run plain PyTorch on every device: K1
+fuses a whole self-attention block, MLP included, so it cannot serve them,
+and JAX runs them with XLA too.
 """
 
 from __future__ import annotations
@@ -255,9 +258,11 @@ class Mlp(nn.Module):
 
 
 class WindowAttention3D(nn.Module):
-    """Window self-attention over spatio-temporal window tokens with a 3D
-    relative-position bias.  I/O: [B*nW, N, C]; optional additive mask
-    [nW, N, N] (numpy)."""
+    """Window attention over spatio-temporal window tokens with a 3D
+    relative-position bias.  I/O: queries [B*nW, N, C], optional keys and
+    values `kv` [B*nW, N2, C] of another frame count (cross-attention;
+    default: the queries' tokens), optional additive mask [nW, N, N2]
+    (numpy)."""
 
     def __init__(self, dim: int, num_frames: int, window_size: Tuple[int, int],
                  num_heads: int):
@@ -283,27 +288,36 @@ class WindowAttention3D(nn.Module):
         with torch.no_grad():
             t.copy_((torch.randn(t.shape, generator=g) * 0.02).clamp_(-0.04, 0.04))
 
-    def rel_bias(self) -> torch.Tensor:
-        """Gathered bias [heads, N, N]."""
+    def rel_bias(self, num_frames_kv: Optional[int] = None) -> torch.Tensor:
+        """Gathered bias [heads, N, N2] (keys of `num_frames_kv` frames,
+        default the queries' count)."""
         idx = self.relative_position_index
-        N = idx.shape[0]
+        if num_frames_kv not in (None, self.num_frames):
+            idx = torch.as_tensor(relative_position_index(self.num_frames, num_frames_kv,
+                                                          self.window_size),
+                                  dtype=torch.long, device=idx.device)
+        N1, N2 = idx.shape
         b = self.relative_position_bias_table[idx.reshape(-1)]
-        return b.reshape(N, N, self.num_heads).permute(2, 0, 1)
+        return b.reshape(N1, N2, self.num_heads).permute(2, 0, 1)
 
-    def forward(self, x: torch.Tensor, mask: Optional[np.ndarray] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[np.ndarray] = None,
+                kv: Optional[torch.Tensor] = None) -> torch.Tensor:
         Bn, N, C = x.shape
+        kv_in = x if kv is None else kv
+        N2 = kv_in.shape[1]
         h = self.num_heads
         hd = C // h
         q = self.q(x).reshape(Bn, N, h, hd) * (hd ** -0.5)
-        kv = self.kv(x)
-        k = kv[..., :C].reshape(Bn, N, h, hd)
-        v = kv[..., C:].reshape(Bn, N, h, hd)
+        kv = self.kv(kv_in)
+        k = kv[..., :C].reshape(Bn, N2, h, hd)
+        v = kv[..., C:].reshape(Bn, N2, h, hd)
         attn = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
-        attn = attn + self.rel_bias()[None].float()
+        wh, ww = self.window_size
+        attn = attn + self.rel_bias(N2 // (wh * ww))[None].float()
         if mask is not None:
             nW = mask.shape[0]
             m = torch.as_tensor(mask, dtype=torch.float32, device=x.device)
-            attn = (attn.reshape(Bn // nW, nW, h, N, N) + m[None, :, None]).reshape(Bn, h, N, N)
+            attn = (attn.reshape(Bn // nW, nW, h, N, N2) + m[None, :, None]).reshape(Bn, h, N, N2)
         attn = torch.softmax(attn, dim=-1).to(x.dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", attn.float(), v.float())
         return self.proj(out.reshape(Bn, N, C).to(x.dtype))
@@ -311,19 +325,31 @@ class WindowAttention3D(nn.Module):
 
 class SWTransformerBlock(_KernelWeightCache):
     """(Shifted-)window self-attention block on [B, T, H, W, C]:
-    LN -> (shift) -> W-MSA -> LN -> MLP (the reference encoder block)."""
+    LN -> (shift) -> W-MSA -> LN -> MLP (the reference encoder block).
+
+    With `cross` (the reference decoder block, rstt_layers.py:340-497) a
+    cross-attention stage follows the self-attention: queries LN ``norm2``
+    of x, keys and values LN ``norm_kv`` of the forward's `attn_kv`
+    [B, T2, H, W, C] through ``attn2``, under the spatial mask tiled T x T2;
+    the MLP then reads ``norm3``."""
 
     def __init__(self, dim: int, num_heads: int, num_frames: int,
                  window_size: Tuple[int, int] = (8, 8),
-                 shift_size: Tuple[int, int] = (0, 0), mlp_ratio: float = 4.0):
+                 shift_size: Tuple[int, int] = (0, 0), mlp_ratio: float = 4.0,
+                 cross: bool = False):
         super().__init__()
         self.window_size = tuple(window_size)
         self.shift_size = tuple(shift_size)
         self.num_heads = num_heads
+        self.cross = cross
         self.norm1 = layer_norm(dim)
         self.attn = WindowAttention3D(dim, num_frames, window_size, num_heads)
         self.norm2 = layer_norm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        if cross:
+            self.attn2 = WindowAttention3D(dim, num_frames, window_size, num_heads)
+            self.norm_kv = layer_norm(dim)
+            self.norm3 = layer_norm(dim)
 
     def live_weights(self) -> SWBlockWeights:
         """This block's parameters as :func:`sw_block` takes them, views of
@@ -350,26 +376,34 @@ class SWTransformerBlock(_KernelWeightCache):
                 return self.live_weights()
         return self._cached(device, lambda: self.live_weights().for_kernel())
 
-    def _run_windowed(self, x, window, shift, mask):
-        """Pad -> cyclic shift -> partition -> attend -> reverse -> crop."""
+    def _run_windowed(self, x, window, shift, mask, attn=None, kv=None):
+        """Pad -> cyclic shift -> partition -> attend (`attn`, default the
+        self-attention; keys and values from `kv` when given) -> reverse ->
+        crop."""
         B, T, H, W, C = x.shape
+        attn = self.attn if attn is None else attn
         pad_b = (window[0] - H % window[0]) % window[0]
         pad_r = (window[1] - W % window[1]) % window[1]
         if pad_b or pad_r:
             x = F.pad(x, (0, 0, 0, pad_r, 0, pad_b))
+            if kv is not None:
+                kv = F.pad(kv, (0, 0, 0, pad_r, 0, pad_b))
         Hp, Wp = H + pad_b, W + pad_r
         shifted = any(s > 0 for s in shift)
         if shifted:
             x = torch.roll(x, (-shift[0], -shift[1]), dims=(2, 3))
+            if kv is not None:
+                kv = torch.roll(kv, (-shift[0], -shift[1]), dims=(2, 3))
         else:
             mask = None
-        out = self.attn(window_partition(x, window), mask=mask)
+        kvw = window_partition(kv, window) if kv is not None else None
+        out = attn(window_partition(x, window), mask=mask, kv=kvw)
         out = window_reverse(out, window, B, T, Hp, Wp)
         if shifted:
             out = torch.roll(out, (shift[0], shift[1]), dims=(2, 3))
         return out[:, :, :H, :W, :]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, attn_kv: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, T, H, W, C = x.shape
         window, shift = effective_window_shift((H, W), self.window_size, self.shift_size)
         if window != self.window_size or T != self.attn.num_frames:
@@ -381,7 +415,18 @@ class SWTransformerBlock(_KernelWeightCache):
         mask = (shifted_window_mask(T, Hp, Wp, window, shift)
                 if any(s > 0 for s in shift) else None)
         x = x + self._run_windowed(self.norm1(x), window, shift, mask)
-        return x + self.mlp(self.norm2(x))
+        if not self.cross:
+            return x + self.mlp(self.norm2(x))
+        # the shift labels repeat in every frame, so the cross mask is the
+        # spatial mask tiled T x T2
+        T2 = attn_kv.shape[1]
+        mask_kv = None
+        if mask is not None:
+            n_sp = window[0] * window[1]
+            mask_kv = np.tile(mask[:, :n_sp, :n_sp], (1, T, T2))
+        x = x + self._run_windowed(self.norm2(x), window, shift, mask_kv, self.attn2,
+                                   self.norm_kv(attn_kv))
+        return x + self.mlp(self.norm3(x))
 
 
 class EncoderLayer(nn.Module):
@@ -468,6 +513,27 @@ class EncoderLayer(nn.Module):
                 f"got {H}x{W}")
         for blk in self.blocks:
             x = blk(x)
+        return x
+
+
+class DecoderLayer(nn.Module):
+    """`depth` cross blocks with alternating shift (0 / window//2)
+    (reference rstt_layers.py:577-662): forward(x [B, T, H, W, C],
+    attn_kv [B, T2, H, W, C]) -> [B, T, H, W, C].  No deployed model
+    builds it; plain PyTorch on every device."""
+
+    def __init__(self, dim: int, depth: int, num_heads: int, num_frames: int,
+                 window_size: Tuple[int, int] = (8, 8), mlp_ratio: float = 4.0):
+        super().__init__()
+        half = tuple(w // 2 for w in window_size)
+        self.blocks = nn.ModuleList([
+            SWTransformerBlock(dim, num_heads, num_frames, window_size,
+                               (0, 0) if i % 2 == 0 else half, mlp_ratio, cross=True)
+            for i in range(depth)])
+
+    def forward(self, x: torch.Tensor, attn_kv: torch.Tensor) -> torch.Tensor:
+        for blk in self.blocks:
+            x = blk(x, attn_kv)
         return x
 
 

@@ -5,13 +5,18 @@ Counterparts of the JAX package's ``nn/transformer.py`` in batch-first
 (``in_proj_weight``, ``in_proj_bias``, ``out_proj``).  On CUDA the attention core
 runs through ``ops/dense_mha.py``: kernel K6 (heads-minor views of the
 packed projections, the default) or K2 (``mha_layout="bhnd"``), through its
-autograd Function when a gradient is recorded.
+autograd Function when a gradient is recorded.  Also here: CodeFormer's
+cross-attention layer (:class:`TransformerCALayer`, the same attention with
+q != k) and its sinusoidal 2-D position embedding
+(:class:`PositionEmbeddingSine`, numpy constants as in JAX).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -91,5 +96,72 @@ class TransformerSALayer(nn.Module):
         x = self.norm1(tgt)
         qk = x if query_pos is None else x + query_pos
         tgt = tgt + self.self_attn(qk, qk, x)
+        x = self.linear2(F.gelu(self.linear1(self.norm2(tgt))))
+        return tgt + x
+
+
+@functools.lru_cache(maxsize=None)
+def _sine_table(H: int, W: int, num_pos_feats: int, temperature: float, normalize: bool,
+                scale: float) -> np.ndarray:
+    """[H, W, 2 * num_pos_feats] fp32: the y embedding, then the x one."""
+    y_embed = np.cumsum(np.ones((H, W), np.float32), axis=0)
+    x_embed = np.cumsum(np.ones((H, W), np.float32), axis=1)
+    if normalize:
+        eps = 1e-6
+        y_embed = y_embed / (y_embed[-1:, :] + eps) * scale
+        x_embed = x_embed / (x_embed[:, -1:] + eps) * scale
+    dim_t = np.arange(num_pos_feats, dtype=np.float32)
+    dim_t = temperature ** (2 * (dim_t // 2) / num_pos_feats)
+    pos_x = x_embed[..., None] / dim_t
+    pos_y = y_embed[..., None] / dim_t
+    pos_x = np.stack([np.sin(pos_x[..., 0::2]), np.cos(pos_x[..., 1::2])], -1).reshape(H, W, -1)
+    pos_y = np.stack([np.sin(pos_y[..., 0::2]), np.cos(pos_y[..., 1::2])], -1).reshape(H, W, -1)
+    return np.concatenate([pos_y, pos_x], axis=-1)
+
+
+class PositionEmbeddingSine(nn.Module):
+    """Sinusoidal 2-D position embedding (reference codeformer_arch.py:49-89;
+    defined but unused there): [N, H, W, C] -> [N, H, W, 2 * num_pos_feats]
+    in x's dtype, on x's device."""
+
+    def __init__(self, num_pos_feats: int = 64, temperature: float = 10000.0,
+                 normalize: bool = False, scale: Optional[float] = None):
+        super().__init__()
+        self.num_pos_feats = num_pos_feats
+        self.temperature = temperature
+        self.normalize = normalize
+        self.scale = scale or 2 * np.pi
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        N, H, W, _ = x.shape
+        pos = _sine_table(H, W, self.num_pos_feats, self.temperature, self.normalize,
+                          self.scale)
+        pos = torch.as_tensor(pos, device=x.device).to(x.dtype)
+        return pos.expand(N, *pos.shape)
+
+
+class TransformerCALayer(nn.Module):
+    """Pre-norm cross-attention layer with a weighted residual (reference
+    codeformer_arch.py:141-183; unused by the deployed model): one LN
+    ``norm1`` for both inputs, q = LN(a) + pos, k = LN(b) + pos, v = LN(b),
+    tgt = a + w * attention, then the GELU feed-forward.  The attention is
+    :class:`MultiHeadSelfAttention` with q != k (on CUDA, K6 or K2, which
+    need the two token counts equal)."""
+
+    def __init__(self, embed_dim: int, nhead: int = 8, dim_mlp: int = 2048,
+                 mha_layout: str = "bnhd"):
+        super().__init__()
+        self.norm1 = layer_norm(embed_dim)
+        self.self_attn = MultiHeadSelfAttention(embed_dim, nhead, mha_layout)
+        self.norm2 = layer_norm(embed_dim)
+        self.linear1 = nn.Linear(embed_dim, dim_mlp)
+        self.linear2 = nn.Linear(dim_mlp, embed_dim)
+
+    def forward(self, tgta: torch.Tensor, tgtb: torch.Tensor, w: float = 1.0,
+                query_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+        a, b = self.norm1(tgta), self.norm1(tgtb)
+        q = a if query_pos is None else a + query_pos
+        k = b if query_pos is None else b + query_pos
+        tgt = tgta + self.self_attn(q, k, b) * w
         x = self.linear2(F.gelu(self.linear1(self.norm2(tgt))))
         return tgt + x

@@ -36,7 +36,11 @@ EMA, Adam's device tensors, schedulers, the CUDA generator), and the next
 step after the restore meets the same metric tolerance against the step
 taken without the save.  Two ranks on the one card (gloo, spawned, the
 collectives staged through host memory) serve the small model bit-equal
-to one process at B/2.
+to one process at B/2.  A small CodeFormer (K6) and a small RQVAE (K5) in
+bf16 on the card against the same weights in fp32 on the CPU: features and
+logits within 5e-2 relative, codes agreeing on >= 0.95 of tokens, the
+RQVAE's decode of the CPU's codes within 5e-2 of the largest output
+(mean), exact launches.
 """
 
 import numpy as np
@@ -159,7 +163,8 @@ def test_sw_block_pair_kernel_ragged(shape):
 # logits by 30, so the running max moves by far from tile to tile.
 MHA_CASES = [(8, 8, 3072, 64, "normal"), (2, 4, 768, 16, "normal"), (1, 2, 200, 32, "normal"),
              (1, 2, 200, 64, "normal"), (2, 2, 136, 64, "normal"), (1, 2, 8, 64, "normal"),
-             (2, 4, 768, 32, "normal"), (1, 2, 200, 64, "negative"), (2, 2, 520, 64, "sharp")]
+             (2, 4, 768, 32, "normal"), (1, 2, 200, 64, "negative"), (2, 2, 520, 64, "sharp"),
+             (4, 8, 256, 64, "normal")]       # CodeFormer's 16x16 latent tokens
 
 
 def mha_operands(B, H, N, D, kind):
@@ -1011,3 +1016,61 @@ def test_sharded_serving_two_ranks_on_one_card(tmp_path):
     assert per_rank[0] > 0 and per_rank[1] == 6
     assert [tuple(x["launches"]) for x in ranks] == [per_rank, per_rank]
     assert np.array_equal(ranks[0]["frames"], ref)
+
+
+def test_codeformer_small_on_the_card_matches_cpu():
+    """A small CodeFormer (64x64 images, the class tables relabelled) in
+    bf16 on the card (K6 in each transformer layer) against fp32 on the
+    CPU."""
+    dev = _card()
+    import copy
+    from pgtformer_tpu_torch.models.codeformer import CodeFormer
+
+    class Small(CodeFormer):
+        FUSE_ENCODER_BLOCK = {"64": 1, "32": 3, "16": 5, "8": 8}
+        FUSE_GENERATOR_BLOCK = {"8": 5, "16": 7, "32": 9, "64": 11}
+        CHANNELS = {"8": 128, "16": 64, "32": 64, "64": 32}
+
+    cpu = Small(dim_embd=64, n_head=4, n_layers=2, codebook_size=64, latent_size=64,
+                connect_list=("16", "32", "64"), img_size=64, nf=32, ch_mult=(1, 2, 2, 4),
+                res_blocks=1, attn_resolutions=(8,), emb_dim=32,
+                generator=torch.Generator().manual_seed(50)).eval()
+    gpu = copy.deepcopy(cpu).to(dev, torch.bfloat16)
+    x = torch.from_numpy(np.random.default_rng(51).uniform(0, 1, (2, 64, 64, 3)).astype(np.float32))
+    before = dense_mha_bnhd.launches
+    with torch.no_grad():
+        out_c, logits_c, lq_c = cpu(x, w=0.5, adain=True)
+        out_g, logits_g, lq_g = gpu(x.to(dev, torch.bfloat16), w=0.5, adain=True)
+    assert dense_mha_bnhd.launches - before == 2
+    rel = lambda a, b: ((a.float().cpu() - b).norm() / b.norm()).item()
+    assert torch.isfinite(out_g).all() and out_g.shape == out_c.shape
+    assert rel(lq_g, lq_c) <= 5e-2 and rel(logits_g, logits_c) <= 5e-2
+    assert (logits_g.argmax(-1).cpu() == logits_c.argmax(-1)).float().mean() >= 0.95
+
+
+def test_rqvae_small_on_the_card_matches_cpu():
+    """A small RQVAE in bf16 on the card (K5 once a forward) against fp32
+    on the CPU; the decode of the CPU's codes on both."""
+    dev = _card()
+    import copy
+    from pgtformer_tpu_torch.config import DDConfig, VQVAEConfig
+    from pgtformer_tpu_torch.models.rqvae import RQVAE
+    dd = DDConfig(z_channels=32, resolution=32, ch=32, ch_mult=(1, 2), attn_resolutions=(16,))
+    cfg = VQVAEConfig(ddconfig=dd, embed_dim=32, n_embed=64, latent_shape=(16, 16, 32),
+                      code_shape=(16, 16, 1))
+    cpu = RQVAE(cfg, generator=torch.Generator().manual_seed(52)).eval()
+    gpu = copy.deepcopy(cpu).to(dev, torch.bfloat16)
+    x = torch.from_numpy(np.random.default_rng(53).uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32))
+    xg = x.to(dev, torch.bfloat16)
+    before = nearest_code.launches
+    with torch.no_grad():
+        out_g, loss_g, codes_g = gpu(xg)
+        assert nearest_code.launches - before == 1
+        out_c, _, codes_c = cpu(x)
+        z_c = cpu.encode(x)
+        z_rel = ((gpu.encode(xg).float().cpu() - z_c).norm() / z_c.norm()).item()
+        dec_c, dec_g = cpu.decode_code(codes_c), gpu.decode_code(codes_c.to(dev)).float().cpu()
+    assert torch.isfinite(out_g).all() and torch.isfinite(loss_g)
+    assert z_rel <= 5e-2
+    assert (codes_g.cpu() == codes_c).float().mean() >= 0.95
+    assert ((dec_g - dec_c).abs().mean() / dec_c.abs().max()).item() <= 5e-2
