@@ -48,6 +48,20 @@ Phases, in order; any failure exits non-zero:
     TDCRQVAE3 (latent error, code agreement, forced-code decode); and a
     small PGTFormer whose geometry passes the fused tail's guard, under
     FUSED_TAIL=1: CUDA bf16 (kernels) against CPU bf16 (the plain chain);
+ 7a. float32 on the card (`phase_fp32`, after phase 7): K1 and K3 at the six
+    serving shapes, K4 at its three, K6/K2 at [8, 3072, 8, 64] on fp32
+    activations (the kernels' fp32 forms: bf16 inputs, fp32 output), each
+    against its plain version's fp32 form under the bf16 phases' rules,
+    rounded to bf16 bit-equal to the bf16 kernel (only the store differs),
+    K3 bit-equal to K1, K4 to two fp32 K1 launches, the layouts to each
+    other, with kernel, plain, SDPA (fp32) and bound times; the fp32 serving
+    step (VideoRestorer, RELEASE_PGTFORMER 512x512, B=8, TF32 off, the
+    serving phase's weights and frames: exactly 22 K1 + 9 K6 a step, ms,
+    frames/s, peak memory, fp32 parameters and logits, its predicted codes
+    against the bf16 step's, the frames' LSB difference, which must not be
+    0); the small geometry, card fp32 against the port's CPU fp32 module
+    path under phase 7's rules with limits of its own (FP32_SMALL_*) that a
+    bf16 run fails;
  7b. the secondary architectures (`phase_secondary`, after phase 7): K6 and
     K2 at CodeFormer's [4, 256, 8, 64] against their plain versions; RQVAE
     (2 x 512x512, the release YAML's autoencoder: 1 K5), TDRQVAE (1 clip x 3
@@ -78,6 +92,19 @@ Phases, in order; any failure exits non-zero:
     modules and teacher, and exact launches per step (I: 22 K1 + 1 K5; III:
     30 K1 + 9 K6 + 1 K5); prints `[train:I]` / `[train:III]` lines with step
     ms, peak memory, the losses and the card's name and power limit;
+ 9b. the use_pallas plans (`phase_train_plans`): stage I at full width with
+    use_pallas False (the module path) and True (the kernels), each in fp32
+    and bf16 (one trainer switched between them), stage III with False in
+    fp32 (the JAX package's default plan) and True in bf16, each through
+    `bench_train_step.bench` (its seeded trainers, no LPIPS): best of two
+    rounds of three steps (CUDA events) after a warm-up, peak memory, exact
+    launches per step (False: no K1/K6, 1 K5; True: 22 K1 + 1 K5, stage III
+    30 K1 + 9 K6 + 1 K5); `bench_train_step --mode both --iters 2` and
+    `profile_step --code` once each; the batch degradations on a [8, 512,
+    512, 3] batch on the card (shape, range, determinism per seed, noise
+    moments against the CPU); the serving weights through the port's own
+    .safetensors writer and `from_pretrained(directory)`, served again to the
+    serving step's out_sha256;
 10. the training run end to end through `train_cli.main` (`phase_train_loop`):
     a seeded VFHQ tree of 512x512 PNGs in a temporary directory (train: 2
     clips x 5 frames, val: 1 clip x 3), copies of configs/demo_stage_I.yml
@@ -91,7 +118,11 @@ Phases, in order; any failure exits non-zero:
     teacher and the frozen modules bit-identical; validation's saved frames,
     computed while the live parameters were moved far from their EMA,
     against fresh models loaded from the same step's exports (K1_TOL); stage
-    III's last export served through VideoRestorer (22 K1 + 9 K6); prints
+    III's last export served through VideoRestorer (22 K1 + 9 K6); then
+    JAX's default training command, stage I with neither --bf16 nor
+    --pallas (fp32 on the module path) for 2 steps: exactly 1 K5 and no K1
+    or K6 a step and a validation forward, the log's "plan: pallas: false,
+    dtype float32" and timings.jsonl's plan; prints
     `[train_loop:...]` lines with steps/s, the loader's batch assembly and
     the step's wait, checkpoint bytes and save/restore seconds, validation
     seconds and peak memory, and the card;
@@ -102,7 +133,8 @@ Phases, in order; any failure exits non-zero:
     three layer shapes) and K6 at the eval forward's batches of 4 and 2
     against their plain versions; `--batch 4 --face-metrics --niqe-fit-gt
     --arcface-weights --save-dir` (10 samples), then `--rotate
-    --inter-space 2` (6 samples); every column printed and finite, exact
+    --inter-space 2` (6 samples), then `--fp32 --limit 4` (one forward on
+    the kernels' fp32 forms); every column printed and finite, exact
     launches (22 K1 + 9 K6 a forward, no other kernel), the saved PNGs
     equal (0 LSB) to a direct `PGTFormer.forward(middle_only=True)` of the
     same batches, ArcFace, LPIPS and the parser's class maps and landmarks
@@ -135,7 +167,8 @@ Phases, in order; any failure exits non-zero:
     and mean, readback bytes, peak memory. Then the rate at inflight 1, 2
     and 3, twice in an ABBA order (`[video:inflight]`), `cli.main --codec mpeg4
     --encode-quality-check` (exact launches; PSNR, SSIM, vmaf(own-impl) and
-    VMAF's time), `profile_stages` (each stage and the whole step, ms) and
+    VMAF's time), `cli.main --fp32 --dump-frames` (exact launches, 192
+    frames, not those of the bf16 step), `profile_stages` (each stage and the whole step, ms) and
     `bench_encode` (mpeg4, libx264, libx265 at their default presets, 48
     frames at 512x512: the host's encoder frames/s);
 13. several ranks (`phase_multi`, `parallel/`): (a) two ranks spawned on the
@@ -162,8 +195,14 @@ Phases, in order; any failure exits non-zero:
     lines;
 14. a JSON line of kernel numbers (each with its backward route, its
     launches per training step, in the training run, in evaluation, on
-    the file path, per rank in phase_multi and per full-width forward of
-    each secondary architecture), then the device JSON as the last line.
+    the file path, per rank in phase_multi, per full-width forward of each
+    secondary architecture, per fp32 serving step and per training step
+    under each plan, and for K1/K3/K4/K2/K6 the fp32 form's times), then
+    the device JSON as the last line.
+
+The training phases (9, 9b, 10, 13) build their trainers with
+``use_pallas=True`` (``train_cli --pallas``), the plan whose launches they
+count; the JAX package's default, and the port's, is the module path.
 
 Launch counts are set to 0 just before each path is driven and read just
 after it; launches made to compare or time a kernel do not count.
@@ -257,6 +296,15 @@ def _wrappers():
             "sw_block_pair": sw_block_pair, "dense_mha_bhnd": dense_mha_bhnd,
             "dense_mha_bnhd": dense_mha_bnhd, "vq_nearest": nearest_code,
             "gn_silu_conv3x3": gn_silu_conv3x3, "subpixel_up_conv3x3": subpixel_up_conv3x3}
+
+
+def _plan(model, use_pallas: bool):
+    """`model` with every layer's ``use_pallas`` set (a copy built with the
+    other plan keeps its weights)."""
+    for m in model.modules():
+        if hasattr(m, "use_pallas"):
+            m.use_pallas = use_pallas
+    return model
 
 
 def reset_counts():
@@ -919,7 +967,7 @@ def phase_serving(n_chunks: int = 5):
         f"frames_per_s={B * 1e3 / step_ms:.3f} peak_mem_GiB={peak / 2 ** 30:.2f} "
         f"first_step_s={r._first_chunk_s:.2f} prime_s={r._prime_s:.2f} out_sha256={digest}")
     return dict(counts=counts, steps=n_chunks, step_ms=step_ms, restorer=r, frames=frames,
-                outs=outs)
+                outs=outs, digest=digest)
 
 
 def phase_variants(serve: dict, n_chunks: int = 3):
@@ -995,7 +1043,7 @@ def phase_autoencoder(serve: dict):
     cfg = RELEASE_PGTFORMER.vqvae
     res = cfg.ddconfig.resolution
     t0 = time.perf_counter()
-    vae = TDCRQVAE3(cfg, generator=torch.Generator().manual_seed(1))
+    vae = TDCRQVAE3(cfg, generator=torch.Generator().manual_seed(1), use_pallas=True)
     vae = vae.to(device="cuda", dtype=torch.bfloat16).eval()
     log(f"[vae] TDCRQVAE3 built in {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(1)
@@ -1114,8 +1162,8 @@ def phase_small_model():
     from pgtformer_tpu_torch.models.pgtformer import PGTFormer
     cfg = _small_config()
     cpu = PGTFormer(cfg, generator=torch.Generator().manual_seed(3)).eval()
-    gpu = copy.deepcopy(cpu).to(device="cuda", dtype=torch.bfloat16)
-    cpu16 = copy.deepcopy(cpu).to(dtype=torch.bfloat16)
+    gpu = _plan(copy.deepcopy(cpu), True).to(device="cuda", dtype=torch.bfloat16)
+    cpu16 = _plan(copy.deepcopy(cpu), True).to(dtype=torch.bfloat16)
     x = np.random.default_rng(3).uniform(0, 1, (2, 3, 32, 32, 3)).astype(np.float32)
     xc = torch.from_numpy(x)
     xg = xc.cuda().to(torch.bfloat16)
@@ -1167,7 +1215,8 @@ def phase_small_fused_tail():
     from pgtformer_tpu_torch import knobs
     from pgtformer_tpu_torch.models.pgtformer import PGTFormer
     cfg = _small_tail_config()
-    cpu16 = PGTFormer(cfg, generator=torch.Generator().manual_seed(9)).eval().to(torch.bfloat16)
+    cpu16 = PGTFormer(cfg, generator=torch.Generator().manual_seed(9),
+                      use_pallas=True).eval().to(torch.bfloat16)
     gpu = copy.deepcopy(cpu16).to(device="cuda")
     rng = np.random.default_rng(9)
     x = torch.from_numpy(rng.uniform(0, 1, (2, 3, 64, 64, 3)).astype(np.float32))
@@ -1207,8 +1256,8 @@ def phase_small_vae():
     from pgtformer_tpu_torch.models.vae import TDCRQVAE3
     cfg = _small_config().vqvae
     cpu = TDCRQVAE3(cfg, generator=torch.Generator().manual_seed(5)).eval()
-    gpu = copy.deepcopy(cpu).to(device="cuda", dtype=torch.bfloat16)
-    cpu16 = copy.deepcopy(cpu).to(dtype=torch.bfloat16)
+    gpu = _plan(copy.deepcopy(cpu), True).to(device="cuda", dtype=torch.bfloat16)
+    cpu16 = _plan(copy.deepcopy(cpu), True).to(dtype=torch.bfloat16)
     x = np.random.default_rng(5).uniform(-1, 1, (2, 3, 32, 32, 3)).astype(np.float32)
     xc = torch.from_numpy(x)
     xg = xc.cuda().to(torch.bfloat16)
@@ -1375,7 +1424,10 @@ def _secondary_small(name, build, shape, forward):
     import copy
     import torch
     cpu = build(torch.Generator().manual_seed(21)).eval()
-    gpu = copy.deepcopy(cpu).to(device="cuda", dtype=torch.bfloat16)
+    gpu = copy.deepcopy(cpu)
+    if name == "CodeFormer":        # K6 on the card
+        _plan(gpu, True)
+    gpu = gpu.to(device="cuda", dtype=torch.bfloat16)
     cpu16 = copy.deepcopy(cpu).to(dtype=torch.bfloat16)
     x = _secondary_input(name, shape, 22)
     xg = x.cuda().to(torch.bfloat16)
@@ -1473,7 +1525,9 @@ def phase_secondary(smi: str):
         base = torch.cuda.memory_allocated()
         t_build = time.perf_counter()
         cpu_model = build(torch.Generator().manual_seed(20))
-        model = copy.deepcopy(cpu_model) if name == "CodeFormer" else cpu_model
+        # CodeFormer's card copy on the kernels (K6); its CPU model, the
+        # reference, on the module path
+        model = _plan(copy.deepcopy(cpu_model), True) if name == "CodeFormer" else cpu_model
         model = model.to(device="cuda", dtype=torch.bfloat16).eval()
         build_s = time.perf_counter() - t_build
         x_cpu = _secondary_input(name, shape, 23)
@@ -1815,7 +1869,7 @@ def phase_train(smi: str):
     t0 = time.perf_counter()
     hp = dataclasses.replace(STAGE_HYPERS["I"], warmup_iter=-1)
     tr = Stage1Trainer(RELEASE_PGTFORMER.vqvae, hp, lpips_fn=lpips_fn, device="cuda",
-                       dtype=torch.bfloat16)
+                       dtype=torch.bfloat16, use_pallas=True)
     state = tr.init_state(torch.Generator().manual_seed(11))
     log(f"[train:I] trainer built in {time.perf_counter() - t0:.1f} s")
     p0 = _clone_params(state.g.params.items())
@@ -1843,7 +1897,7 @@ def phase_train(smi: str):
     teacher = TDCRQVAE3(RELEASE_PGTFORMER.vqvae, generator=torch.Generator().manual_seed(12))
     hp = dataclasses.replace(STAGE_HYPERS["III"], warmup_iter=-1)
     tr = PGTFormerTrainer(RELEASE_PGTFORMER, "III", hp, lpips_fn=lpips_fn, device="cuda",
-                          dtype=torch.bfloat16)
+                          dtype=torch.bfloat16, use_pallas=True)
     state = tr.init_state(torch.Generator().manual_seed(13), teacher.state_dict())
     del teacher
     log(f"[train:III] trainer built in {time.perf_counter() - t0:.1f} s")
@@ -1885,6 +1939,9 @@ LOOP_PER_STEP = {"I": dict(sw_block=22, vq_nearest=1),
                  "III": dict(sw_block=22 + 8, dense_mha_bnhd=9, vq_nearest=1)}
 LOOP_PER_VAL = {"I": dict(sw_block=22, vq_nearest=1),        # TDCRQVAE3 forward
                 "III": dict(sw_block=22, dense_mha_bnhd=9)}  # PGTFormer forward
+# JAX's default training command (neither --bf16 nor --pallas): fp32 on the
+# module path, K5 alone, per training step and per validation forward
+LOOP_MODULE_PER_STEP = LOOP_MODULE_PER_VAL = dict(vq_nearest=1)
 LOOP_FROZEN = ("quantizer", "decoder", "conditionnet", "post_quant_conv")
 LOOP_METRIC_KEYS = {"I": {"l_pix", "l_percep", "l_quant", "l_g_gan", "l_g_total", "l_d"},
                     "III": {"l_token", "l_feat", "l_pix", "l_percep", "l_g_gan", "l_g_total",
@@ -1963,11 +2020,13 @@ def _jsonl(path):
         return [json.loads(line) for line in f]
 
 
-def _loop_run(tag: str, stage: str, argv, obs_steps: int, smi: str, expect_resume=None):
+def _loop_run(tag: str, stage: str, argv, obs_steps: int, smi: str, expect_resume=None,
+              per_step=None, per_val=None):
     """One `train_cli.main(argv)` with the launch counts set to 0 just before
     and read just after; asserts exact launches (training steps and each
-    validation apart), metrics.jsonl's keys and finite values.  Returns
-    (observer, new metrics.jsonl step lines, this fit's timings record)."""
+    validation apart: `per_step` and `per_val`, by default the kernels'
+    plan's), metrics.jsonl's keys and finite values.  Returns (observer, new
+    metrics.jsonl step lines, this fit's timings record)."""
     import statistics
     import torch
     from pgtformer_tpu_torch import train_cli
@@ -1983,13 +2042,15 @@ def _loop_run(tag: str, stage: str, argv, obs_steps: int, smi: str, expect_resum
     got = _launch_counts()
     val = {k: sum(v[k] for v in obs.val_launches) for k in got}
     n_val = len(obs.val_launches) * LOOP_VAL_SAMPLES
-    want_val = {k: LOOP_PER_VAL[stage].get(k, 0) * n_val for k in got}
-    want_train = {k: LOOP_PER_STEP[stage].get(k, 0) * obs_steps for k in got}
+    per_step = LOOP_PER_STEP[stage] if per_step is None else per_step
+    per_val = LOOP_PER_VAL[stage] if per_val is None else per_val
+    want_val = {k: per_val.get(k, 0) * n_val for k in got}
+    want_train = {k: per_step.get(k, 0) * obs_steps for k in got}
     train = {k: got[k] - val[k] for k in got}
     if val != want_val or train != want_train:
         raise SystemExit(f"[train_loop:{tag}] launches: training {train} (expected "
                          f"{want_train}), validation {val} (expected {want_val})")
-    for name in LOOP_PER_STEP[stage]:
+    for name in per_step:
         if got[name] == 0:
             raise SystemExit(f"[train_loop:{tag}] {name} was never launched")
     lines = _jsonl(f"{exp}/metrics.jsonl")[n_lines:]
@@ -2072,7 +2133,8 @@ def phase_train_loop(smi: str):
       scheduler and the loader continuing); stage III for 3 steps from
       stage I's step-6 exports (teacher, student, discriminator);
       stage III's last export served through VideoRestorer; validation's
-      saved frames against fresh models loaded from the exports.
+      saved frames against fresh models loaded from the exports; stage I
+      for 2 steps with neither --bf16 nor --pallas (fp32, the module path).
     Exact launches per training step and per validation forward; the
     teacher and the frozen modules bit-identical."""
     import os
@@ -2124,7 +2186,7 @@ def phase_train_loop(smi: str):
             f"degradation, uint8) assembled alone on the main thread: "
             f"{' '.join(f'{a:.1f}' for a in alone)} ms")
         exp1, exp3 = os.path.join(root, "exp", "stage_I"), os.path.join(root, "exp", "stage_III")
-        common = ["--data-root", train, "--val-data-root", val, "--bf16"]
+        common = ["--data-root", train, "--val-data-root", val, "--bf16", "--pallas"]
 
         # stage I: 4 steps (saves and validations at 2 and 4), then resumed to 6
         _, steps, t1, r1 = _loop_run("I", "I", ["-opt", ymls["I"], "--exp-dir", exp1,
@@ -2158,7 +2220,7 @@ def phase_train_loop(smi: str):
         del st
         vds = VFHQTestDataset(val)
         cfg1 = vqvae_config_from_options(load_options(ymls["I"]), network_key="network_g")
-        err1 = _val_matches_export("I", TDCRQVAE3(cfg1), f"{exp1}/net_g_6.pth", vds,
+        err1 = _val_matches_export("I", TDCRQVAE3(cfg1, use_pallas=True), f"{exp1}/net_g_6.pth", vds,
                                    f"{exp1}/visualization/iter_6", "I")
 
         # stage III from stage I's step-6 exports
@@ -2190,7 +2252,8 @@ def phase_train_loop(smi: str):
         del obs, tr, after
         torch.cuda.empty_cache()
         cfg3 = pgtformer_config_from_options(load_options(ymls["III"]))
-        err3 = _val_matches_export("III", PGTFormer(cfg3), f"{exp3}/net_g_2.pth", vds,
+        err3 = _val_matches_export("III", PGTFormer(cfg3, use_pallas=True), f"{exp3}/net_g_2.pth",
+                                   vds,
                                    f"{exp3}/visualization/iter_2", "III")
 
         # trained to served: stage III's last export through VideoRestorer
@@ -2209,9 +2272,29 @@ def phase_train_loop(smi: str):
             f"{ {k: v for k, v in counts.items() if v} } OK")
         del r
         torch.cuda.empty_cache()
+        # JAX's default training command: neither --bf16 nor --pallas, so
+        # fp32 on the module path (TF32 off), 2 steps with a validation
+        exp32 = os.path.join(root, "exp", "stage_I_fp32")
+        obs, steps, t4, r4 = _loop_run(
+            "I:fp32", "I", ["-opt", ymls["I"], "--exp-dir", exp32, "--total-iter", "2",
+                            "--data-root", train, "--val-data-root", val], 2, smi,
+            per_step=LOOP_MODULE_PER_STEP, per_val=LOOP_MODULE_PER_VAL)
+        plans = [m for m in obs.records if m.startswith("plan:")]
+        if (plans != ["plan: pallas: false, dtype float32"] or [r["step"] for r in steps] != [1, 2]
+                or (t4.get("pallas"), t4.get("dtype")) != (False, "float32")
+                or (t1.get("pallas"), t1.get("dtype")) != (True, "bfloat16")):
+            raise SystemExit(f"[train_loop:I:fp32] log {plans}, steps {[r['step'] for r in steps]}, "
+                             f"timings.jsonl plan {t4.get('pallas')} {t4.get('dtype')} (the "
+                             f"--bf16 --pallas run's: {t1.get('pallas')} {t1.get('dtype')})")
+        log(f"[train_loop:I:fp32] train_cli without --bf16 or --pallas: the log's '{plans[0]}', "
+            f"timings.jsonl pallas {t4['pallas']} dtype {t4['dtype']} (the --bf16 --pallas "
+            f"runs': pallas {t1['pallas']} dtype {t1['dtype']}); K1 and K6 never launched OK")
+        del obs
+        torch.cuda.empty_cache()
         du = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
         log(f"[train_loop] {du / 2 ** 30:.2f} GiB written under the temporary tree")
-        for tag, t, rr in (("I", t1, r1), ("I+resume", t2, r2), ("III", t3, r3)):
+        for tag, t, rr in (("I", t1, r1), ("I+resume", t2, r2), ("III", t3, r3),
+                           ("I:fp32", t4, r4)):
             out[tag] = dict(
                 steps_per_s_median=statistics.median(rr["steps_per_s"]),
                 steps_per_s=rr["steps_per_s"], wall_s=rr["wall_s"],
@@ -2497,7 +2580,8 @@ def phase_eval(smi: str):
     card; its `deg` therefore comes from random weights):
       `--batch 4 --face-metrics --niqe-fit-gt --arcface-weights ... --save-dir`
       (10 samples, 3 forwards), then `--rotate --inter-space 2` with the same
-      flags but `--save-dir` (6 samples, 2 forwards).
+      flags but `--save-dir` (6 samples, 2 forwards), then `--fp32 --limit 4`
+      (4 samples, 1 forward, the kernels' fp32 forms).
     First K1 and K6 at the forward's shapes against their plain versions.
     Exact launches per forward; every column printed and finite; the saved
     PNGs against a direct `PGTFormer.forward(middle_only=True)` of the same
@@ -2555,10 +2639,13 @@ def phase_eval(smi: str):
         run1 = _eval_run("test", common + ["--save-dir", saved], n1, smi)
         n2 = EVAL_CLIPS * len(range(0, EVAL_FRAMES, 2))
         run2 = _eval_run("rotate", common + ["--rotate", "--inter-space", "2"], n2, smi)
+        # --fp32: the kernels' fp32 forms, TF32 off; one batch
+        run32 = _eval_run("fp32", common + ["--fp32", "--limit", str(EVAL_BATCH)], EVAL_BATCH,
+                          smi)
         torch.cuda.empty_cache()
 
         # the saved frames are the model's: a direct forward of the same batches
-        model = load_into(PGTFormer(RELEASE_PGTFORMER), load_checkpoint(weights))
+        model = load_into(PGTFormer(RELEASE_PGTFORMER, use_pallas=True), load_checkpoint(weights))
         model = model.to("cuda", torch.bfloat16).eval().requires_grad_(False)
         ds = VFHQTestDataset(data, r=1, degradation="blr")
         worst, n, frames, gts = 0, 0, [], []
@@ -2584,7 +2671,7 @@ def phase_eval(smi: str):
         nets = _eval_metric_nets("nets", frames, gts, cond_sd, arc)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return dict(test=run1, rotate=run2, metric_nets=nets, saved_frames_lsb=worst,
+    return dict(test=run1, rotate=run2, fp32=run32, metric_nets=nets, saved_frames_lsb=worst,
                 kernel_checks=kernel_checks, card=smi)
 
 
@@ -2905,6 +2992,46 @@ def _video_cli(src, root, smi, native_ok):
                 counts={k: n for k, n in counts.items() if n})
 
 
+def _video_cli_fp32(src, root, smi, ref):
+    """cli.main on the clip with `--fp32 --dump-frames`: exact launches (the
+    kernels' fp32 forms), every frame dumped, and those frames apart from
+    `ref`, the bf16 step's over the same reader's frames (a run that stayed
+    in bf16 would equal them)."""
+    import contextlib
+    import io
+    import os
+    import cv2
+    import numpy as np
+    from pgtformer_tpu_torch import cli
+    dump = os.path.join(root, "cli_fp32_frames")
+    text = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        rc = cli.main(["-i", src, "-o", os.path.join(root, "cli_fp32.mp4"), "--codec", "mpeg4",
+                       "--fp32", "--dump-frames", dump])
+    wall = time.perf_counter() - t0
+    counts = expect_counts("[video:cli_fp32] cli.main --fp32", **{
+        k: v * VIDEO_STEPS for k, v in VIDEO_PER_STEP.items()})
+    for line in text.getvalue().splitlines():
+        log(f"[video:cli_fp32] | {line}")
+    names = sorted(os.listdir(dump)) if os.path.isdir(dump) else []
+    frames = np.stack([cv2.imread(os.path.join(dump, n))[..., ::-1] for n in names]) if names \
+        else np.zeros((0,), np.uint8)
+    if rc != 0 or frames.shape != ref.shape:
+        raise SystemExit(f"[video:cli_fp32] rc {rc}; dumped frames {frames.shape}, the bf16 "
+                         f"run's {ref.shape}")
+    d = np.abs(frames.astype(np.int16) - ref)
+    if d.max() == 0:
+        raise SystemExit("[video:cli_fp32] the --fp32 frames equal the bf16 step's")
+    log(f"[video:cli_fp32] cli.main --fp32 in {wall:.2f} s: {len(names)} frames dumped, "
+        f"against the bf16 step's over the same reader's frames mean|d|={d.mean():.3f} "
+        f"max|d|={d.max()} LSB (nonzero: not the bf16 step); launches "
+        f"{({k: n for k, n in counts.items() if n})} (22/9 per step) OK; card: {smi}")
+    return dict(wall_s=wall, lsb_vs_bf16=dict(mean=float(d.mean()), max=int(d.max())),
+                counts={k: n for k, n in counts.items() if n})
+
+
 def phase_video(smi: str, serve: dict):
     """The file path on the card (`VideoRestorer.restore_video`, the CLI,
     the stage profiler and the encoder bench): see the module docstring."""
@@ -2962,6 +3089,7 @@ def phase_video(smi: str, serve: dict):
                                      encoder=native_ok or readback == "rgb")
         a, b = ((cases["mpeg4"], cases["mpeg4_inflight1"]) if native_ok else
                 (cases["opencv"], cases["opencv_inflight1"]))
+        bf16_frames = a["frames"]      # the bf16 step over the CLI's reader's frames
         if not np.array_equal(a["frames"], b["frames"]):
             raise SystemExit("[video] frames differ between inflight 3 and 1")
         log("[video] frames bit-equal across inflight 3 and 1 OK")
@@ -2983,6 +3111,9 @@ def phase_video(smi: str, serve: dict):
         del r
         torch.cuda.empty_cache()
         cli_run = _video_cli(src, root, smi, native_ok)
+        torch.cuda.empty_cache()
+        cli32 = _video_cli_fp32(src, root, smi, bf16_frames)
+        del bf16_frames
         torch.cuda.empty_cache()
         prof = profile_stages.profile(batch=8, iters=5, device="cuda")
         log(f"[video:stages] profile_stages, serving step B=8 {VIDEO_RES}x{VIDEO_RES} bf16, "
@@ -3010,7 +3141,8 @@ def phase_video(smi: str, serve: dict):
             c.pop(k, None)
     log(f"[video] phase in {time.perf_counter() - t0:.1f} s")
     return dict(native=native_ok, native_unavailable=why or None, libx265=x265, cases=cases,
-                inflight_sweep=sweep, cli=cli_run, stages=prof, encode=enc, card=smi)
+                inflight_sweep=sweep, cli=cli_run, cli_fp32=cli32, stages=prof, encode=enc,
+                card=smi)
 
 
 # -- several ranks (phase_multi) ------------------------------------------------
@@ -3096,11 +3228,11 @@ def _multi_trainer(kind: str, group=None):
         # the restart's broadcast on the card
         vq = dataclasses.replace(RELEASE_PGTFORMER.vqvae, restart_unused_codes=False)
         tr = Stage1Trainer(vq, hp, lpips_fn=lpips_fn, device=dev,
-                           dtype=torch.bfloat16, group=group)
+                           dtype=torch.bfloat16, group=group, use_pallas=True)
         return tr, tr.init_state(torch.Generator().manual_seed(11))
     teacher = TDCRQVAE3(RELEASE_PGTFORMER.vqvae, generator=torch.Generator().manual_seed(12))
     tr = PGTFormerTrainer(RELEASE_PGTFORMER, "III", hp, lpips_fn=lpips_fn, device=dev,
-                          dtype=torch.bfloat16, group=group)
+                          dtype=torch.bfloat16, group=group, use_pallas=True)
     return tr, tr.init_state(torch.Generator().manual_seed(13), teacher.state_dict())
 
 
@@ -3383,6 +3515,373 @@ def phase_multi(smi: str, serve: dict, nccl_only: bool = False):
     return out
 
 
+# -- float32 on the card and the use_pallas plans -----------------------------------
+
+FP32_CHUNKS = 4          # fp32 serving: prime + this many steps (the first one warms up)
+FP32_AGREE = 0.9         # fp32 vs bf16 serving: share of predicted codes that agree
+                         # (bf16 alone flips ~2.7% of random-weight codes, phase 7)
+PLAN_ROUNDS, PLAN_STEPS = 2, 3     # training plans: best of two rounds of three steps
+PLAN_PER_STEP = {False: dict(vq_nearest=1), True: dict(sw_block=22, vq_nearest=1)}
+PLAN_PER_STEP_III = {False: dict(vq_nearest=1),
+                     True: dict(sw_block=22 + 8, dense_mha_bnhd=9, vq_nearest=1)}
+# the small geometry in fp32, card (kernels' fp32 forms) against the CPU's fp32
+# module path: between the fp32 reading (lq 6.6e-3, logits 5.7e-3, forced-code
+# out 1.4e-3) and the bf16 one (phase_small_model: 1.38e-2, 1.32e-2, 2.7e-3),
+# so a run that computed in bf16 fails
+FP32_SMALL_LQ_TOL = FP32_SMALL_LOGIT_TOL = 1e-2
+FP32_SMALL_OUT_TOL = 2e-3
+DEG_SHAPE = (8, 512, 512, 3)
+DEG_MOMENT_TOL = 3e-2    # per-sample noise std (Gaussian) / variance (Poisson), card vs CPU
+
+
+def _fp32_kernels(iters: int):
+    """K1 and K3 at the six serving shapes, K4 at its three, K6/K2 at
+    [8, 3072, 8, 64], on fp32 activations: fp32 out, within the bf16
+    phases' rules of the plain versions' fp32 forms; rounded to bf16,
+    bit-equal to the bf16 kernel on the rounded input (only the store
+    differs); K3 bit-equal to K1, K4 to two fp32 K1 launches, the two MHA
+    layouts to each other."""
+    import torch
+    import torch.nn.functional as F
+    from pgtformer_tpu_torch.ops.dense_mha import (
+        dense_mha, dense_mha_plain, dense_mha_plain_bnhd)
+    from pgtformer_tpu_torch.ops.sw_block import (
+        sw_block, sw_block_pair, sw_block_pair_plain, sw_block_plain, sw_block_tokens,
+        sw_block_tokens_plain)
+    from pgtformer_tpu_torch.ops.window import shifted_window_mask, window_partition
+    bf = torch.bfloat16
+    rows = {"sw_block": [], "sw_block_tokens": [], "sw_block_pair": []}
+
+    def bound32(shape, blocks=1, mask_bytes=0):
+        # fp32 in and out: the bf16 bound's activation bytes doubled
+        B, T, H, W, C = shape
+        fl = _sw_block_flops(shape, blocks)
+        nb = 2 * B * T * H * W * C * 4 + blocks * (6 * C * C * 2 + 10 * C * 4
+                                                  + 8 * (T * 16) ** 2 * 4) + mask_bytes
+        return bound_ms(fl, nb)
+
+    for i, (shape, shift, per_step) in enumerate(K1_CASES):
+        B, T, H, W, C = shape
+        w = _sw_block_weights(C, 8, T, seed=100 + i)
+        x = _case_input(i, shape).float()
+        out = sw_block(x, w, shift)
+        err, mag = _compare(f"K1 fp32 {shape} {shift}", out, sw_block_plain(x, w, shift), K1_TOL)
+        if out.dtype != torch.float32 or not torch.equal(out.to(bf), sw_block(x.to(bf), w, shift)):
+            raise SystemExit(f"K1 fp32 {shape}: not the bf16 kernel's result before its store")
+        ms = time_ms(lambda: sw_block(x, w, shift), iters)
+        plain = time_ms(lambda: sw_block_plain(x, w, shift), max(1, iters // 4), warmup=1)
+        bms, by = bound32(shape)
+        rows["sw_block"].append(dict(shape=list(shape), shift=list(shift), per_step=per_step,
+                                     ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                                     max_abs_err=err))
+        shifted = any(shift)
+        tok = window_partition(torch.roll(x, (-shift[0], -shift[1]), dims=(2, 3)) if shifted
+                               else x, (4, 4)).contiguous()
+        nW = (H // 4) * (W // 4)
+        mask = (torch.as_tensor(shifted_window_mask(T, H, W, (4, 4), shift), device="cuda")
+                if shifted else None)
+        k3 = sw_block_tokens(tok, w, mask, nW)
+        err3, _ = _compare(f"K3 fp32 {shape} {shift}", k3,
+                           sw_block_tokens_plain(tok, w, mask, nW), K1_TOL)
+        k1_tok = window_partition(torch.roll(out, (-shift[0], -shift[1]), dims=(2, 3)), (4, 4))
+        if not torch.equal(k3, k1_tok):
+            raise SystemExit(f"K3 fp32 {shape}: differs from K1 on the same windows")
+        ms3 = time_ms(lambda: sw_block_tokens(tok, w, mask, nW), iters)
+        plain3 = time_ms(lambda: sw_block_tokens_plain(tok, w, mask, nW), 1, warmup=1)
+        bms3, by3 = bound32(shape, mask_bytes=0 if mask is None else mask.numel() * 4)
+        rows["sw_block_tokens"].append(dict(shape=list(tok.shape), shift=list(shift),
+                                            per_step=per_step, ms=ms3, plain_ms=plain3,
+                                            bound_ms=bms3, bound_by=by3, max_abs_err=err3))
+        log(f"[fp32:k1] x{list(shape)} shift{shift}: fp32 out, max|d|={err:.3e} (max|ref|="
+            f"{mag:.3e}, tol {K1_TOL}*max|ref|), bf16(out) == the bf16 kernel's; kernel_ms="
+            f"{ms:.4f} plain_ms={plain:.4f} bound_ms={bms:.4f} ({by}); K3 max|d|={err3:.3e}, "
+            f"bit-equal to K1, kernel_ms={ms3:.4f} OK")
+    for i, (shape, per_step) in enumerate(K4_CASES):
+        w0 = _sw_block_weights(shape[-1], 8, shape[1], seed=200 + i)
+        w1 = _sw_block_weights(shape[-1], 8, shape[1], seed=300 + i)
+        x = _case_input(10 + i, shape).float()
+        out = sw_block_pair(x, w0, w1, (2, 2))
+        if not torch.equal(out, sw_block(sw_block(x, w0, (0, 0)), w1, (2, 2))):
+            raise SystemExit(f"K4 fp32 {shape}: differs from two fp32 K1 launches")
+        err, mag = _compare(f"K4 fp32 {shape}", out, sw_block_pair_plain(x, w0, w1, (2, 2)),
+                            K1_TOL)
+        ms = time_ms(lambda: sw_block_pair(x, w0, w1, (2, 2)), iters)
+        plain = time_ms(lambda: sw_block_pair_plain(x, w0, w1, (2, 2)), 1, warmup=1)
+        bms, by = bound32(shape, blocks=2)
+        rows["sw_block_pair"].append(dict(shape=list(shape), per_step=per_step, ms=ms,
+                                          plain_ms=plain, bound_ms=bms, bound_by=by,
+                                          max_abs_err=err))
+        log(f"[fp32:k4] x{list(shape)} pair: bit-equal to two fp32 K1 launches; max|d|="
+            f"{err:.3e} (max|ref|={mag:.3e}, tol {K1_TOL}*max|ref|) kernel_ms={ms:.4f} "
+            f"plain_ms={plain:.4f} bound_ms={bms:.4f} ({by}) OK")
+
+    B, H, N, D = 8, 8, 3072, 64
+    qk, vp = (a.float() for a in mha_operands(B, H, N, D, "normal", seed=7))
+    flops = 4 * B * H * N * N * D
+    bms, by = bound_ms(flops, 4 * B * N * H * D * 4)
+    mha, outs = {}, {}
+    for layout, plain_fn, name in (("bnhd", dense_mha_plain_bnhd, "dense_mha_bnhd"),
+                                   ("bhnd", dense_mha_plain, "dense_mha_bhnd")):
+        q, k, v = _mha_views(qk, vp, H, layout)
+        out = outs[layout] = dense_mha(q, k, v, scale=D ** -0.5, layout=layout)
+        err, mag = _compare(f"dense_mha fp32 {layout}", out, plain_fn(q, k, v, D ** -0.5), K2_TOL)
+        ref16 = dense_mha(q.to(bf), k.to(bf), v.to(bf), scale=D ** -0.5, layout=layout)
+        if out.dtype != torch.float32 or not torch.equal(out.to(bf), ref16):
+            raise SystemExit(f"dense_mha fp32 {layout}: not the bf16 kernel's before its store")
+        ms = time_ms(lambda: dense_mha(q, k, v, scale=D ** -0.5, layout=layout), iters)
+        plain = time_ms(lambda: plain_fn(q, k, v, D ** -0.5), max(1, iters // 4), warmup=1)
+        hq, hk, hv = (a if layout == "bhnd" else a.transpose(1, 2) for a in (q, k, v))
+        lib = time_ms(lambda: F.scaled_dot_product_attention(hq, hk, hv, scale=D ** -0.5), iters)
+        mha[name] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
+                         max_abs_err=err)
+        log(f"[fp32:mha:{layout}] q/k/v {list(q.shape)} fp32: fp32 out, max|d|={err:.3e} "
+            f"(max|ref|={mag:.3e}, tol {K2_TOL}*max|ref|), bf16(out) == the bf16 kernel's; "
+            f"kernel_ms={ms:.4f} plain_ms={plain:.4f} sdpa_fp32_ms={lib:.4f} "
+            f"bound_ms={bms:.4f} ({by}) OK")
+    if not torch.equal(outs["bnhd"].transpose(1, 2), outs["bhnd"]):
+        raise SystemExit("dense_mha fp32: bnhd and bhnd outputs differ")
+    return rows, mha
+
+
+def _fp32_small_model():
+    """The small geometry in fp32: the card (the kernels' fp32 forms)
+    against the port's CPU fp32 module path, with phase_small_model's rules
+    but limits of its own (FP32_SMALL_*: a bf16 run fails them) and fp32
+    logits; the code agreement floor from a CPU run of the plain versions'
+    fp32 forms."""
+    import copy
+    import numpy as np
+    import torch
+    from pgtformer_tpu_torch.models.pgtformer import PGTFormer
+    cpu = PGTFormer(_small_config(), generator=torch.Generator().manual_seed(3)).eval()
+    gpu = _plan(copy.deepcopy(cpu), True).to("cuda")
+    cpu_k = _plan(copy.deepcopy(cpu), True)
+    xc = torch.from_numpy(np.random.default_rng(3).uniform(0, 1, (2, 3, 32, 32, 3))
+                          .astype(np.float32))
+    rel = lambda a, b: ((a.float().cpu() - b).norm() / b.norm()).item()
+    with torch.inference_mode():
+        _, logits_c, lq_c = cpu(xc)
+        _, logits_g, lq_g = gpu(xc.cuda())
+        _, logits_k, _ = cpu_k(xc)
+        codes_c = logits_c.argmax(-1)
+        agree = (logits_g.cpu().argmax(-1) == codes_c).float().mean().item()
+        agree_k = (logits_k.argmax(-1) == codes_c).float().mean().item()
+        out_c = cpu.restore_from_codes(xc, codes_c)
+        out_g = gpu.restore_from_codes(xc.cuda(), codes_c.cuda()).cpu()
+    lq_err, logit_err = rel(lq_g, lq_c), rel(logits_g, logits_c)
+    out_err = ((out_g - out_c).abs().mean() / out_c.abs().max()).item()
+    ok = (lq_err <= FP32_SMALL_LQ_TOL and logit_err <= FP32_SMALL_LOGIT_TOL
+          and out_g.dtype == logits_g.dtype == torch.float32
+          and agree >= max(SMALL_AGREE, agree_k - SMALL_AGREE_SLACK)
+          and out_err <= FP32_SMALL_OUT_TOL and bool(torch.isfinite(out_g).all()))
+    log(f"[fp32:model] small geometry CUDA fp32 (kernels' fp32 forms) vs CPU fp32 (module "
+        f"path): lq_rel_err={lq_err:.3e} (tol {FP32_SMALL_LQ_TOL}) logits "
+        f"{str(logits_g.dtype)[6:]} rel_err={logit_err:.3e} (tol {FP32_SMALL_LOGIT_TOL}) "
+        f"code_agreement={agree:.4f} (CPU fp32 plain forms: {agree_k:.4f}; need >= "
+        f"max({SMALL_AGREE}, that - {SMALL_AGREE_SLACK})) forced_code_out "
+        f"mean|d|/max|ref|={out_err:.3e} (tol {FP32_SMALL_OUT_TOL}) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("small-geometry fp32 check failed")
+    return dict(lq_rel_err=lq_err, logits_rel_err=logit_err, code_agreement=agree)
+
+
+def phase_fp32(smi: str, serve: dict):
+    """float32 on the card: the kernels' fp32 forms (_fp32_kernels), the
+    fp32 serving step (VideoRestorer, RELEASE_PGTFORMER, 512x512, B=8, the
+    serving phase's weights and frames; exact launches; ms, frames/s, peak
+    memory; its predicted codes against the bf16 step's, its frames), and
+    the small geometry (_fp32_small_model)."""
+    import numpy as np
+    import torch
+    from pgtformer_tpu_torch.config import RELEASE_PGTFORMER
+    from pgtformer_tpu_torch.pipeline import VideoRestorer
+    t0 = time.perf_counter()
+    rows, mha = _fp32_kernels(iters=10)
+    torch.cuda.empty_cache()
+
+    B, n = 8, FP32_CHUNKS
+    r = VideoRestorer(None, RELEASE_PGTFORMER, w=1.0, batch_windows=B, dtype=torch.float32,
+                      device="cuda", seed=0)
+    frames = serve["frames"]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    outs, step_ms = _serve(r, frames, n, B)
+    counts = expect_counts("fp32 serving step", sw_block=22 * n, dense_mha_bnhd=9 * n)
+    peak = torch.cuda.max_memory_allocated()
+    d = np.concatenate([np.abs(a.cpu().numpy().astype(np.int16) - b.cpu().numpy())
+                        for a, b in zip(outs, serve["outs"][:n])])
+    # the predicted codes of two windows of the first chunk, fp32 against bf16
+    res = RELEASE_PGTFORMER.vqvae.ddconfig.resolution
+    x = torch.from_numpy(frames[1:7].astype(np.float32) / 255.0).reshape(2, 3, res, res, 3)
+    with torch.inference_mode():
+        logits32 = r.model(x.cuda(), w=1.0)[1]
+        codes32, codes16 = logits32.argmax(-1), serve["restorer"].model(x.cuda(), w=1.0)[1].argmax(-1)
+    agree = (codes32 == codes16).float().mean().item()
+    dtypes = {str(p.dtype)[6:] for p in r.model.parameters()}
+    # an fp32 step computes fp32 logits from fp32 weights, and its frames are
+    # not the bf16 step's (a step that stayed in bf16 would equal them)
+    if (outs[0].dtype != torch.uint8 or agree < FP32_AGREE or dtypes != {"float32"}
+            or logits32.dtype != torch.float32 or d.max() == 0):
+        raise SystemExit(f"fp32 serving: output {outs[0].dtype}, parameters {dtypes}, logits "
+                         f"{logits32.dtype}, code agreement with the bf16 step {agree:.4f} "
+                         f"(floor {FP32_AGREE}), frames max|d| from it {d.max()} (must be > 0)")
+    serve32 = dict(step_ms=step_ms, frames_per_s=B * 1e3 / step_ms, peak_gib=peak / 2 ** 30,
+                   per_step={k: v // n for k, v in counts.items() if v}, code_agreement=agree,
+                   lsb_vs_bf16=dict(mean=float(d.mean()), max=int(d.max())))
+    log(f"[fp32:serve] RELEASE_PGTFORMER {res}x{res}, B={B}, fp32 (TF32 off): {n} steps, "
+        f"launches K1={counts['sw_block']} (22/step) K6={counts['dense_mha_bnhd']} (9/step), no "
+        f"other kernel (the step predicts codes with its head; it looks none up); steady "
+        f"step_ms={step_ms:.2f} frames_per_s={B * 1e3 / step_ms:.3f} peak_mem_GiB="
+        f"{peak / 2 ** 30:.2f} (bf16 step: {serve['step_ms']:.2f} ms); vs the bf16 step: code "
+        f"agreement {agree:.4f} (floor {FP32_AGREE}), frames mean|d|={d.mean():.3f} "
+        f"max|d|={d.max()} LSB (> 0); parameters and logits float32; card: {smi}")
+    del r, outs
+    torch.cuda.empty_cache()
+    small = _fp32_small_model()
+    log(f"[fp32] phase in {time.perf_counter() - t0:.1f} s")
+    return dict(rows=rows, mha=mha, serve=serve32, small=small)
+
+
+def _plan_steps(tag: str, tr, state, batch, use_pallas: bool, dtype, per_step: dict, smi: str):
+    """`bench_train_step.bench` on the trainer `tr` switched to (use_pallas,
+    dtype): one warm-up step, then PLAN_ROUNDS rounds of PLAN_STEPS steps
+    (CUDA events); the best round's ms per step, peak memory, and exactly
+    `per_step` launches per step."""
+    from pgtformer_tpu_torch import bench_train_step
+    bench_train_step.set_plan(tr, use_pallas, dtype)
+    state, r = bench_train_step.bench(tr, state, batch, PLAN_STEPS, PLAN_ROUNDS)
+    if r["launches_per_step"] != per_step:
+        raise SystemExit(f"training plan {tag}: launches per step {r['launches_per_step']}, "
+                         f"expected {per_step}")
+    peak, losses = r["peak_bytes"] / 2 ** 30, r["losses"]
+    name = str(dtype).replace("torch.", "")
+    log(f"[train_plans:{tag}] use_pallas={use_pallas} {name}: step_ms={r['step_ms']:.2f} (best "
+        f"of {PLAN_ROUNDS} rounds of {PLAN_STEPS}, after 1 warm-up) peak_mem_GiB={peak:.2f}; "
+        f"launches per step {per_step}; l_g_total={losses.get('l_g_total', float('nan')):.5f}; "
+        f"card: {smi}")
+    return state, dict(step_ms=r["step_ms"], peak_gib=peak, per_step=per_step, dtype=name,
+                       pallas=use_pallas)
+
+
+def _degradations(smi: str):
+    """The batched noise on a [8, 512, 512, 3] batch on the card: shape,
+    range, determinism per seed, and the per-sample moments of its noise
+    against the same functions on the CPU."""
+    import numpy as np
+    import torch
+    from pgtformer_tpu_torch.data import degradations as D
+    rng = np.random.default_rng(41)
+    img = torch.from_numpy(rng.uniform(0, 1, DEG_SHAPE).astype(np.float32))
+    sigma = torch.linspace(2, 30, DEG_SHAPE[0])
+    gray = (torch.arange(DEG_SHAPE[0]) % 2).float()
+    out = {}
+    for name, fn, arg in (("gaussian", D.add_gaussian_noise_batch, sigma),
+                          ("poisson", D.add_poisson_noise_batch, sigma / 15)):
+        dev = [fn(img.cuda(), torch.Generator(device="cuda").manual_seed(s), arg.cuda(),
+                  gray.cuda(), clip=False) for s in (1, 1, 2)]
+        cpu = fn(img, torch.Generator().manual_seed(1), arg, gray, clip=False)
+        torch.cuda.synchronize()
+        if not (torch.equal(dev[0], dev[1]) and not torch.equal(dev[0], dev[2])):
+            raise SystemExit(f"[deg] {name}: not deterministic per seed")
+        clipped = fn(img.cuda(), torch.Generator(device="cuda").manual_seed(3), arg.cuda(),
+                     gray.cuda())
+        if (dev[0].shape != DEG_SHAPE or float(clipped.min()) < 0 or float(clipped.max()) > 1
+                or not bool(torch.isfinite(dev[0]).all())):
+            raise SystemExit(f"[deg] {name}: shape {tuple(dev[0].shape)} or range")
+        m = lambda a: (a - img.to(a.device)).reshape(DEG_SHAPE[0], -1).double().var(1).cpu()
+        ratio = (m(dev[0]) / m(cpu)).sqrt() if name == "gaussian" else m(dev[0]) / m(cpu)
+        worst = float((ratio - 1).abs().max())
+        if worst > DEG_MOMENT_TOL:
+            raise SystemExit(f"[deg] {name}: card vs CPU moments differ by {worst:.3e}")
+        out[name] = dict(worst_moment_rel=worst)
+        log(f"[deg:{name}] {list(DEG_SHAPE)} on the card: shape, range [0, 1] clipped, "
+            f"deterministic per seed; per-sample noise {'std' if name == 'gaussian' else 'var'} "
+            f"card / CPU worst |ratio - 1| = {worst:.3e} (tol {DEG_MOMENT_TOL}) OK")
+    return out
+
+
+def _checkpoint_round_trip(serve: dict):
+    """The serving weights through the port's own .safetensors writer and
+    from_pretrained(directory), served again: the serving step's digest."""
+    import os
+    import tempfile
+    import torch
+    from pgtformer_tpu_torch.config import RELEASE_PGTFORMER
+    from pgtformer_tpu_torch.convert import from_pretrained, save_reference_checkpoint
+    from pgtformer_tpu_torch.models.pgtformer import PGTFormer
+    from pgtformer_tpu_torch.pipeline import VideoRestorer
+    with tempfile.TemporaryDirectory() as d:
+        model = PGTFormer(RELEASE_PGTFORMER, generator=torch.Generator().manual_seed(0))
+        save_reference_checkpoint(model, os.path.join(d, "model.safetensors"))
+        size = os.path.getsize(os.path.join(d, "model.safetensors"))
+        loaded = from_pretrained(d, dtype=torch.float32, device="cpu")
+        sd = loaded.state_dict()
+        if any(not torch.equal(v, sd[k]) for k, v in model.state_dict().items()):
+            raise SystemExit("[ckpt] from_pretrained does not give back the saved weights")
+    del model, loaded
+    r = VideoRestorer(sd, RELEASE_PGTFORMER, w=1.0, batch_windows=8, dtype=torch.bfloat16,
+                      device="cuda")
+    outs, _ = _serve(r, serve["frames"], serve["steps"], 8)
+    digest = hashlib.sha256(b"".join(o.cpu().numpy().tobytes() for o in outs)).hexdigest()[:16]
+    if digest != serve["digest"]:
+        raise SystemExit(f"[ckpt] served from the round trip: out_sha256={digest}, the serving "
+                         f"step's {serve['digest']}")
+    log(f"[ckpt] seed-0 weights -> save_reference_checkpoint (the port's .safetensors, "
+        f"{size / 2 ** 20:.1f} MiB) -> from_pretrained(directory) -> VideoRestorer bf16: "
+        f"out_sha256={digest}, the serving step's OK")
+    del r
+    return dict(out_sha256=digest, bytes=size)
+
+
+def phase_train_plans(smi: str, serve: dict):
+    """The training step under both plans at full width: stage I with
+    use_pallas False and True, each in fp32 and bf16 (one trainer, switched
+    between them), stage III with False in fp32 (the JAX package's default
+    plan) and True in bf16; bench_train_step (both plans) and profile_step
+    --code once each; the batch degradations; the checkpoint round trip.
+    Each training run is bench_train_step's (its seeded trainers and clip,
+    no LPIPS), so the two tools time the same step."""
+    import os
+    import tempfile
+    import torch
+    from pgtformer_tpu_torch import bench_train_step, profile_step
+    t0 = time.perf_counter()
+    f32, b16 = torch.float32, torch.bfloat16
+    runs = {}
+    for stage, plans, per_step in (
+            ("I", ((False, f32), (True, f32), (False, b16), (True, b16)), PLAN_PER_STEP),
+            ("III", ((False, f32), (True, b16)), PLAN_PER_STEP_III)):
+        tr, state, batch = bench_train_step.build(stage, plans[0][0], plans[0][1],
+                                                  torch.device("cuda"), TRAIN_RES, 1)
+        for use, dt in plans:
+            tag = f"{stage}:{'pallas' if use else 'xla'}:{str(dt)[6:]}"
+            state, runs[tag] = _plan_steps(tag, tr, state, batch, use, dt, per_step[use], smi)
+        del tr, state, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as d:
+        log("[train_plans:bench] bench_train_step --mode both --iters 2")
+        bench_train_step.main(["--mode", "both", "--iters", "2",
+                               "--json", os.path.join(d, "bench.json")])
+        with open(os.path.join(d, "bench.json")) as f:
+            bench = json.load(f)
+        for rec in bench["runs"]:
+            if rec["launches_per_step"] != PLAN_PER_STEP[rec["pallas"]]:
+                raise SystemExit(f"bench_train_step launches {rec['launches_per_step']}")
+        torch.cuda.empty_cache()
+        log("[train_plans:profile] profile_step --code --steps 2")
+        profile_step.main(["--code", "--steps", "2", "--json", os.path.join(d, "code.json")])
+        with open(os.path.join(d, "code.json")) as f:
+            prof = json.load(f)
+    torch.cuda.empty_cache()
+    deg = _degradations(smi)
+    ckpt = _checkpoint_round_trip(serve)
+    torch.cuda.empty_cache()
+    log(f"[train_plans] phase in {time.perf_counter() - t0:.1f} s")
+    return dict(runs=runs, bench=bench, profile_code=prof, degradations=deg, checkpoint=ckpt)
+
+
 def _mix(rows, key):
     """Per-launch average over the serving step's mix of shapes."""
     return sum(r[key] * r["per_step"] for r in rows) / sum(r["per_step"] for r in rows)
@@ -3425,11 +3924,14 @@ def main() -> int:
     phase_small_model()
     phase_small_vae()
     phase_small_fused_tail()
+    fp32 = phase_fp32(smi, serve)
     serve.pop("restorer")
     torch.cuda.empty_cache()
     secondary = phase_secondary(smi)
     torch.cuda.empty_cache()
     train = phase_train(smi)
+    torch.cuda.empty_cache()
+    plans = phase_train_plans(smi, serve)
     torch.cuda.empty_cache()
     train_loop = phase_train_loop(smi)
     torch.cuda.empty_cache()
@@ -3483,10 +3985,12 @@ def main() -> int:
                                         for stage, r in train.items()}
         k["launches_train_loop"] = {
             tag: {part: train_loop[tag][f"{part}_launches"].get(name, 0)
-                  for part in ("train", "val")} for tag in ("I", "I+resume", "III")}
-        k["launches_eval"] = {tag: ev[tag]["launches"].get(name, 0) for tag in ("test", "rotate")}
+                  for part in ("train", "val")} for tag in ("I", "I+resume", "III", "I:fp32")}
+        k["launches_eval"] = {tag: ev[tag]["launches"].get(name, 0)
+                              for tag in ("test", "rotate", "fp32")}
         k["launches_video"] = {tag: c["counts"].get(name, 0) for tag, c in video["cases"].items()}
         k["launches_video"]["cli"] = video["cli"]["counts"].get(name, 0)
+        k["launches_video"]["cli_fp32"] = video["cli_fp32"]["counts"].get(name, 0)
         # per rank, over the sharded serving run and per data-parallel training step
         k["launches_multi"] = {
             **{f"serve:{tag}": c["counts"].get(name, 0) for tag, c in multi["serve"].items()},
@@ -3494,6 +3998,17 @@ def main() -> int:
         # per full-width forward of each secondary architecture
         k["launches_secondary"] = {m: secondary[m]["counts"].get(name, 0)
                                    for m in SECONDARY_RUNS}
+        # per fp32 serving step, and per training step under each plan
+        k["launches_fp32"] = fp32["serve"]["per_step"].get(name, 0)
+        k["launches_train_plans"] = {tag: r["per_step"].get(name, 0)
+                                     for tag, r in plans["runs"].items()}
+        if name in fp32["rows"]:
+            rows = fp32["rows"][name]
+            k["fp32"] = {key: _mix(rows, key) for key in ("ms", "plain_ms", "bound_ms")}
+            k["fp32"].update(max_abs_err=max(r["max_abs_err"] for r in rows), library_ms=None,
+                             cases=rows)
+        elif name in fp32["mha"]:
+            k["fp32"] = fp32["mha"][name]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "default_step_ms": step,
                       "train": {stage: {key: v for key, v in r.items() if key != "per_step"}
@@ -3503,6 +4018,9 @@ def main() -> int:
                       "video": video,
                       "multi": multi,
                       "secondary": secondary,
+                      "fp32": {key: v for key, v in fp32.items() if key not in ("rows", "mha")},
+                      "train_plans": {key: v for key, v in plans.items()
+                                      if key not in ("bench", "profile_code")},
                       "variant_step_ms": {k: v["step_ms"] for k, v in variants.items()},
                       "autoencoder_ms": {k: v for k, v in vae.items() if k.endswith("_ms")}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

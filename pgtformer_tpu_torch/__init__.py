@@ -16,11 +16,17 @@ __version__ = "0.1.0"
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: `cuda` unless the caller asks for
-    another.  Without a card and without an explicit device this raises;
-    nothing carries on quietly on the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device available; pass device='cpu' "
-                               "to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+    another.  Without a card this raises for `cuda`, asked for or by
+    default; nothing carries on quietly on the CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device available; pass device='cpu' "
+                           "to run on the CPU")
+    return device
+
+
+def default_use_pallas(device) -> bool:
+    """The plan of serving and evaluation, as JAX's (``use_pallas`` on every
+    backend but the CPU): the hand-written kernels where `device` is CUDA,
+    the module path elsewhere.  Training takes the kernels only when asked."""
+    return torch.device(device).type == "cuda"

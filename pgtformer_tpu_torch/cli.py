@@ -10,16 +10,21 @@ Usage:
         [--fused-tail 0|up|1]
 
 Weights: a reference-format checkpoint (.pth with `params_ema`, or
-.safetensors).  Without weights the model runs with seeded random weights
-(pipeline smoke test only) and a warning is printed.  Runs on the card in
-bf16 by default; the hand-written kernels take bf16 only, so `--fp32`
-needs `--device cpu`.  The knob flags (pgtformer_tpu_torch/knobs.py) pick
-among evaluation plans that compute the same function.  Decode and encode
-run on the native libav shim (io/native.py, built at first use) and fall
-back to OpenCV (mp4v) when it cannot be built.  It prints the frame rate
-and each phase's total; `--encode-quality-check` re-decodes the output and
-prints PSNR/SSIM of sampled frames and `vmaf(own-impl)` (eval/vmaf.py)
-against the restored frames.
+.safetensors), or a directory holding `model.safetensors` or
+`pytorch_model.bin` (as `convert.from_pretrained` takes it). Without
+weights the model runs with seeded random weights (pipeline smoke test
+only) and a warning is printed. Runs on the card in bf16 by default, the
+shifted-window layers and the code transformer's attention on the
+hand-written kernels; `--fp32` computes in float32 there too (the kernels
+in their fp32 form: bf16 inputs, fp32 output, as JAX's Pallas kernels;
+cuDNN and cuBLAS with TF32 off). The knob flags
+(pgtformer_tpu_torch/knobs.py) pick among evaluation plans that compute
+the same function. Decode and encode run on the native libav shim
+(io/native.py, built at first use) and fall back to OpenCV (mp4v) when it
+cannot be built. It prints the frame rate and each phase's total;
+`--encode-quality-check` re-decodes the output and prints PSNR/SSIM of
+sampled frames and `vmaf(own-impl)` (eval/vmaf.py) against the restored
+frames.
 """
 
 from __future__ import annotations
@@ -42,13 +47,15 @@ def main(argv=None) -> int:
     parser.add_argument("-o", "--output_video", type=str, required=True,
                         help="Output video file path")
     parser.add_argument("--weights", type=str, default=None,
-                        help="Reference-format checkpoint (.pth or .safetensors)")
+                        help="Reference-format checkpoint (.pth or .safetensors), or a "
+                             "directory holding model.safetensors / pytorch_model.bin")
     parser.add_argument("--fidelity", "-w", type=float, default=1.0,
                         help="Fidelity knob w")
     parser.add_argument("--batch", type=int, default=8,
                         help="Sliding windows per device step")
     parser.add_argument("--fp32", action="store_true",
-                        help="Compute in float32 (default bfloat16; CPU only)")
+                        help="Compute in float32 (default bfloat16); on the card the "
+                             "kernels take fp32 activations and TF32 is off")
     parser.add_argument("--dump-frames", type=str, default=None,
                         help="Also write restored frames as PNGs into this directory")
     parser.add_argument("--codec", type=str, default="auto",
@@ -88,16 +95,17 @@ def main(argv=None) -> int:
 
     from pgtformer_tpu_torch import resolve_device
     from pgtformer_tpu_torch.config import RELEASE_PGTFORMER
-    from pgtformer_tpu_torch.convert import load_checkpoint
+    from pgtformer_tpu_torch.convert import load_checkpoint, local_checkpoint
     from pgtformer_tpu_torch.pipeline import VideoRestorer
 
     device = resolve_device(args.device)
     dtype = torch.float32 if args.fp32 else torch.bfloat16
     if dtype == torch.float32 and device.type == "cuda":
-        parser.error("--fp32 needs --device cpu: the CUDA kernels take bf16")
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
     weights = None
     if args.weights:
-        weights = load_checkpoint(args.weights)
+        weights = load_checkpoint(local_checkpoint(args.weights))
     else:
         print("WARNING: no --weights given; running with random weights "
               "(pipeline smoke test only).", file=sys.stderr)

@@ -1,4 +1,5 @@
-// Dense multi-head attention for the code transformer, Hopper (sm_90a), bf16.
+// Dense multi-head attention for the code transformer, Hopper (sm_90a), bf16
+// operands, bf16 or fp32 output.
 //
 // Replaces two TPU kernels of pgtformer_tpu/ops/flash_attn.py with one
 // strided kernel: _dense_mha_pallas (dense_mha(layout="bhnd"), operands and
@@ -42,8 +43,10 @@
 //  * within a consumer, S(t) = Q.K(t)^T and P(t-1).V(t-1) are issued
 //    together and the softmax of tile t runs while the second still holds
 //    the tensor cores; the other consumer fills the gaps between them;
-//  * the epilogue writes bf16(O / l) straight from registers, rows >= N
-//    skipped.
+//  * the epilogue writes bf16(O / l), or with `out_f32` the fp32 O / l
+//    unrounded, straight from registers, rows >= N skipped.  The fp32 form is
+//    the TPU kernel's under fp32 activations: q/k/v rounded to bf16 (here by
+//    the wrapper), the output stored in q.dtype.
 //
 // Rounding points, as the TPU kernel: q * scale is rounded to bf16 once, in
 // shared memory, before the first product; the unnormalized probabilities
@@ -337,7 +340,8 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pa)
 }
 
 struct OutArgs {
-    bf16* o;
+    void* o;                // bf16, or fp32 with out_f32
+    int out_f32;
     long long sb, sh, sn;   // output strides in elements
     int N;
     float scale;
@@ -456,8 +460,9 @@ __global__ void __launch_bounds__(THREADS, 1)
         wgmma_wait<0>();
         fence_regs(o);
 
-        // epilogue: bf16(O / l) through the output strides, rows >= N skipped
-        bf16* ob = a.o + b * a.sb + h * a.sh;
+        // epilogue: bf16(O / l) (or fp32) through the output strides, rows >=
+        // N skipped
+        const long long obase = b * a.sb + h * a.sh;
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
             l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -468,11 +473,20 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int r = 0; r < 2; ++r) {
             const int row = q0 + wg * 64 + r0 + 8 * r;
             if (row >= N) continue;
-            bf16* orow = ob + (long long)row * a.sn;
+            const long long orow = obase + (long long)row * a.sn;
+            if (a.out_f32) {
+                float* of = static_cast<float*>(a.o) + orow;
 #pragma unroll
-            for (int j = 0; j < D / 8; ++j)
-                *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + c0) =
-                    __floats2bfloat162_rn(o[4 * j + 2 * r] * l[r], o[4 * j + 2 * r + 1] * l[r]);
+                for (int j = 0; j < D / 8; ++j)
+                    *reinterpret_cast<float2*>(of + 8 * j + c0) =
+                        make_float2(o[4 * j + 2 * r] * l[r], o[4 * j + 2 * r + 1] * l[r]);
+            } else {
+                bf16* ob = static_cast<bf16*>(a.o) + orow;
+#pragma unroll
+                for (int j = 0; j < D / 8; ++j)
+                    *reinterpret_cast<__nv_bfloat162*>(ob + 8 * j + c0) = __floats2bfloat162_rn(
+                        o[4 * j + 2 * r] * l[r], o[4 * j + 2 * r + 1] * l[r]);
+            }
         }
     }
 }
@@ -555,13 +569,15 @@ int launch(const void* q, const void* k, const void* v, const long long* geom, O
 // values each (ops/dense_mha.py:tma_geometry): dims (D, N, H, B), byte
 // strides of rows, heads and batch (multiples of 16), box (D, 128, 1, 1) and
 // the swizzle in bytes (2*D).  o_strides[3] holds the output's batch, head
-// and row strides in elements (unit stride along D).  Returns 0 on success,
-// a cudaError_t code, or one of the ERR_ codes above.
+// and row strides in elements (unit stride along D); the output is bf16, or
+// fp32 with out_f32.  Returns 0 on success, a cudaError_t code, or one of
+// the ERR_ codes above.
 extern "C" int dense_mha_launch(const void* q, const void* k, const void* v, void* o,
-                                const long long* geom, const long long* o_strides, float scale,
-                                void* stream) {
+                                const long long* geom, const long long* o_strides, int out_f32,
+                                float scale, void* stream) {
     OutArgs a;
-    a.o = (bf16*)o;
+    a.o = o;
+    a.out_f32 = out_f32 ? 1 : 0;
     a.sb = o_strides[0];
     a.sh = o_strides[1];
     a.sn = o_strides[2];

@@ -1,4 +1,5 @@
-// Fused shifted-window transformer block for Hopper (sm_90a), bf16.
+// Fused shifted-window transformer block for Hopper (sm_90a), bf16 in, bf16
+// or fp32 out.
 //
 // Three entry points over one device function (sw_block_body):
 //   sw_block_launch        replaces pgtformer_tpu/ops/pallas_attn.py:
@@ -51,7 +52,12 @@
 //  * The slab's input rows arrive by 16-byte cp.async through a per-slab row
 //    table (pixel offsets, shift-region labels) computed once; the fp32
 //    residual x1 = x + proj(...) is kept in shared memory (where q/k/v
-//    lived); the final residual add writes bf16 straight to the output.
+//    lived); the final residual add writes bf16, or with `out_f32` the fp32
+//    sum unrounded, straight to the output.  That is the fp32 form of the
+//    TPU kernels: they round their input to bf16 (_pallas_sw_block_5d's
+//    xb = x.astype(bfloat16); the wrapper does the same here) and store the
+//    fp32 result in x.dtype.  The output is never staged in shared memory,
+//    so its element size changes no part of the carve-up.
 //  * Slabs past the input (a ragged last CTA) run on zeros and write
 //    nothing.
 // Built with -DSW_PROBE, CTA 0 counts the clock cycles of each phase
@@ -78,7 +84,8 @@ constexpr int ROW_TABLE = 768;            // per slab: 64 int labels, 64 int64 r
 
 struct SWArgs {
     const bf16* x;
-    bf16* out;
+    void* out;          // bf16, or fp32 with out_f32
+    int out_f32;
     const float* ln1w;
     const float* ln1b;
     const bf16* wq;
@@ -768,8 +775,12 @@ __device__ __forceinline__ void slab_pass(const SWArgs& a, int slab, unsigned ch
             const long long off = pix[r];
             if (off < 0) return;
             const float2 xr = *reinterpret_cast<const float2*>(x1 + xoff(r, c0 + c, C));
-            *reinterpret_cast<__nv_bfloat162*>(a.out + off + c0 + c) =
-                __floats2bfloat162_rn(xr.x + (v0 + bv[j].x), xr.y + (v1 + bv[j].y));
+            const float2 y = make_float2(xr.x + (v0 + bv[j].x), xr.y + (v1 + bv[j].y));
+            if (a.out_f32)
+                *reinterpret_cast<float2*>(static_cast<float*>(a.out) + off + c0 + c) = y;
+            else
+                *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(a.out) + off + c0 + c) =
+                    __floats2bfloat162_rn(y.x, y.y);
         });
     }
     named_sync(bar, 128);   // the regions are reused by the next pass
@@ -833,7 +844,10 @@ __global__ void __launch_bounds__(128 * (MAX_NW + 1), 1)
 // at a barrier, and the same CTAs walk the shifted slabs through block 1
 // (a1: scratch -> out).  The scratch holds block 0's bf16 output, as two
 // launches would hand it over, and the arithmetic is K1's, so the result is
-// the same bit for bit; what goes away is one launch.  One slab per CTA:
+// the same bit for bit; what goes away is one launch.  With an fp32 output
+// only block 1 stores fp32: the TPU kernel carries block 0's result in
+// out_dtype (fp32) and rounds it to bf16 as block 1's input, and the bf16
+// scratch holds exactly that rounding of the same fp32 value.  One slab per CTA:
 // with two, the persistent loop's state spilled under the register cap of
 // 384 threads.
 __global__ void __launch_bounds__(128 * 2, 1)
@@ -982,9 +996,10 @@ int launch_pair(SWArgs a0, SWArgs a1, const int* plan, cudaStream_t stream) {
 
 // p: x, out, ln1w, ln1b, wq, bq, wk, bk, wv, bv, wp, bp, ln2w, ln2b, w1, b1,
 // w2, b2, relb (19 device pointers).
-void set_pointers(SWArgs& a, const void* const* p) {
+void set_pointers(SWArgs& a, const void* const* p, int out_f32) {
     a.x = (const bf16*)p[0];
-    a.out = (bf16*)p[1];
+    a.out = const_cast<void*>(p[1]);
+    a.out_f32 = out_f32 ? 1 : 0;
     a.ln1w = (const float*)p[2];
     a.ln1b = (const float*)p[3];
     a.wq = (const bf16*)p[4];
@@ -1053,17 +1068,17 @@ extern "C" int sw_block_probe_read(unsigned long long* host) {
 #endif
 
 // Plain C entry points (loaded with ctypes).  p is a host table of 19 device
-// pointers (set_pointers); matrices are bf16 (out_features, in_features)
-// row-major with 16-byte aligned rows, vectors and the [heads, N, N] relative
-// bias fp32.  plan is the host array of ops/sw_block.py:sw_plan.  Each
+// pointers (set_pointers); x is bf16, the output bf16 or, with out_f32, fp32;
+// matrices are bf16 (out_features, in_features) row-major with 16-byte
+// aligned rows, vectors and the [heads, N, N] relative bias fp32.  plan is the host array of ops/sw_block.py:sw_plan.  Each
 // returns 0 on success, a cudaError_t code or one of the ERR_ codes above.
 
 // One block on x [B, T, H, W, C] with shift (sh, sw).
 extern "C" int sw_block_launch(const void* const* p, const int* plan, int B, int T, int H, int W,
-                               int C, int heads, int wh, int ww, int sh, int sw, float scale,
-                               void* stream) {
+                               int C, int heads, int wh, int ww, int sh, int sw, int out_f32,
+                               float scale, void* stream) {
     SWArgs a = {};
-    set_pointers(a, p);
+    set_pointers(a, p, out_f32);
     if (!set_geometry_5d(a, B, T, H, W, C, heads, wh, ww, sh, sw, scale))
         return (int)cudaErrorInvalidValue;
     return launch(sw_block_kernel<false>, a, plan, (cudaStream_t)stream);
@@ -1072,10 +1087,10 @@ extern "C" int sw_block_launch(const void* const* p, const int* plan, int B, int
 // One block on window tokens [Mwin, N, C]; mask is null or fp32 [nW, N, N],
 // added to the scores of window m as mask[m % nW].
 extern "C" int sw_block_tokens_launch(const void* const* p, const int* plan, const void* mask,
-                                      int Mwin, int N, int C, int heads, int nW, float scale,
-                                      void* stream) {
+                                      int Mwin, int N, int C, int heads, int nW, int out_f32,
+                                      float scale, void* stream) {
     SWArgs a = {};
-    set_pointers(a, p);
+    set_pointers(a, p, out_f32);
     if (Mwin <= 0 || nW <= 0 || !set_width(a, C, heads, N, scale))
         return (int)cudaErrorInvalidValue;
     a.mask = (const float*)mask;
@@ -1085,13 +1100,15 @@ extern "C" int sw_block_tokens_launch(const void* const* p, const int* plan, con
 }
 
 // Blocks [no-shift, shift (sh, sw)] on x [B, T, H, W, C]: p0 = (x, scratch,
-// block 0's weights), p1 = (scratch, out, block 1's weights).
+// block 0's weights), p1 = (scratch, out, block 1's weights); the scratch is
+// bf16, the output fp32 with out_f32.
 extern "C" int sw_block_pair_launch(const void* const* p0, const void* const* p1,
                                     const int* plan, int B, int T, int H, int W, int C, int heads,
-                                    int wh, int ww, int sh, int sw, float scale, void* stream) {
+                                    int wh, int ww, int sh, int sw, int out_f32, float scale,
+                                    void* stream) {
     SWArgs a0 = {}, a1 = {};
-    set_pointers(a0, p0);
-    set_pointers(a1, p1);
+    set_pointers(a0, p0, 0);
+    set_pointers(a1, p1, out_f32);
     if (!set_geometry_5d(a0, B, T, H, W, C, heads, wh, ww, 0, 0, scale) ||
         !set_geometry_5d(a1, B, T, H, W, C, heads, wh, ww, sh, sw, scale))
         return (int)cudaErrorInvalidValue;

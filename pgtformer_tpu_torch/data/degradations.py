@@ -14,9 +14,15 @@ Design deltas from the reference:
     across the T frames of a clip when `shared` (temporal consistency).
 
 The same generator, image and arguments give the same arrays as the JAX
-package's functions, bit for bit.  That package's batched on-device noise
-functions (on `jax.random` keys) are on no path of the training CLI and are
-not ported here.
+package's functions, bit for bit.
+
+That package's batched on-device noise (``*_batch``: channels-last
+[B, H, W, C], per-sample sigma / scale / gray vectors, on `jax.random`
+keys) is ported at the end of this file on a `torch.Generator` on the
+tensor's device.  No path of the training CLI calls either.  The draws are
+torch's, so equal seeds give other noise than `jax.random`; the
+deterministic parts (the 256-level occupancy, Poisson's `vals`, the
+clip/round rules) are JAX's.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import math
 from typing import Sequence, Tuple
 
 import numpy as np
+import torch
 
 try:
     import cv2
@@ -254,6 +261,99 @@ def add_jpeg_compression(img: np.ndarray, quality: int) -> np.ndarray:
     assert ok
     dec = cv2.imdecode(enc, cv2.IMREAD_COLOR)[..., ::-1]
     return dec.astype(np.float32) / 255.0
+
+
+# -- batched on-device noise (torch) -----------------------------------------
+#
+# The JAX package's `*_batch` functions (its data/degradations.py, after the
+# reference's torch `*_pt` variants) on a torch.Generator that lives on the
+# image's device.  img [B, H, W, C] float in [0, 1]; sigma, scale and
+# gray_noise are scalars or [B] vectors.
+
+def _per_sample(v, img: torch.Tensor) -> torch.Tensor:
+    """A scalar or [B] vector as [B, 1, 1, 1] in img's dtype and device."""
+    t = torch.as_tensor(v, dtype=img.dtype, device=img.device)
+    return t.expand(img.shape[0]).reshape(-1, 1, 1, 1)
+
+
+def _finish_batch(img: torch.Tensor, noise: torch.Tensor, clip: bool,
+                  rounds: bool) -> torch.Tensor:
+    out = img + noise
+    if clip and rounds:
+        out = torch.clamp(torch.round(out * 255.0), 0, 255) / 255.0
+    elif clip:
+        out = torch.clamp(out, 0, 1)
+    elif rounds:
+        out = torch.round(out * 255.0) / 255.0
+    return out
+
+
+def add_gaussian_noise_batch(img: torch.Tensor, generator: torch.Generator, sigma,
+                             gray_noise=0.0, clip: bool = True,
+                             rounds: bool = False) -> torch.Tensor:
+    """Gaussian noise of std `sigma` (0-255 scale) per sample; `gray_noise`
+    (0 or 1 per sample) blends a per-pixel gray field for the color noise."""
+    B, H, W, C = img.shape
+    sigma = _per_sample(sigma, img)
+    gray = _per_sample(gray_noise, img)
+    draw = dict(generator=generator, device=img.device, dtype=img.dtype)
+    color = torch.randn(img.shape, **draw) * sigma / 255.0
+    gfield = torch.randn((B, H, W, 1), **draw) * sigma / 255.0
+    return _finish_batch(img, color * (1 - gray) + gfield * gray, clip, rounds)
+
+
+def random_add_gaussian_noise_batch(img: torch.Tensor, generator: torch.Generator,
+                                    sigma_range=(0, 10), gray_prob: float = 0.0,
+                                    clip: bool = True, rounds: bool = False) -> torch.Tensor:
+    B = img.shape[0]
+    draw = dict(generator=generator, device=img.device, dtype=img.dtype)
+    sigma = torch.rand(B, **draw) * (sigma_range[1] - sigma_range[0]) + sigma_range[0]
+    gray = (torch.rand(B, **draw) < gray_prob).to(img.dtype)
+    return add_gaussian_noise_batch(img, generator, sigma, gray, clip, rounds)
+
+
+def _unique_levels_batch(q: torch.Tensor) -> torch.Tensor:
+    """Occupied levels 0..255 per sample of a 255-quantized batch [B, ...]."""
+    B = q.shape[0]
+    occ = torch.zeros((B, 256), dtype=torch.int32, device=q.device)
+    occ.scatter_(1, q.reshape(B, -1).long(), 1)
+    return occ.sum(1)
+
+
+def _poisson_vals_batch(q: torch.Tensor) -> torch.Tensor:
+    """2^ceil(log2(max(levels, 2))) per sample, fp32."""
+    n = torch.clamp(_unique_levels_batch(q), min=2).to(torch.float32)
+    return 2.0 ** torch.ceil(torch.log2(n))
+
+
+def add_poisson_noise_batch(img: torch.Tensor, generator: torch.Generator, scale=1.0,
+                            gray_noise=0.0, clip: bool = True,
+                            rounds: bool = False) -> torch.Tensor:
+    """Shot noise per sample, times `scale`; `gray_noise` blends the noise
+    of the luma for the color noise."""
+    B = img.shape[0]
+    scale = _per_sample(scale, img)
+    gray = _per_sample(gray_noise, img)
+    q = torch.clamp(torch.round(img * 255.0), 0, 255)
+    vals = _poisson_vals_batch(q).to(img.dtype).reshape(B, 1, 1, 1)
+    qn = q / 255.0
+    color = torch.poisson(qn * vals, generator=generator) / vals - qn
+    luma = img @ torch.as_tensor(_LUMA, dtype=img.dtype, device=img.device)
+    qg = torch.clamp(torch.round(luma * 255.0), 0, 255)
+    vals_g = _poisson_vals_batch(qg).to(img.dtype).reshape(B, 1, 1, 1)
+    qgn = (qg / 255.0)[..., None]
+    gfield = torch.poisson(qgn * vals_g, generator=generator) / vals_g - qgn
+    return _finish_batch(img, (color * (1 - gray) + gfield * gray) * scale, clip, rounds)
+
+
+def random_add_poisson_noise_batch(img: torch.Tensor, generator: torch.Generator,
+                                   scale_range=(0, 1.0), gray_prob: float = 0.0,
+                                   clip: bool = True, rounds: bool = False) -> torch.Tensor:
+    B = img.shape[0]
+    draw = dict(generator=generator, device=img.device, dtype=img.dtype)
+    scale = torch.rand(B, **draw) * (scale_range[1] - scale_range[0]) + scale_range[0]
+    gray = (torch.rand(B, **draw) < gray_prob).to(img.dtype)
+    return add_poisson_noise_batch(img, generator, scale, gray, clip, rounds)
 
 
 # -- MATLAB-compatible bicubic resize --------------------------------------

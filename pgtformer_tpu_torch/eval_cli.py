@@ -9,7 +9,9 @@ plus the face metrics Deg/LMD/TLME/MSRL).
         [--lpips-weights vgg_lpips.pth] [--device cuda]
 
 Runs on the card in bf16 by default (the restoration forward launches the
-hand-written kernels); `--fp32` needs `--device cpu`.  Each batch of clips
+hand-written kernels, `use_pallas` where the device is CUDA, as the JAX
+CLI's where the backend is not the CPU); `--fp32` computes in float32 (the
+kernels in their fp32 form, TF32 off).  Each batch of clips
 takes one `PGTFormer.forward(middle_only=True)`; the metric networks
 (LPIPS's VGG, the landmark parser, ArcFace) run in fp32 on the same device,
 one image at a time.  The printed lines and column labels are the JAX
@@ -38,7 +40,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="pgtformer_tpu_torch evaluation")
     parser.add_argument("--data-root", required=True)
     parser.add_argument("--weights", default=None,
-                        help="Reference-format checkpoint (.pth or .safetensors)")
+                        help="Reference-format checkpoint (.pth or .safetensors), or a "
+                             "directory holding model.safetensors / pytorch_model.bin")
     parser.add_argument("--fidelity", "-w", type=float, default=1.0)
     parser.add_argument("--inter-space", type=int, default=1,
                         help="evaluate every k-th frame (reference "
@@ -65,7 +68,8 @@ def main(argv=None) -> int:
                              "backbone.pth for metric-grade Deg (the "
                              "gray-patch proxy embedder otherwise)")
     parser.add_argument("--fp32", action="store_true",
-                        help="Compute in float32 (default bfloat16; CPU only)")
+                        help="Compute in float32 (default bfloat16); on the card the "
+                             "kernels take fp32 activations and TF32 is off")
     parser.add_argument("--face-metrics", action="store_true",
                         help="also emit Deg/LMD/TLME/MSRL (reference "
                              "README.md:127) via the pluggable "
@@ -76,31 +80,31 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     knobs.apply_cli_args(args)
 
-    from pgtformer_tpu_torch import resolve_device
+    from pgtformer_tpu_torch import default_use_pallas, resolve_device
     from pgtformer_tpu_torch.config import RELEASE_PGTFORMER
-    from pgtformer_tpu_torch.convert import load_checkpoint, load_into
+    from pgtformer_tpu_torch.convert import load_checkpoint, load_into, local_checkpoint
     from pgtformer_tpu_torch.data.vfhq import (
         VFHQRotateTestDataset, VFHQTestDataset, clip_batches)
     from pgtformer_tpu_torch.models.pgtformer import PGTFormer
 
     device = resolve_device(args.device)
     dtype = torch.float32 if args.fp32 else torch.bfloat16
-    if dtype == torch.float32 and device.type == "cuda":
-        parser.error("--fp32 needs --device cpu: the CUDA kernels take bf16")
     if device.type == "cuda":
-        # the metric networks compute in fp32; cuDNN would take TF32 for
-        # their convs (the bf16 restoration model is unaffected)
+        # the metric networks (and an fp32 model) compute in fp32; cuDNN
+        # would take TF32 for their convs (a bf16 model is unaffected)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
 
     cfg = RELEASE_PGTFORMER
     T = cfg.vqvae.tf
+    kernels = default_use_pallas(device)
     if args.weights:
-        model = load_into(PGTFormer(cfg), load_checkpoint(args.weights))
+        model = load_into(PGTFormer(cfg, use_pallas=kernels),
+                          load_checkpoint(local_checkpoint(args.weights)))
     else:
         print("WARNING: no --weights given; running with random weights "
               "(pipeline smoke test only).", file=sys.stderr)
-        model = PGTFormer(cfg, generator=torch.Generator().manual_seed(0))
+        model = PGTFormer(cfg, generator=torch.Generator().manual_seed(0), use_pallas=kernels)
     # the landmark parser takes the fp32 parsing weights, before the cast
     cond_sd = model.conditionnet.state_dict() if args.face_metrics else None
     model = model.to(device=device, dtype=dtype).eval().requires_grad_(False)

@@ -55,7 +55,10 @@ class CodeFormer(nn.Module):
     features tapped after the blocks of ``FUSE_ENCODER_BLOCK`` (gradient
     stopped); class attributes, as in JAX, so a subclass can relabel them.
     With the constructor's `generator` every weight is initialized from it;
-    `mha_layout` is the transformer's attention plan (nn/transformer.py)."""
+    `mha_layout` is the transformer's attention plan (nn/transformer.py).
+    `use_pallas` is the transformer layers' plan (False by default): the
+    JAX CodeFormer has no such switch and runs its attention on the XLA
+    path, which the module path ports; True runs K6 (or K2) on CUDA."""
 
     # encoder tap / generator fuse block indices (reference :278-280)
     FUSE_ENCODER_BLOCK = {"512": 2, "256": 5, "128": 8, "64": 11, "32": 14, "16": 18}
@@ -69,7 +72,8 @@ class CodeFormer(nn.Module):
                  quantizer: str = "nearest", res_blocks: int = 2,
                  attn_resolutions: Tuple[int, ...] = (16,), emb_dim: int = 256, w: float = 0.0,
                  detach_16: bool = True, adain: bool = False, last_silu: bool = False,
-                 generator: Optional[torch.Generator] = None, mha_layout: str = "bnhd"):
+                 generator: Optional[torch.Generator] = None, mha_layout: str = "bnhd",
+                 use_pallas: bool = False):
         super().__init__()
         if quantizer != "nearest":
             raise ValueError(f"quantizer {quantizer!r}: CodeFormer takes 'nearest'")
@@ -85,7 +89,7 @@ class CodeFormer(nn.Module):
         self.position_emb = nn.Parameter(torch.zeros(latent_size, dim_embd))
         self.feat_emb = nn.Linear(emb_dim, dim_embd)
         self.ft_layers = nn.ModuleList([
-            TransformerSALayer(dim_embd, n_head, dim_embd * 2, mha_layout)
+            TransformerSALayer(dim_embd, n_head, dim_embd * 2, mha_layout, use_pallas)
             for _ in range(n_layers)])
         self.idx_pred_layer = nn.Sequential(layer_norm(dim_embd),
                                             nn.Linear(dim_embd, codebook_size, bias=False))

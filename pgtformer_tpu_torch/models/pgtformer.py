@@ -97,18 +97,20 @@ class PGTFormer(nn.Module):
     sees the encoder's skip features with their gradient stopped, and with
     `detach_16` the looked-up codes too (gradients still reach lq_feat
     through AdaIN's statistics), as in the JAX package.
-    With `generator`, every weight is initialized from it.  `mha_layout`
-    is the code transformer's attention plan ("bnhd" or "bhnd", see
-    nn/transformer.py)."""
+    With `generator`, every weight is initialized from it.  `use_pallas`
+    (JAX's name and default) runs the shifted-window layers and the code
+    transformer's attention through the kernels (nn/blocks.py:EncoderLayer,
+    nn/transformer.py:MultiHeadSelfAttention); `mha_layout` is then the
+    attention's plan ("bnhd" or "bhnd")."""
 
     def __init__(self, cfg: PGTFormerConfig, generator: Optional[torch.Generator] = None,
-                 mha_layout: str = "bnhd"):
+                 mha_layout: str = "bnhd", use_pallas: bool = False):
         super().__init__()
         self.cfg = cfg
         vq = cfg.vqvae
         dd = vq.ddconfig
-        self.encoder = Encoder3D(dd, num_frames=vq.tf)
-        self.decoder = Decoder3D(dd, num_frames=vq.tf)
+        self.encoder = Encoder3D(dd, num_frames=vq.tf, use_pallas=use_pallas)
+        self.decoder = Decoder3D(dd, num_frames=vq.tf, use_pallas=use_pallas)
         self.quantizer = RQBottleneck(vq.latent_shape, vq.code_shape, vq.n_embed, vq.decay,
                                       vq.shared_codebook, vq.restart_unused_codes)
         self.quant_conv = nn.Conv2d(dd.z_channels, vq.embed_dim, 1)
@@ -118,7 +120,8 @@ class PGTFormer(nn.Module):
         self.convpos = nn.Conv2d(3 * cfg.n_parsing_classes, cfg.dim_embd, 1)
         self.feat_emb = nn.Linear(vq.embed_dim, cfg.dim_embd)
         self.ft_layers = nn.ModuleList([
-            TransformerSALayer(cfg.dim_embd, cfg.n_head, cfg.dim_embd * 2, mha_layout)
+            TransformerSALayer(cfg.dim_embd, cfg.n_head, cfg.dim_embd * 2, mha_layout,
+                               use_pallas)
             for _ in range(cfg.n_layers)])
         self.codebook_size = vq.n_embed if isinstance(vq.n_embed, int) else vq.n_embed[-1]
         self.quantizer_depth = vq.code_shape[-1]

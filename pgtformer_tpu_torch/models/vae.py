@@ -25,16 +25,17 @@ from pgtformer_tpu_torch.ops.fused_conv import fused_decoder_tail, subpixel_up_c
 from pgtformer_tpu_torch.registry import ARCH_REGISTRY
 
 
-def _encoder_layer(cfg: DDConfig, dim: int, level: int, num_frames: int) -> EncoderLayer:
+def _encoder_layer(cfg: DDConfig, dim: int, level: int, num_frames: int,
+                   use_pallas: bool) -> EncoderLayer:
     return EncoderLayer(dim, cfg.depths[level], cfg.num_heads[level], num_frames,
-                        tuple(cfg.window_sizes[level]), mlp_ratio=1.0)
+                        tuple(cfg.window_sizes[level]), mlp_ratio=1.0, use_pallas=use_pallas)
 
 
 class _Mid(nn.Module):
-    def __init__(self, cfg: DDConfig, dim: int, num_frames: int):
+    def __init__(self, cfg: DDConfig, dim: int, num_frames: int, use_pallas: bool):
         super().__init__()
         self.block_1 = ResnetBlock(dim)
-        self.attn_1 = _encoder_layer(cfg, dim, -1, num_frames)
+        self.attn_1 = _encoder_layer(cfg, dim, -1, num_frames, use_pallas)
         self.block_2 = ResnetBlock(dim)
 
 
@@ -44,9 +45,10 @@ class Encoder3D(nn.Module):
     I/O: [B, T, H, W, C_in] -> [B*T, H/2^L, W/2^L, z_channels] (+ per-level
     features).  `stage` splits the tower at the first attention level:
     "trunk" (conv_in + attention-free levels; returns (h, feats)), "head"
-    (input is the trunk's h) or "full"."""
+    (input is the trunk's h) or "full".  `use_pallas`: the attention
+    layers' plan (nn/blocks.py:EncoderLayer)."""
 
-    def __init__(self, cfg: DDConfig, num_frames: int = 3):
+    def __init__(self, cfg: DDConfig, num_frames: int = 3, use_pallas: bool = False):
         super().__init__()
         self.cfg = cfg
         T = num_frames
@@ -62,11 +64,11 @@ class Encoder3D(nn.Module):
                 level.block.append(ResnetBlock(block_in, block_out))
                 block_in = block_out
                 if res in cfg.attn_resolutions:
-                    level.attn.append(_encoder_layer(cfg, block_in, i, T))
+                    level.attn.append(_encoder_layer(cfg, block_in, i, T, use_pallas))
             if i != cfg.num_resolutions - 1:
                 level.downsample = Downsample(block_in, cfg.resamp_with_conv)
             self.down.append(level)
-        self.mid = _Mid(cfg, block_in, T)
+        self.mid = _Mid(cfg, block_in, T, use_pallas)
         self.norm_out = GroupNorm(block_in)
         out_c = 2 * cfg.z_channels if cfg.double_z else cfg.z_channels
         self.conv_out = nn.Conv2d(block_in, out_c, 3, padding=1)
@@ -120,9 +122,11 @@ class Decoder3D(nn.Module):
     fuse block at one of `fuse_resolutions`), so the later levels run on
     one frame; the output is then [B, H, W, out_ch].
 
+    `use_pallas`: the attention layers' plan (nn/blocks.py:EncoderLayer).
     Knob ``FUSED_TAIL`` selects the fused kernels of ``ops/fused_conv.py``
     for the upsamples (``up``) or for the whole middle-frame tail (``1``).
-    They apply under bf16 inference (no gradient is recorded) to an upsample
+    They apply with ``use_pallas``, as in JAX, under bf16 inference (no
+    gradient is recorded) to an upsample
     with a conv whose input has H divisible by 8 and C by 128; ``1`` also
     needs the level-1 upsample on one frame per window, one resblock per
     level, H divisible by 16 and no attention or fuse stage at the last
@@ -132,14 +136,15 @@ class Decoder3D(nn.Module):
     model on the CPU with the knob set runs the same chain through the plain
     versions."""
 
-    def __init__(self, cfg: DDConfig, num_frames: int = 3):
+    def __init__(self, cfg: DDConfig, num_frames: int = 3, use_pallas: bool = False):
         super().__init__()
         self.cfg = cfg
         self.num_frames = num_frames
+        self.use_pallas = use_pallas
         block_in = cfg.ch * cfg.ch_mult[-1]
         curr_res = cfg.resolution // 2 ** (cfg.num_resolutions - 1)
         self.conv_in = nn.Conv2d(cfg.z_channels, block_in, 3, padding=1)
-        self.mid = _Mid(cfg, block_in, num_frames)
+        self.mid = _Mid(cfg, block_in, num_frames, use_pallas)
         levels = {}
         for i in reversed(range(cfg.num_resolutions)):
             block_out = cfg.ch * cfg.ch_mult[i]
@@ -150,7 +155,7 @@ class Decoder3D(nn.Module):
                 level.block.append(ResnetBlock(block_in, block_out))
                 block_in = block_out
                 if curr_res in cfg.attn_resolutions:
-                    level.attn.append(_encoder_layer(cfg, block_in, i, num_frames))
+                    level.attn.append(_encoder_layer(cfg, block_in, i, num_frames, use_pallas))
             if i != 0:
                 level.upsample = Upsample(block_in, cfg.resamp_with_conv)
                 curr_res *= 2
@@ -213,7 +218,7 @@ class Decoder3D(nn.Module):
                 B5, T5, H5, W5, C5 = h.shape
                 # bf16 only: the kernels round to bf16 inside, which under
                 # fp32 would silently lower the tail's precision
-                kernels_ok = (tail_mode != "0" and h.dtype == torch.bfloat16
+                kernels_ok = (tail_mode != "0" and self.use_pallas and h.dtype == torch.bfloat16
                               and not torch.is_grad_enabled() and cfg.resamp_with_conv
                               and H5 % 8 == 0 and C5 % 128 == 0)
                 if kernels_ok and tail_mode == "up":
@@ -254,10 +259,12 @@ class TDCRQVAE3(nn.Module):
     quantizer takes its EMA codebook step (restarts drawn from the forward's
     `generator`); without it no buffer changes.  With `generator`, every
     weight is initialized from it.  `group`: the ranks over which the
-    quantizer's EMA update runs (data-parallel training)."""
+    quantizer's EMA update runs (data-parallel training).  `use_pallas`:
+    the towers' attention plan (nn/blocks.py:EncoderLayer); the quantizer's
+    K5 follows the device, as JAX's follows the backend."""
 
     def __init__(self, cfg: VQVAEConfig, generator: Optional[torch.Generator] = None,
-                 group=None):
+                 group=None, use_pallas: bool = False):
         super().__init__()
         if cfg.loss_type not in ("mse", "l1"):
             raise ValueError(f"loss_type {cfg.loss_type!r} (choices: mse, l1)")
@@ -265,8 +272,8 @@ class TDCRQVAE3(nn.Module):
             raise ValueError("invalid 'bottleneck_type' (must be 'rq')")
         self.cfg = cfg
         dd = cfg.ddconfig
-        self.encoder = Encoder3D(dd, num_frames=cfg.tf)
-        self.decoder = Decoder3D(dd, num_frames=cfg.tf)
+        self.encoder = Encoder3D(dd, num_frames=cfg.tf, use_pallas=use_pallas)
+        self.decoder = Decoder3D(dd, num_frames=cfg.tf, use_pallas=use_pallas)
         self.quantizer = RQBottleneck(cfg.latent_shape, cfg.code_shape, cfg.n_embed, cfg.decay,
                                       cfg.shared_codebook, cfg.restart_unused_codes, group=group)
         self.quant_conv = nn.Conv2d(dd.z_channels, cfg.embed_dim, 1)

@@ -6,13 +6,15 @@ cross-attention form), EncoderLayer and DecoderLayer.  Public I/O is ``[B, T, H,
 run on permuted views (channels_last memory format, no copies).  Parameter
 names follow the reference state_dict (``blocks.1.attn.q.weight``, ...).
 
-On a CUDA tensor, :class:`EncoderLayer` runs every block through the
-hand-written kernels of ``ops/sw_block.py`` wherever H and W divide by the
-window (K1 by default; K3 under ``SW_KERNEL=tokens``, K4 under
-``SW_PAIR=1``), and raises otherwise; on the CPU it runs the same math in
-plain PyTorch.  Under a recorded gradient it hands the kernels the live
-parameters, and they run through their autograd Functions, whose backward
-is the plain version's.  :class:`DecoderLayer`'s cross blocks (self-attention,
+With ``use_pallas=True`` and a CUDA tensor, :class:`EncoderLayer` runs
+every block through the hand-written kernels of ``ops/sw_block.py``
+wherever H and W divide by the window (K1 by default; K3 under
+``SW_KERNEL=tokens``, K4 under ``SW_PAIR=1``), and raises otherwise; on the
+CPU it runs their plain versions.  Under a recorded gradient it hands the
+kernels the live parameters, and they run through their autograd
+Functions, whose backward is the XLA form's.  With ``use_pallas=False`` (the
+default, as in JAX) it runs its :class:`SWTransformerBlock` stack on any
+device.  :class:`DecoderLayer`'s cross blocks (self-attention,
 then cross-attention, then the MLP) run plain PyTorch on every device: K1
 fuses a whole self-attention block, MLP included, so it cannot serve them,
 and JAX runs them with XLA too.
@@ -433,17 +435,25 @@ class EncoderLayer(nn.Module):
     """`depth` SW blocks with alternating shift (0 / window//2) on
     [B, T, H, W, C].
 
-    Where H and W divide by the window the blocks run through
-    ``ops/sw_block.py`` under one of three evaluation plans (knobs
-    ``SW_KERNEL`` and ``SW_PAIR``), which all compute the same function:
-    one 5-D block per launch (default); roll -> partition -> token block ->
-    reverse -> unroll (``tokens``); or each [no-shift, shift] pair of
-    blocks in one launch (``SW_PAIR=1`` with ``5d``), any leftover block on
-    its own."""
+    `use_pallas` (the JAX package's name and default) picks the plan.
+    False: the module composition, the :class:`SWTransformerBlock` stack in
+    plain PyTorch on any device (the counterpart of JAX's XLA path).  True:
+    where H and W divide by the window the blocks run through
+    ``ops/sw_block.py`` (the kernels on CUDA, their plain versions on the
+    CPU) under one of three evaluation plans (knobs ``SW_KERNEL`` and
+    ``SW_PAIR``), which all compute the same function: one 5-D block per
+    launch (default); roll -> partition -> token block -> reverse -> unroll
+    (``tokens``); or each [no-shift, shift] pair of blocks in one launch
+    (``SW_PAIR=1`` with ``5d``), any leftover block on its own.  Where the
+    window does not divide H or W, True runs the stack on the CPU and
+    raises on CUDA; JAX takes its XLA path there without a word, the port
+    asks the caller for ``use_pallas=False``."""
 
     def __init__(self, dim: int, depth: int, num_heads: int, num_frames: int,
-                 window_size: Tuple[int, int] = (8, 8), mlp_ratio: float = 4.0):
+                 window_size: Tuple[int, int] = (8, 8), mlp_ratio: float = 4.0,
+                 use_pallas: bool = False):
         super().__init__()
+        self.use_pallas = use_pallas
         self.window_size = tuple(window_size)
         half = tuple(w // 2 for w in self.window_size)
         self.blocks = nn.ModuleList([
@@ -482,7 +492,7 @@ class EncoderLayer(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, T, H, W, C = x.shape
         wh, ww = self.window_size
-        if H % wh == 0 and W % ww == 0:
+        if self.use_pallas and H % wh == 0 and W % ww == 0:
             x = x.contiguous()
             tokens = knobs.get("SW_KERNEL") == "tokens"
             pair = not tokens and knobs.get("SW_PAIR") == "1"
@@ -507,10 +517,10 @@ class EncoderLayer(nn.Module):
                     x = sw_block(x, weights[i], shifts[i])
                 i += 1
             return x
-        if x.is_cuda:
+        if self.use_pallas and x.is_cuda:
             raise NotImplementedError(
-                f"EncoderLayer on CUDA needs H, W divisible by {self.window_size}, "
-                f"got {H}x{W}")
+                f"EncoderLayer(use_pallas=True) on CUDA needs H, W divisible by "
+                f"{self.window_size}, got {H}x{W}; use_pallas=False runs the module path")
         for blk in self.blocks:
             x = blk(x)
         return x

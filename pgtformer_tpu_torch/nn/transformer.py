@@ -2,12 +2,13 @@
 
 Counterparts of the JAX package's ``nn/transformer.py`` in batch-first
 ``[B, N, C]`` layout, with torch.nn.MultiheadAttention's parameter names
-(``in_proj_weight``, ``in_proj_bias``, ``out_proj``).  On CUDA the attention core
-runs through ``ops/dense_mha.py``: kernel K6 (heads-minor views of the
-packed projections, the default) or K2 (``mha_layout="bhnd"``), through its
-autograd Function when a gradient is recorded.  Also here: CodeFormer's
-cross-attention layer (:class:`TransformerCALayer`, the same attention with
-q != k) and its sinusoidal 2-D position embedding
+(``in_proj_weight``, ``in_proj_bias``, ``out_proj``).  With ``use_pallas``
+on CUDA the attention core runs through ``ops/dense_mha.py``: kernel K6
+(heads-minor views of the packed projections, the default) or K2
+(``mha_layout="bhnd"``), through its autograd Function when a gradient is
+recorded; without it, the plain softmax attention (JAX's XLA path).  Also
+here: CodeFormer's cross-attention layer (:class:`TransformerCALayer`, the
+same attention with q != k) and its sinusoidal 2-D position embedding
 (:class:`PositionEmbeddingSine`, numpy constants as in JAX).
 """
 
@@ -22,25 +23,34 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from pgtformer_tpu_torch.nn.blocks import layer_norm
-from pgtformer_tpu_torch.ops.dense_mha import dense_mha
+from pgtformer_tpu_torch.ops.dense_mha import dense_mha, dense_mha_ref_bnhd
 
 
 class MultiHeadSelfAttention(nn.Module):
     """Packed-projection multi-head attention.  When `q is k` (the deployed
     q = k = x + pos) both projections run as one matmul.
 
-    `mha_layout` picks the attention core's evaluation plan: "bnhd" hands
-    it [B, N, H, D] views of the packed projections and gets the packed
-    output back; "bhnd" hands it their [B, H, N, D] transposed views (no
-    copy) and transposes the output back (one copy)."""
+    `use_pallas` (JAX's name and default): True runs the attention core
+    through ``ops/dense_mha.py`` where Nq == Nk and N % 8 == 0 (the kernel
+    on CUDA, its plain version on the CPU; other geometry raises on CUDA,
+    where JAX takes its XLA path silently, and takes the module path on the
+    CPU); False runs the plain softmax attention of JAX's XLA path on any
+    device.
 
-    def __init__(self, embed_dim: int, num_heads: int, mha_layout: str = "bnhd"):
+    `mha_layout` picks the kernel's evaluation plan: "bnhd" hands it
+    [B, N, H, D] views of the packed projections and gets the packed output
+    back; "bhnd" hands it their [B, H, N, D] transposed views (no copy) and
+    transposes the output back (one copy)."""
+
+    def __init__(self, embed_dim: int, num_heads: int, mha_layout: str = "bnhd",
+                 use_pallas: bool = False):
         super().__init__()
         if mha_layout not in ("bnhd", "bhnd"):
             raise ValueError(f"mha_layout {mha_layout!r} (choices: bnhd, bhnd)")
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.mha_layout = mha_layout
+        self.use_pallas = use_pallas
         self.in_proj_weight = nn.Parameter(torch.zeros(3 * embed_dim, embed_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
         self.out_proj = nn.Linear(embed_dim, embed_dim)
@@ -64,13 +74,18 @@ class MultiHeadSelfAttention(nn.Module):
             kp = F.linear(k, W[C:2 * C], b[C:2 * C])
         vp = F.linear(v, W[2 * C:], b[2 * C:])
         Nq, Nk = q.shape[1], k.shape[1]
-        if q.is_cuda and not (Nq == Nk and Nq % 8 == 0):
-            raise NotImplementedError(
-                f"MultiHeadSelfAttention on CUDA needs Nq == Nk, N % 8 == 0; "
-                f"got {Nq}, {Nk}")
+        kernel = self.use_pallas
+        if kernel and not (Nq == Nk and Nq % 8 == 0):
+            if q.is_cuda:
+                raise NotImplementedError(
+                    f"MultiHeadSelfAttention(use_pallas=True) on CUDA needs Nq == Nk, "
+                    f"N % 8 == 0; got {Nq}, {Nk}; use_pallas=False runs the module path")
+            kernel = False
         B, h, hd = q.shape[0], self.num_heads, C // self.num_heads
         heads = lambda a: a.reshape(B, a.shape[1], h, hd)
-        if self.mha_layout == "bnhd":
+        if not kernel:
+            out = dense_mha_ref_bnhd(heads(qp), heads(kp), heads(vp), hd ** -0.5)
+        elif self.mha_layout == "bnhd":
             out = dense_mha(heads(qp), heads(kp), heads(vp), scale=hd ** -0.5, layout="bnhd")
         else:
             t = lambda a: heads(a).transpose(1, 2)
@@ -83,10 +98,10 @@ class TransformerSALayer(nn.Module):
     GELU feed-forward (reference codeformer_arch.py:102-137)."""
 
     def __init__(self, embed_dim: int, nhead: int = 8, dim_mlp: int = 2048,
-                 mha_layout: str = "bnhd"):
+                 mha_layout: str = "bnhd", use_pallas: bool = False):
         super().__init__()
         self.norm1 = layer_norm(embed_dim)
-        self.self_attn = MultiHeadSelfAttention(embed_dim, nhead, mha_layout)
+        self.self_attn = MultiHeadSelfAttention(embed_dim, nhead, mha_layout, use_pallas)
         self.norm2 = layer_norm(embed_dim)
         self.linear1 = nn.Linear(embed_dim, dim_mlp)
         self.linear2 = nn.Linear(dim_mlp, embed_dim)
@@ -145,8 +160,8 @@ class TransformerCALayer(nn.Module):
     codeformer_arch.py:141-183; unused by the deployed model): one LN
     ``norm1`` for both inputs, q = LN(a) + pos, k = LN(b) + pos, v = LN(b),
     tgt = a + w * attention, then the GELU feed-forward.  The attention is
-    :class:`MultiHeadSelfAttention` with q != k (on CUDA, K6 or K2, which
-    need the two token counts equal)."""
+    :class:`MultiHeadSelfAttention` with q != k, on its module path on every
+    device (JAX's layer passes no ``use_pallas`` either)."""
 
     def __init__(self, embed_dim: int, nhead: int = 8, dim_mlp: int = 2048,
                  mha_layout: str = "bnhd"):

@@ -24,11 +24,17 @@ Each entry point launches the kernel for CUDA tensors and runs its plain
 version (:func:`dense_mha_plain`, :func:`dense_mha_plain_bnhd`) only for
 tensors on the CPU; each has its own launch counter.
 
+Operands are bf16 or fp32, and the output takes q's dtype, as in the TPU
+kernels: under fp32 q, k and v are rounded to bf16 and the normalized fp32
+output is stored unrounded.  The plain versions have the same fp32 form;
+:func:`dense_mha_ref` (JAX's ``_dense_mha_ref``, the XLA attention) computes
+in q's dtype throughout and equals the plain version under bf16.
+
 When a gradient is recorded and q, k or v requires one, :func:`dense_mha`
 runs the entry point inside a ``torch.autograd.Function`` (the counterpart
 of the JAX package's ``custom_vjp``, ``ops/flash_attn.py:108-119``): the
-forward launches the kernel, the backward recomputes the layout's plain
-version with autograd.  Neither package has a backward kernel; the backward
+forward launches the kernel, the backward recomputes the layout's
+:func:`dense_mha_ref` with autograd.  Neither package has a backward kernel; the backward
 runs on cuBLAS and ATen.
 """
 
@@ -43,20 +49,45 @@ from pgtformer_tpu_torch.ops import _build
 from pgtformer_tpu_torch.ops.autograd import KernelFunction
 
 
-def dense_mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: float) -> torch.Tensor:
-    """softmax(q*scale k^T) v on [B, H, N, D]: fp32 scores and softmax,
-    probabilities in q's dtype, fp32 PV (the JAX package's _dense_mha_ref)."""
+def _attention(q, k, v, scale: float, out_dtype: torch.dtype) -> torch.Tensor:
     s = torch.einsum("bhqd,bhkd->bhqk", (q * scale).float(), k.float())
     p = torch.softmax(s, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bhkd->bhqd", p.float(), v.float()).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", p.float(), v.float()).to(out_dtype)
+
+
+def dense_mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: float) -> torch.Tensor:
+    """softmax(q*scale k^T) v on [B, H, N, D]: fp32 scores and softmax,
+    probabilities and output in q's dtype, fp32 PV (the JAX package's
+    _dense_mha_ref, which its custom VJP differentiates)."""
+    return _attention(q, k, v, scale, q.dtype)
+
+
+def dense_mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    """Plain PyTorch version of the kernel on [B, H, N, D]:
+    :func:`dense_mha_ref` under bf16; under fp32 the kernel's fp32 form,
+    q, k and v rounded to bf16, the bf16 attention with an fp32 output."""
+    if q.dtype == torch.float32:
+        bf = torch.bfloat16
+        return _attention(q.to(bf), k.to(bf), v.to(bf), scale, torch.float32)
+    return dense_mha_ref(q, k, v, scale)
+
+
+def _t(a: torch.Tensor) -> torch.Tensor:
+    return a.transpose(1, 2)
 
 
 def dense_mha_plain_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          scale: float) -> torch.Tensor:
     """:func:`dense_mha_plain` on heads-minor [B, N, H, D] operands."""
-    t = lambda a: a.transpose(1, 2)
-    return t(dense_mha_plain(t(q), t(k), t(v), scale))
+    return _t(dense_mha_plain(_t(q), _t(k), _t(v), scale))
+
+
+def dense_mha_ref_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       scale: float) -> torch.Tensor:
+    """:func:`dense_mha_ref` on heads-minor [B, N, H, D] operands."""
+    return _t(dense_mha_ref(_t(q), _t(k), _t(v), scale))
 
 
 BOX_ROWS = 128    # rows of one TMA box: the kernel's query tile and key tile
@@ -107,14 +138,15 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("dense_mha")
     fn = lib.dense_mha_launch
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 4 + [_LL, _LL, ctypes.c_float, _P]
+        fn.argtypes = [_P] * 4 + [_LL, _LL, ctypes.c_int, ctypes.c_float, _P]
         fn.restype = ctypes.c_int
     return lib
 
 
 def _launch(q, k, v, out, layout: str, out_strides, scale: float) -> None:
     """Check what the kernel needs and launch it.  `out_strides` are the
-    output's (batch, head, row) strides in elements."""
+    output's (batch, head, row) strides in elements; an fp32 `out` takes
+    the fp32 store of the bf16 operands."""
     geom = [tma_geometry(t, layout) for t in (q, k, v)]
     for name, t in (("k", k), ("v", v)):
         if t.shape != q.shape or t.device != q.device:
@@ -129,7 +161,8 @@ def _launch(q, k, v, out, layout: str, out_strides, scale: float) -> None:
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = lib.dense_mha_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                table, ostr, float(scale), stream)
+                                table, ostr, int(out.dtype == torch.float32), float(scale),
+                                stream)
     _build.check(code, "dense_mha launch")
 
 
@@ -143,10 +176,20 @@ def _on_cpu(q: torch.Tensor) -> bool:
     return False
 
 
+def _operands(q, k, v):
+    """q, k, v as the kernel reads them: bf16 as given; fp32 rounded to
+    bf16 (the output is then fp32).  Any other dtype is left for
+    :func:`tma_geometry` to refuse."""
+    if q.dtype == torch.float32 and k.dtype == v.dtype == torch.float32:
+        return tuple(t.to(torch.bfloat16) for t in (q, k, v))
+    return q, k, v
+
+
 def dense_mha_bhnd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    scale: float) -> torch.Tensor:
-    """Attention core on q, k, v [B, H, N, D] (any batch/head/row strides,
-    unit stride along D) -> contiguous [B, H, N, D].
+    """Attention core on q, k, v [B, H, N, D], bf16 or fp32 (any
+    batch/head/row strides, unit stride along D) -> contiguous [B, H, N, D]
+    in q's dtype.
 
     CPU tensors: :func:`dense_mha_plain`.  CUDA tensors: the Hopper kernel;
     raises on any dtype, shape or layout it does not take."""
@@ -154,7 +197,8 @@ def dense_mha_bhnd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dense_mha_plain(q, k, v, scale)
     B, H, N, D = q.shape
     out = torch.empty((B, H, N, D), dtype=q.dtype, device=q.device)
-    _launch(q, k, v, out, "bhnd", (out.stride(0), out.stride(1), out.stride(2)), scale)
+    _launch(*_operands(q, k, v), out, "bhnd", (out.stride(0), out.stride(1), out.stride(2)),
+            scale)
     dense_mha_bhnd.launches += 1
     return out
 
@@ -164,9 +208,10 @@ dense_mha_bhnd.launches = 0
 
 def dense_mha_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    scale: float) -> torch.Tensor:
-    """Attention core on heads-minor q, k, v [B, N, H, D] (views of packed
-    projections: any batch/row/head strides, unit stride along D) ->
-    [B, N, H, D], the view of a packed contiguous [B, N, H*D] buffer.
+    """Attention core on heads-minor q, k, v [B, N, H, D], bf16 or fp32
+    (views of packed projections: any batch/row/head strides, unit stride
+    along D) -> [B, N, H, D] in q's dtype, the view of a packed contiguous
+    [B, N, H*D] buffer.
 
     CPU tensors: :func:`dense_mha_plain_bnhd`.  CUDA tensors: the Hopper
     kernel; raises on any dtype, shape or layout it does not take."""
@@ -174,7 +219,8 @@ def dense_mha_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dense_mha_plain_bnhd(q, k, v, scale)
     B, N, H, D = q.shape
     out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
-    _launch(q, k, v, out, "bnhd", (out.stride(0), out.stride(2), out.stride(1)), scale)
+    _launch(*_operands(q, k, v), out, "bnhd", (out.stride(0), out.stride(2), out.stride(1)),
+            scale)
     dense_mha_bnhd.launches += 1
     return out
 
@@ -188,13 +234,13 @@ def dense_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float
     layout="bhnd" takes and returns [B, H, N, D] (:func:`dense_mha_bhnd`),
     layout="bnhd" takes and returns [B, N, H, D] (:func:`dense_mha_bnhd`).
     A recorded gradient goes through the autograd Function: the entry
-    point's forward, the backward of :func:`dense_mha_plain` (or
-    :func:`dense_mha_plain_bnhd`) recomputed."""
+    point's forward, the backward of :func:`dense_mha_ref` (or
+    :func:`dense_mha_ref_bnhd`) recomputed."""
     if layout not in ("bhnd", "bnhd"):
         raise ValueError(f"layout {layout!r} (choices: bhnd, bnhd)")
     kernel = dense_mha_bnhd if layout == "bnhd" else dense_mha_bhnd
     if torch.is_grad_enabled() and any(a.requires_grad for a in (q, k, v)):
-        plain = dense_mha_plain_bnhd if layout == "bnhd" else dense_mha_plain
+        ref = dense_mha_ref_bnhd if layout == "bnhd" else dense_mha_ref
         return KernelFunction.apply(lambda a, b, c: kernel(a, b, c, scale),
-                                    lambda a, b, c: plain(a, b, c, scale), q, k, v)
+                                    lambda a, b, c: ref(a, b, c, scale), q, k, v)
     return kernel(q, k, v, scale)

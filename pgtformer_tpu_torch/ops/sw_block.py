@@ -28,16 +28,27 @@ Each wrapper launches its kernel for a CUDA tensor and runs its plain
 PyTorch version (:func:`sw_block_plain`, :func:`sw_block_tokens_plain`,
 :func:`sw_block_pair_plain`) only for a tensor on the CPU.
 
+Activations are bf16 or fp32, and the output takes the input's dtype, as
+the TPU kernels do.  Under fp32 the input is rounded to bf16 first (JAX's
+``xb = x.astype(bfloat16)``), every step inside is the bf16 block's, and
+only the output is fp32: the kernel stores its fp32 residual sum unrounded.
+The plain versions have the same fp32 form.  The XLA path that JAX
+differentiates (``sw_block_tokens_xla``, ``sw_block_5d_xla``) computes in
+x's dtype throughout; its ports are :func:`sw_block_tokens_xla`,
+:func:`sw_block_xla` and :func:`sw_block_pair_xla`, which equal the plain
+versions under bf16.
+
 Gradients: when a gradient is recorded and x or a weight requires one, each
 wrapper runs inside a ``torch.autograd.Function`` (the counterparts of the
 JAX package's ``custom_vjp``s, ``ops/pallas_attn.py:202-215, 592-605,
 874-885``).  Its forward launches the kernel on weights cast for it from
 the live parameters on every call; its backward recomputes the block
-through the plain version with autograd and returns the gradients of x, of
-every weight and of the gathered relative-position bias.  There is no
-backward kernel, in the JAX package either: the backward is the plain
-version's autograd graph, so it runs on cuBLAS products and ATen
-elementwise passes.
+through the XLA form in x's dtype (the plain version under bf16) with
+autograd and returns the gradients of x, of every weight and of the
+gathered relative-position bias.  There is no
+backward kernel, in the JAX package either: the backward is the XLA
+form's autograd graph, so it runs on cuBLAS products and ATen elementwise
+passes.
 """
 
 from __future__ import annotations
@@ -99,12 +110,10 @@ def _layer_norm(z: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tens
     return (y * g.float() + b.float()).to(z.dtype)
 
 
-def sw_block_tokens_plain(x: torch.Tensor, w: SWBlockWeights, mask,
-                          n_windows_per_image: int) -> torch.Tensor:
-    """Plain PyTorch version of the token kernel: the block on window tokens
-    [M, N, C] with an additive mask [nW, N, N] (numpy or tensor) or None,
-    in x's dtype with fp32 scores (the math of the JAX package's
-    sw_block_tokens_xla)."""
+def _block_tokens(x: torch.Tensor, w: SWBlockWeights, mask, n_windows_per_image: int,
+                  res_dtype: torch.dtype) -> torch.Tensor:
+    """The block on window tokens [M, N, C] in x's dtype with fp32 scores,
+    its two residual adds and its output in `res_dtype`."""
     M, N, C = x.shape
     dt = x.dtype
     h = w.num_heads
@@ -122,15 +131,34 @@ def sw_block_tokens_plain(x: torch.Tensor, w: SWBlockWeights, mask,
         attn = (attn.reshape(M // nW, nW, h, N, N) + m[None, :, None]).reshape(M, h, N, N)
     attn = torch.softmax(attn, dim=-1).to(dt)
     out = torch.einsum("bhqk,bkhd->bqhd", attn.float(), v.float()).reshape(M, N, C).to(dt)
-    x = x + lin(out, w.wp, w.bp)
-    f = F.gelu(lin(_layer_norm(x, w.norm2_w, w.norm2_b), w.w1, w.b1))
-    return x + lin(f, w.w2, w.b2)
+    x = x.to(res_dtype) + lin(out, w.wp, w.bp).to(res_dtype)
+    f = F.gelu(lin(_layer_norm(x, w.norm2_w, w.norm2_b).to(dt), w.w1, w.b1))
+    return x + lin(f, w.w2, w.b2).to(res_dtype)
 
 
-def sw_block_plain(x: torch.Tensor, w: SWBlockWeights,
-                   shift: Tuple[int, int]) -> torch.Tensor:
-    """Plain PyTorch version of the kernel on [B, T, H, W, C]: roll ->
-    partition -> block -> reverse -> unroll."""
+def sw_block_tokens_xla(x: torch.Tensor, w: SWBlockWeights, mask,
+                        n_windows_per_image: int) -> torch.Tensor:
+    """The block on window tokens [M, N, C] with an additive mask [nW, N, N]
+    (numpy or tensor) or None, in x's dtype with fp32 scores (the math of
+    the JAX package's sw_block_tokens_xla, which its custom VJP
+    differentiates)."""
+    return _block_tokens(x, w, mask, n_windows_per_image, x.dtype)
+
+
+def sw_block_tokens_plain(x: torch.Tensor, w: SWBlockWeights, mask,
+                          n_windows_per_image: int) -> torch.Tensor:
+    """Plain PyTorch version of the token kernel: :func:`sw_block_tokens_xla`
+    under bf16; under fp32 the kernel's fp32 form, x rounded to bf16, the
+    bf16 block, the residual adds and the output in fp32."""
+    if x.dtype == torch.float32:
+        return _block_tokens(x.to(torch.bfloat16), w, mask, n_windows_per_image,
+                             torch.float32)
+    return sw_block_tokens_xla(x, w, mask, n_windows_per_image)
+
+
+def _block_5d(x: torch.Tensor, w: SWBlockWeights, shift: Tuple[int, int],
+              tokens) -> torch.Tensor:
+    """roll -> partition -> `tokens` -> reverse -> unroll on [B, T, H, W, C]."""
     B, T, H, W, C = x.shape
     window = tuple(w.window)
     shifted = any(s > 0 for s in shift)
@@ -138,16 +166,38 @@ def sw_block_plain(x: torch.Tensor, w: SWBlockWeights,
     tok = window_partition(h, window)
     nW = (H // window[0]) * (W // window[1])
     mask = shifted_window_mask(T, H, W, window, tuple(shift)) if shifted else None
-    tok = sw_block_tokens_plain(tok, w, mask, nW)
+    tok = tokens(tok, w, mask, nW)
     h = window_reverse(tok, window, B, T, H, W)
     return torch.roll(h, (shift[0], shift[1]), dims=(2, 3)) if shifted else h
+
+
+def sw_block_plain(x: torch.Tensor, w: SWBlockWeights,
+                   shift: Tuple[int, int]) -> torch.Tensor:
+    """Plain PyTorch version of the kernel on [B, T, H, W, C]: roll ->
+    partition -> :func:`sw_block_tokens_plain` -> reverse -> unroll."""
+    return _block_5d(x, w, shift, sw_block_tokens_plain)
+
+
+def sw_block_xla(x: torch.Tensor, w: SWBlockWeights,
+                 shift: Tuple[int, int]) -> torch.Tensor:
+    """:func:`sw_block_plain` through :func:`sw_block_tokens_xla` (the JAX
+    package's sw_block_5d_xla)."""
+    return _block_5d(x, w, shift, sw_block_tokens_xla)
 
 
 def sw_block_pair_plain(x: torch.Tensor, w0: SWBlockWeights, w1: SWBlockWeights,
                         shift: Tuple[int, int]) -> torch.Tensor:
     """Plain PyTorch version of the pair kernel: block 0 unshifted, then
-    block 1 with `shift`."""
+    block 1 with `shift` (under fp32 block 0's fp32 result is rounded to
+    bf16 as block 1's input, as the TPU kernel's carry is)."""
     return sw_block_plain(sw_block_plain(x, w0, (0, 0)), w1, shift)
+
+
+def sw_block_pair_xla(x: torch.Tensor, w0: SWBlockWeights, w1: SWBlockWeights,
+                      shift: Tuple[int, int]) -> torch.Tensor:
+    """The pair through :func:`sw_block_xla`: what its backward
+    differentiates."""
+    return sw_block_xla(sw_block_xla(x, w0, (0, 0)), w1, shift)
 
 
 SMEM_LIMIT = 232448      # dynamic shared memory one CTA may use on an H100
@@ -194,7 +244,8 @@ def _carve(C: int, gw: int, nw: int, stages: int) -> Dict[str, int]:
     of a chunk's 64-row tile read the next 2 KB, which for the last chunk is
     the next region of the slab (B after A, X after B).  X: the fp32
     residual [48, C], earlier the q/k/v of one head group [3, 48, gw + 8]
-    bf16."""
+    bf16.  The output (bf16, or fp32 in the fp32 form) is stored from
+    registers and takes no shared memory."""
     a_bytes = _align(SLAB * C * 2)
     x_bytes = _align(max(SLAB * C * 4, 3 * SLAB * (gw + 8) * 2))
     slab = 2 * a_bytes + x_bytes
@@ -239,12 +290,12 @@ def _lib(define: str = "") -> ctypes.CDLL:
     """The kernels' library (built with the macro `define`, if given)."""
     lib = _build.load("sw_block", define)
     if lib.sw_block_launch.argtypes is None:
-        # pointer table, plan; B T H W C heads wh ww sh sw; scale; stream
-        lib.sw_block_launch.argtypes = [_PP, _IP] + [_I] * 10 + [ctypes.c_float, _P]
-        # pointer table, plan, mask; Mwin N C heads nW; scale; stream
-        lib.sw_block_tokens_launch.argtypes = [_PP, _IP, _P] + [_I] * 5 + [ctypes.c_float, _P]
-        # two pointer tables, plan; B T H W C heads wh ww sh sw; scale; stream
-        lib.sw_block_pair_launch.argtypes = [_PP, _PP, _IP] + [_I] * 10 + [ctypes.c_float, _P]
+        # pointer table, plan; B T H W C heads wh ww sh sw out_f32; scale; stream
+        lib.sw_block_launch.argtypes = [_PP, _IP] + [_I] * 11 + [ctypes.c_float, _P]
+        # pointer table, plan, mask; Mwin N C heads nW out_f32; scale; stream
+        lib.sw_block_tokens_launch.argtypes = [_PP, _IP, _P] + [_I] * 6 + [ctypes.c_float, _P]
+        # two pointer tables, plan; B T H W C heads wh ww sh sw out_f32; scale; stream
+        lib.sw_block_pair_launch.argtypes = [_PP, _PP, _IP] + [_I] * 11 + [ctypes.c_float, _P]
         for fn in (lib.sw_block_launch, lib.sw_block_tokens_launch,
                    lib.sw_block_pair_launch):
             fn.restype = _I
@@ -278,10 +329,21 @@ def _check_weights(what: str, x: torch.Tensor, w: SWBlockWeights, N: int) -> Non
         raise NotImplementedError(f"{what} kernel: rel_bias must be fp32 [h, N, N]")
 
 
+_IO_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _io(x: torch.Tensor):
+    """(x as the kernel reads it, whether it writes fp32): bf16 as given;
+    fp32 rounded to bf16, with an fp32 output."""
+    if x.dtype == torch.float32:
+        return x.to(torch.bfloat16), 1
+    return x, 0
+
+
 def _check_5d(what: str, x: torch.Tensor, w: SWBlockWeights, shift) -> None:
-    if x.dtype != torch.bfloat16 or x.dim() != 5 or not x.is_contiguous() or x.data_ptr() % 16:
+    if x.dtype not in _IO_DTYPES or x.dim() != 5 or not x.is_contiguous() or x.data_ptr() % 16:
         raise NotImplementedError(
-            f"{what} kernel takes contiguous 16-byte aligned bf16 [B,T,H,W,C], got "
+            f"{what} kernel takes contiguous 16-byte aligned bf16 or fp32 [B,T,H,W,C], got "
             f"{x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}")
     B, T, H, W, C = x.shape
     wh, ww = w.window
@@ -301,7 +363,8 @@ def _pointers(x: torch.Tensor, out: torch.Tensor, w: SWBlockWeights):
 
 def sw_block(x: torch.Tensor, w: SWBlockWeights,
              shift: Tuple[int, int]) -> torch.Tensor:
-    """One SW transformer block on x [B, T, H, W, C].
+    """One SW transformer block on x [B, T, H, W, C], bf16 or fp32 (the
+    output takes x's dtype).
 
     CPU tensor: :func:`sw_block_plain`.  CUDA tensor: the Hopper kernel,
     with `w` the live parameters or prepared by
@@ -312,7 +375,7 @@ def sw_block(x: torch.Tensor, w: SWBlockWeights,
         weights = lambda t: SWBlockWeights(*t, w.num_heads, w.window)
         return KernelFunction.apply(
             lambda xx, *t: _sw_block(xx, weights(t), shift),
-            lambda xx, *t: sw_block_plain(xx, weights(t), shift), x, *w[:_NT])
+            lambda xx, *t: sw_block_xla(xx, weights(t), shift), x, *w[:_NT])
     return _sw_block(x, w, shift)
 
 
@@ -336,21 +399,22 @@ def launch_5d(lib: ctypes.CDLL, x: torch.Tensor, w: SWBlockWeights,
     _check_5d("sw_block", x, w, shift)
     B, T, H, W, C = x.shape
     wh, ww = w.window
+    xb, f32 = _io(x)
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     plan = sw_plan(C, w.num_heads, T * wh * ww, B * (H // wh) * (W // ww))
     code = lib.sw_block_launch(
-        _pointers(x, out, w), plan.as_array(), B, T, H, W, C, w.num_heads, wh, ww,
-        int(shift[0]), int(shift[1]), float((C // w.num_heads) ** -0.5), stream)
+        _pointers(xb, out, w), plan.as_array(), B, T, H, W, C, w.num_heads, wh, ww,
+        int(shift[0]), int(shift[1]), f32, float((C // w.num_heads) ** -0.5), stream)
     _build.check(code, "sw_block launch")
     return out
 
 
 def sw_block_tokens(x: torch.Tensor, w: SWBlockWeights, mask,
                     n_windows_per_image: int) -> torch.Tensor:
-    """One SW transformer block on window tokens x [M, N, C] (window m is
-    window m % n_windows_per_image of its image); `mask` is None or an
-    additive [nW, N, N] array added to the scores.
+    """One SW transformer block on window tokens x [M, N, C], bf16 or fp32
+    (window m is window m % n_windows_per_image of its image); `mask` is
+    None or an additive [nW, N, N] array added to the scores.
 
     CPU tensor: :func:`sw_block_tokens_plain` (mask: numpy or tensor).  CUDA
     tensor: the Hopper kernel, `mask` an fp32 tensor on x's device; raises
@@ -360,7 +424,7 @@ def sw_block_tokens(x: torch.Tensor, w: SWBlockWeights, mask,
         weights = lambda t: SWBlockWeights(*t, w.num_heads, w.window)
         return KernelFunction.apply(
             lambda xx, *t: _sw_block_tokens(xx, weights(t), mask, n_windows_per_image),
-            lambda xx, *t: sw_block_tokens_plain(xx, weights(t), mask, n_windows_per_image),
+            lambda xx, *t: sw_block_tokens_xla(xx, weights(t), mask, n_windows_per_image),
             x, *w[:_NT])
     return _sw_block_tokens(x, w, mask, n_windows_per_image)
 
@@ -371,9 +435,9 @@ def _sw_block_tokens(x: torch.Tensor, w: SWBlockWeights, mask,
         return sw_block_tokens_plain(x, w, mask, n_windows_per_image)
     if not x.is_cuda:
         raise NotImplementedError(f"sw_block_tokens: device {x.device}")
-    if x.dtype != torch.bfloat16 or x.dim() != 3 or not x.is_contiguous() or x.data_ptr() % 16:
+    if x.dtype not in _IO_DTYPES or x.dim() != 3 or not x.is_contiguous() or x.data_ptr() % 16:
         raise NotImplementedError(
-            f"sw_block_tokens kernel takes contiguous 16-byte aligned bf16 [M,N,C], got "
+            f"sw_block_tokens kernel takes contiguous 16-byte aligned bf16 or fp32 [M,N,C], got "
             f"{x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}")
     Mw, N, C = x.shape
     nW = int(n_windows_per_image)
@@ -388,12 +452,13 @@ def _sw_block_tokens(x: torch.Tensor, w: SWBlockWeights, mask,
         raise NotImplementedError(
             "sw_block_tokens kernel: mask must be a contiguous fp32 [nW, N, N] "
             "tensor on x's device")
+    xb, f32 = _io(x)
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     plan = sw_plan(C, w.num_heads, N, Mw)
     code = _lib().sw_block_tokens_launch(
-        _pointers(x, out, w), plan.as_array(), None if mask is None else mask.data_ptr(), Mw, N, C, w.num_heads, nW,
-        float((C // w.num_heads) ** -0.5), stream)
+        _pointers(xb, out, w), plan.as_array(), None if mask is None else mask.data_ptr(),
+        Mw, N, C, w.num_heads, nW, f32, float((C // w.num_heads) ** -0.5), stream)
     _build.check(code, "sw_block_tokens launch")
     sw_block_tokens.launches += 1
     return out
@@ -405,7 +470,7 @@ sw_block_tokens.launches = 0
 def sw_block_pair(x: torch.Tensor, w0: SWBlockWeights, w1: SWBlockWeights,
                   shift: Tuple[int, int]) -> torch.Tensor:
     """Blocks [no-shift with `w0`, `shift` with `w1`] of one layer on
-    x [B, T, H, W, C], in one launch.
+    x [B, T, H, W, C], bf16 or fp32, in one launch.
 
     CPU tensor: :func:`sw_block_pair_plain`.  CUDA tensor: the Hopper
     kernel; the result equals ``sw_block(sw_block(x, w0, (0, 0)), w1,
@@ -418,7 +483,7 @@ def sw_block_pair(x: torch.Tensor, w0: SWBlockWeights, w1: SWBlockWeights,
                           SWBlockWeights(*t[_NT:], w1.num_heads, w1.window))
         return KernelFunction.apply(
             lambda xx, *t: _sw_block_pair(xx, *pair(t), shift),
-            lambda xx, *t: sw_block_pair_plain(xx, *pair(t), shift), x, *w0[:_NT], *w1[:_NT])
+            lambda xx, *t: sw_block_pair_xla(xx, *pair(t), shift), x, *w0[:_NT], *w1[:_NT])
     return _sw_block_pair(x, w0, w1, shift)
 
 
@@ -433,13 +498,14 @@ def _sw_block_pair(x: torch.Tensor, w0: SWBlockWeights, w1: SWBlockWeights,
     _check_5d("sw_block_pair", x, w1, shift)
     B, T, H, W, C = x.shape
     wh, ww = w0.window
-    scratch = torch.empty_like(x)
+    xb, f32 = _io(x)
+    scratch = torch.empty_like(xb)      # block 0's result, bf16 (block 1's input)
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     plan = sw_plan(C, w0.num_heads, T * wh * ww, B * (H // wh) * (W // ww), pair=True)
     code = _lib().sw_block_pair_launch(
-        _pointers(x, scratch, w0), _pointers(scratch, out, w1), plan.as_array(), B, T, H, W, C,
-        w0.num_heads, wh, ww, int(shift[0]), int(shift[1]),
+        _pointers(xb, scratch, w0), _pointers(scratch, out, w1), plan.as_array(), B, T, H, W, C,
+        w0.num_heads, wh, ww, int(shift[0]), int(shift[1]), f32,
         float((C // w0.num_heads) ** -0.5), stream)
     _build.check(code, "sw_block_pair launch")
     sw_block_pair.launches += 1

@@ -32,7 +32,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from pgtformer_tpu_torch import resolve_device
+from pgtformer_tpu_torch import default_use_pallas, resolve_device
 from pgtformer_tpu_torch.config import PGTFormerConfig, RELEASE_PGTFORMER
 from pgtformer_tpu_torch.convert import load_into
 from pgtformer_tpu_torch.io.video import VideoReader, VideoWriter
@@ -132,6 +132,12 @@ class VideoRestorer:
     swscale; :meth:`restore_video` then needs the native writer and even
     H/W, and has no RGB frames for a callback).
     `mha_layout`: the code transformer's attention plan ("bnhd" or "bhnd").
+    `use_pallas`: the model's plan (models/pgtformer.py); None, as in JAX,
+    means the kernels where the device is CUDA and the module path
+    elsewhere.  `dtype` bf16 or fp32: under fp32 the kernels round their
+    inputs to bf16 and store fp32, as the TPU kernels do, and the rest of
+    the model computes in fp32 (TF32 is the caller's setting; the CLIs turn
+    it off).
     `io_backend`: 'auto' (native libav, else OpenCV), 'native' or 'opencv'.
     `inflight`: chunks left on the device before the oldest is read back
     (at least 1): deeper hides more readback latency at `inflight` chunks
@@ -154,7 +160,7 @@ class VideoRestorer:
                  dtype: torch.dtype = torch.bfloat16, device=None,
                  readback: str = "rgb", seed: int = 0, mha_layout: str = "bnhd",
                  io_backend: str = "auto", inflight: int = 3,
-                 group: Optional[P.Group] = None):
+                 group: Optional[P.Group] = None, use_pallas: Optional[bool] = None):
         if readback not in ("rgb", "yuv420"):
             raise ValueError(f"readback {readback!r}")
         if io_backend not in ("auto", "native", "opencv"):
@@ -170,7 +176,9 @@ class VideoRestorer:
         self.readback = readback
         self.dtype = dtype
         gen = torch.Generator().manual_seed(seed) if weights is None else None
-        model = PGTFormer(cfg, generator=gen, mha_layout=mha_layout)
+        if use_pallas is None:
+            use_pallas = default_use_pallas(self.device)
+        model = PGTFormer(cfg, generator=gen, mha_layout=mha_layout, use_pallas=use_pallas)
         if weights is not None:
             load_into(model, weights)
         self.model = model.to(device=self.device, dtype=dtype).eval()

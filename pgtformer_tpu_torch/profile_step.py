@@ -8,11 +8,18 @@ Optionally writes the same as JSON (`--json PATH`).  The knob flags and
 `--mha-layout` profile the step's other evaluation plans.  `--train I` or
 `--train III` profiles the training step of that stage instead, as
 `chip_smoke.py` takes it (one seeded 512x512 3-frame clip, bf16 autocast
-over fp32 parameters, LPIPS on its random VGG, GAN from step 0).
+over fp32 parameters, LPIPS on its random VGG, GAN from step 0, the
+kernels' plan: ``use_pallas=True``).  `--code` profiles the code path
+instead, in bf16 on the kernels: the ``TDCRQVAE3`` forward and
+``TDCRQVAE3.get_codes`` on 2 clips, ``PGTFormer.get_codes`` on `--batch`
+clips, each apart, with the same groups (K5's row among them).
+``--device cpu`` (with ``--res``) runs any of them on the CPU, where the
+times are the host's op times (the plain versions stand in for the
+kernels), not a device's.
 
     python -m pgtformer_tpu_torch.profile_step [--steps 3] [--json out.json] \
         [--sw-kernel 5d|tokens] [--sw-pair 0|1] [--fused-tail 0|up|1] \
-        [--mha-layout bnhd|bhnd] [--train I|III]
+        [--mha-layout bnhd|bhnd] [--train I|III | --code] [--device cpu --res 64]
 """
 
 from __future__ import annotations
@@ -49,7 +56,7 @@ def _group(name: str) -> str:
     return "elementwise/other"
 
 
-def _train_step(stage: str, res: int):
+def _train_step(stage: str, res: int, device="cuda"):
     """A closure taking one training step of `stage` as chip_smoke.py's
     phase_train does (same seeds)."""
     import dataclasses
@@ -62,7 +69,8 @@ def _train_step(stage: str, res: int):
     gt = rng.integers(0, 256, (1, 3, res, res, 3), dtype=np.uint8)
     lq = np.clip(gt.astype(np.int16) + rng.integers(-24, 25, gt.shape), 0, 255).astype(np.uint8)
     hp = dataclasses.replace(STAGE_HYPERS[stage], warmup_iter=-1)
-    kw = dict(lpips_fn=make_lpips_fn(device="cuda"), device="cuda", dtype=torch.bfloat16)
+    kw = dict(lpips_fn=make_lpips_fn(device=device), device=device, dtype=torch.bfloat16,
+              use_pallas=True)
     if stage == "I":
         tr = Stage1Trainer(RELEASE_PGTFORMER.vqvae, hp, **kw)
         state, batch = tr.init_state(torch.Generator().manual_seed(11)), gt
@@ -78,6 +86,81 @@ def _train_step(stage: str, res: int):
     return run
 
 
+def _code_paths(res: int, clips: int, device):
+    """{name: closure} of the code path in bf16 on the kernels' plan:
+    the TDCRQVAE3 forward and get_codes on 2 clips, PGTFormer.get_codes on
+    `clips` clips (chip_smoke.py:phase_autoencoder's seeds and shapes)."""
+    from pgtformer_tpu_torch.config import RELEASE_PGTFORMER
+    from pgtformer_tpu_torch.models.pgtformer import PGTFormer
+    from pgtformer_tpu_torch.models.vae import TDCRQVAE3
+    cfg = RELEASE_PGTFORMER.vqvae
+    bf = torch.bfloat16
+    vae = TDCRQVAE3(cfg, generator=torch.Generator().manual_seed(1), use_pallas=True)
+    vae = vae.to(device=device, dtype=bf).eval()
+    pgt = PGTFormer(RELEASE_PGTFORMER, generator=torch.Generator().manual_seed(0),
+                    use_pallas=True).to(device=device, dtype=bf).eval()
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.uniform(-1, 1, (2, cfg.tf, res, res, 3)).astype(np.float32))
+    x = x.to(device=device, dtype=bf)
+    x8 = torch.from_numpy(rng.uniform(0, 1, (clips, cfg.tf, res, res, 3)).astype(np.float32))
+    x8 = x8.to(device=device, dtype=bf)
+    return {"vae_forward": lambda: vae(x), "vae_get_codes": lambda: vae.get_codes(x),
+            "pgtformer_get_codes": lambda: pgt.get_codes(x8)}
+
+
+def _profile(run, steps: int, device, grad: bool = False) -> dict:
+    """Warm up (on the card), then profile `steps` calls of `run` (under
+    inference mode unless `grad`: a training step records its gradient):
+    wall ms per call and {kernel: (ms per call, launches per call)} of
+    device time (host op time on the CPU)."""
+    from torch.profiler import ProfilerActivity, profile
+    cuda = device.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(device)) if cuda else (lambda: None)
+    mode = torch.enable_grad if grad else torch.inference_mode
+    with mode():
+        for _ in range(3 if cuda else 0):
+            run()
+    sync()
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with mode(), profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            run()
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = {}
+    for ev in prof.key_averages():
+        if cuda:
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = getattr(ev, "self_cuda_time_total", 0.0)
+            mine = ev.device_type == torch.autograd.DeviceType.CUDA
+        else:
+            us, mine = ev.self_cpu_time_total, ev.key.startswith("aten::")
+        if us > 0 and mine:
+            kernels[ev.key] = (us / 1e3 / steps, ev.count // steps)
+    if not kernels:
+        raise SystemExit("profiler recorded no device time")
+    groups = {}
+    for name, (ms, _) in kernels.items():
+        g = _group(name)
+        groups[g] = groups.get(g, 0.0) + ms
+    return dict(wall_ms=wall_ms, busy_ms=sum(groups.values()), groups_ms=groups,
+                top=sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15])
+
+
+def _print(what: str, where: str, plan: str, p: dict, cuda: bool) -> None:
+    wall, busy = p["wall_ms"], p["busy_ms"]
+    kind = "device" if cuda else "host op"
+    print(f"{where}; {what} [{plan}]: wall {wall:.2f} ms/step, "
+          f"{kind} busy {busy:.2f} ms/step ({100 * busy / wall:.1f}%), "
+          f"idle share {100 * (1 - busy / wall):.1f}%")
+    for g, ms in sorted(p["groups_ms"].items(), key=lambda kv: -kv[1]):
+        print(f"  {g:20s} {ms:9.3f} ms/step  {100 * ms / busy:5.1f}% of {kind} time")
+    for name, (ms, n) in p["top"]:
+        print(f"    {ms:8.3f} ms  x{n:<4d} {name[:110]}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=3)
@@ -87,67 +170,55 @@ def main(argv=None) -> int:
                     help="attention plan of the code transformer")
     ap.add_argument("--train", type=str, default=None, choices=("I", "III"),
                     help="profile this stage's training step instead of serving")
+    ap.add_argument("--code", action="store_true",
+                    help="profile the code path (TDCRQVAE3 forward and get_codes, "
+                         "PGTFormer.get_codes) instead of serving")
+    ap.add_argument("--device", type=str, default=None,
+                    help="torch device (default: cuda); on the CPU the times are host op times")
+    ap.add_argument("--res", type=int, default=None,
+                    help="frame size (default: the config's 512; at least 64)")
     knobs.add_cli_flags(ap)
     args = ap.parse_args(argv)
     knobs.apply_cli_args(args)
-    if not torch.cuda.is_available():
+    if args.device is None and not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
         return 2
-    from torch.profiler import ProfilerActivity, profile
-
     from pgtformer_tpu_torch.config import RELEASE_PGTFORMER
 
+    device = torch.device(args.device or "cuda")
     B = args.batch
-    res = RELEASE_PGTFORMER.vqvae.ddconfig.resolution
-    if args.train:
-        run, what = _train_step(args.train, res), f"training step {args.train}, 1 clip x 3"
+    res = args.res or RELEASE_PGTFORMER.vqvae.ddconfig.resolution
+    if args.code:
+        runs = {name: (run, f"{name.replace('_', ' ')}, "
+                            f"{B if name.startswith('pgt') else 2} clips x 3")
+                for name, run in _code_paths(res, B, device).items()}
+    elif args.train:
+        runs = {"train": (_train_step(args.train, res, device),
+                          f"training step {args.train}, 1 clip x 3")}
     else:
         from pgtformer_tpu_torch.pipeline import VideoRestorer
-        r = VideoRestorer(None, RELEASE_PGTFORMER, batch_windows=B, device="cuda",
+        r = VideoRestorer(None, RELEASE_PGTFORMER, batch_windows=B, device=device,
                           mha_layout=args.mha_layout)
         frames = np.random.default_rng(0).integers(0, 256, (B, res, res, 3), dtype=np.uint8)
         r.prime(frames[0])
-        run, what = (lambda: r.restore_chunk(frames)), f"serving step B={B}"
-    for _ in range(3):
-        run()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.steps):
-            run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
-
-    kernels = {}
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[ev.key] = (dev_us / 1e3 / args.steps, ev.count // args.steps)
-    if not kernels:
-        raise SystemExit("profiler recorded no device time")
-    groups = {}
-    for name, (ms, _) in kernels.items():
-        g = _group(name)
-        groups[g] = groups.get(g, 0.0) + ms
-    busy = sum(groups.values())
-    smi = torch.cuda.get_device_name(0)
+        runs = {"serve": (lambda: r.restore_chunk(frames), f"serving step B={B}")}
+    where = (f"device {torch.cuda.get_device_name(device)}" if device.type == "cuda"
+             else "cpu (host op times)")
     plan = (f"SW_KERNEL={knobs.get('SW_KERNEL')} SW_PAIR={knobs.get('SW_PAIR')} "
             f"FUSED_TAIL={knobs.get('FUSED_TAIL')} mha_layout={args.mha_layout}")
-    print(f"device {smi}; {what} {res}x{res} [{plan}]: wall {wall_ms:.2f} ms/step, "
-          f"device busy {busy:.2f} ms/step ({100 * busy / wall_ms:.1f}%), "
-          f"idle share {100 * (1 - busy / wall_ms):.1f}%")
-    for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"  {g:20s} {ms:9.3f} ms/step  {100 * ms / busy:5.1f}% of device time")
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
-    for name, (ms, n) in top:
-        print(f"    {ms:8.3f} ms  x{n:<4d} {name[:110]}")
+    out = {}
+    for name, (run, what) in runs.items():
+        out[name] = p = _profile(run, args.steps, device, grad=name == "train")
+        _print(f"{what} {res}x{res}", where, plan, p, device.type == "cuda")
     if args.json:
+        rec = {name: {"wall_ms": p["wall_ms"], "busy_ms": p["busy_ms"],
+                      "groups_ms": p["groups_ms"],
+                      "top": [[n, ms, c] for n, (ms, c) in p["top"]]}
+               for name, p in out.items()}
+        if len(rec) == 1:
+            rec = next(iter(rec.values()))
         with open(args.json, "w") as f:
-            json.dump({"device": smi, "batch": B, "plan": plan, "wall_ms": wall_ms, "busy_ms": busy,
-                       "groups_ms": groups,
-                       "top": [[n, ms, c] for n, (ms, c) in top]}, f, indent=1)
+            json.dump({"device": where, "batch": B, "res": res, "plan": plan, **rec}, f, indent=1)
     return 0
 
 

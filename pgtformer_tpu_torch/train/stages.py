@@ -26,10 +26,16 @@ their operands to bf16, the norms keep fp32 statistics and round once, the
 shifted-window and attention kernels take their weights cast from the
 live parameters.  The quantizer, LPIPS and every loss compute in fp32.
 
-On the card the forwards launch the hand-written kernels (K1, K5, K6, or
-K3/K4/K2 under their plans); their backwards recompute through the plain
-versions (``ops/sw_block.py``, ``ops/dense_mha.py``), so a backward launches
-no kernel.  The fused decoder tail (``FUSED_TAIL``) stays inference-only.
+``use_pallas`` (JAX's name and default, False) picks the towers' plan.
+With it, on the card the forwards launch the hand-written kernels (K1 and
+K6, or K3/K4/K2 under their plans); their backwards recompute through the
+XLA forms (``ops/sw_block.py``, ``ops/dense_mha.py``), so a backward
+launches no kernel.  Without it the forwards run the module path, plain
+PyTorch, as JAX's XLA path.  The quantizer's K5 runs on the card under both
+(JAX keys it to the backend).  Under fp32 (``dtype=float32``, no autocast)
+the kernels take fp32 activations in their fp32 form.  The fused decoder
+tail (``FUSED_TAIL``) stays inference-only.  The stage II-IV teacher takes
+the trainer's plan; JAX builds it without ``use_pallas`` (XLA always).
 
 With a ``group`` of ranks (``parallel/group.py``; the JAX package's mesh,
 its ``shard_map`` and ``_pmean_if``) every rank builds the same trainer,
@@ -164,7 +170,7 @@ class _Trainer:
     disc: Optional[VQGANDiscriminator]
 
     def __init__(self, hp: StageHyper, lpips_fn: Optional[Callable], device, dtype: torch.dtype,
-                 group: Optional[P.Group] = None):
+                 group: Optional[P.Group] = None, use_pallas: bool = False):
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype {dtype} (choices: float32, bfloat16)")
         if group is not None and device is not None and torch.device(device) != group.device:
@@ -173,6 +179,7 @@ class _Trainer:
         self.group = group if group is not None and group.world > 1 else None
         self.device = group.device if group is not None else resolve_device(device)
         self.dtype = dtype
+        self.use_pallas = use_pallas
         self.lpips_fn = lpips_fn
         self.hinge = L.HingeGANLoss("hinge", hp.gan_weight)
         self._state: Optional[TrainState] = None
@@ -297,16 +304,17 @@ class Stage1Trainer(_Trainer):
     `lpips_fn`: ``train/lpips.py:make_lpips_fn()`` or None (no perceptual
     term).  `dtype`: the compute dtype (fp32, or bf16 under autocast).
     `group`: train data-parallel over its ranks (module docstring); the
-    device is then the group's."""
+    device is then the group's.  `use_pallas`: the towers' plan (module
+    docstring)."""
 
     def __init__(self, cfg: VQVAEConfig, hp: StageHyper = STAGE_HYPERS["I"],
                  lpips_fn: Optional[Callable] = None, device=None,
                  dtype: torch.dtype = torch.float32,
                  disc: Optional[VQGANDiscriminator] = None,
-                 group: Optional[P.Group] = None):
-        super().__init__(hp, lpips_fn, device, dtype, group)
+                 group: Optional[P.Group] = None, use_pallas: bool = False):
+        super().__init__(hp, lpips_fn, device, dtype, group, use_pallas)
         self.cfg = cfg
-        self.model = TDCRQVAE3(cfg, group=self.group)
+        self.model = TDCRQVAE3(cfg, group=self.group, use_pallas=use_pallas)
         self.disc = (disc if disc is not None else VQGANDiscriminator()).set_group(self.group)
 
     def init_state(self, generator: torch.Generator, state_dict: Optional[Mapping] = None,
@@ -382,15 +390,15 @@ class PGTFormerTrainer(_Trainer):
                  hp: Optional[StageHyper] = None, lpips_fn: Optional[Callable] = None,
                  device=None, dtype: torch.dtype = torch.float32,
                  disc: Optional[VQGANDiscriminator] = None,
-                 group: Optional[P.Group] = None):
+                 group: Optional[P.Group] = None, use_pallas: bool = False):
         if stage not in ("II", "III", "IV"):
             raise ValueError(f"stage {stage!r} (choices: II, III, IV)")
-        super().__init__(hp or STAGE_HYPERS[stage], lpips_fn, device, dtype, group)
+        super().__init__(hp or STAGE_HYPERS[stage], lpips_fn, device, dtype, group, use_pallas)
         self.cfg = cfg
         self.stage = stage
         self.code_only = stage == "II"
-        self.model = PGTFormer(cfg)
-        self.teacher = TDCRQVAE3(cfg.vqvae)
+        self.model = PGTFormer(cfg, use_pallas=use_pallas)
+        self.teacher = TDCRQVAE3(cfg.vqvae, use_pallas=use_pallas)
         self.disc = ((disc if disc is not None else VQGANDiscriminator()).set_group(self.group)
                      if self.hp.use_gan else None)
 

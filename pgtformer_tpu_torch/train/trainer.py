@@ -15,7 +15,9 @@ the step's metrics, as the JAX package's) and per validation
 the clock stops while a checkpoint is written or validation runs.  The
 time the loop waits for each batch, each checkpoint's seconds and bytes,
 the restore's, and each validation's seconds and peak device memory go to
-``timings.jsonl`` (one line per ``fit``) and to the log.
+``timings.jsonl`` (one line per ``fit``) and to the log.  Both name the
+step's plan and compute dtype (``pallas``, ``dtype``: the log's first line
+and the timings record), so no run hides which path it took.
 
 Under data parallelism (`group`) every rank runs the loop on its rows of
 each batch and restores the same state; rank 0 alone writes the states,
@@ -127,6 +129,9 @@ class Trainer:
             total_iter: Optional[int] = None,
             val_fn: Optional[Callable[[Any, int], dict]] = None):
         total = total_iter or self.stage.hp.total_iter
+        plan = {"pallas": bool(self.stage.use_pallas),
+                "dtype": str(self.stage.dtype).replace("torch.", "")}
+        self.logger.info(f"plan: pallas: {str(plan['pallas']).lower()}, dtype {plan['dtype']}")
         timings = {"restore": None, "save": [], "val": [], "data_wait_s": deque(maxlen=1000)}
         t0 = time.perf_counter()
         restored, step0 = self.ckpt.restore(state, self.stage)
@@ -187,7 +192,7 @@ class Trainer:
         if final % self.save_freq != 0:   # else the loop already saved it
             self._save(final, state, timings)
         self.tb.flush()
-        rec = {"start_step": start, "end_step": final,
+        rec = {"start_step": start, "end_step": final, **plan,
                **{k: (list(v) if isinstance(v, deque) else v) for k, v in timings.items()}}
         if self.loader is not None:
             rec["loader_load_s"] = list(self.loader.load_seconds)

@@ -6,10 +6,17 @@ unmodified) and builds the stage trainer, dataset, loader, validation and
 loop:
 
     python -m pgtformer_tpu_torch.train_cli -opt configs/demo_stage_I.yml \\
-        --data-root /data/vfhq --exp-dir exp/stage1 --bf16 [--stage I]
+        --data-root /data/vfhq --exp-dir exp/stage1 [--bf16] [--pallas] [--stage I]
 
-It trains on the card unless ``--device`` names another device (the CUDA
-kernels take bf16, so the card needs ``--bf16``).  Checkpoints, exports,
+It trains on the card unless ``--device`` names another device, in fp32
+unless ``--bf16`` is given (bf16 autocast over fp32 parameters), as the JAX
+CLI does.  Under fp32 on the card TF32 is off: cuDNN and cuBLAS compute in
+fp32.  ``--pallas`` runs the shifted-window layers and the code
+transformer's attention through the hand-written kernels (their fp32 form
+under fp32: bf16 inputs, fp32 output), as the JAX CLI's ``--pallas`` runs
+its Pallas kernels; without it they run the module path in plain PyTorch
+(JAX's XLA path).  The log's first line and ``timings.jsonl`` name the
+plan and the dtype.  Checkpoints, exports,
 ``metrics.jsonl``, ``timings.jsonl``, TensorBoard events and validation
 images land in ``--exp-dir`` (``utils/checkpoint.py`` gives the layout); a
 run whose directory holds a checkpoint resumes from it, inside the epoch
@@ -27,7 +34,10 @@ experiment directory (``train/trainer.py``).
 
 Differences from the JAX package's CLI:
 
-  * There is no ``--pallas``: on a CUDA tensor the kernels always run.
+  * Under ``--pallas`` the stage II-IV teacher runs the kernels too (the
+    JAX trainer builds its teacher without ``use_pallas``), and geometry
+    the kernels cannot take raises on the card instead of taking the
+    module path.
   * ``--devices`` counts processes (one per card), not the devices of one
     controller, and defaults to 1 (the JAX CLI takes every device).
   * Resuming stage II–IV needs ``--teacher-ckpt``: the frozen teacher is no
@@ -87,7 +97,8 @@ def detect_stage(opt: dict, options_path: str) -> str:
 
 
 def build_from_options(opt: dict, stage: str, data_root: str = None,
-                       lpips_fn=None, dtype=None, device=None, group=None):
+                       lpips_fn=None, dtype=None, device=None, group=None,
+                       use_pallas: bool = False):
     """(stage trainer, StageHyper) from an option tree: the YAML's `train:`
     subtree overrides the stage's defaults, and its loss blocks pick the
     loss recipe.  Unlike the JAX package, the `network_d` block's `nc`,
@@ -156,11 +167,12 @@ def build_from_options(opt: dict, stage: str, data_root: str = None,
     if stage == "I":
         cfg = vqvae_config_from_options(opt, network_key="network_g")
         trainer = Stage1Trainer(cfg, hp, lpips_fn=lpips_fn, device=device, dtype=dtype,
-                                disc=disc, group=group)
+                                disc=disc, group=group, use_pallas=use_pallas)
     else:
         cfg = pgtformer_config_from_options(opt, network_key="network_g")
         trainer = PGTFormerTrainer(cfg, stage=stage, hp=hp, lpips_fn=lpips_fn,
-                                   device=device, dtype=dtype, disc=disc, group=group)
+                                   device=device, dtype=dtype, disc=disc, group=group,
+                                   use_pallas=use_pallas)
     return trainer, hp
 
 
@@ -197,7 +209,12 @@ def _parse(argv):
                         help="override the YAML's total_iter (smoke runs)")
     parser.add_argument("--bf16", action="store_true",
                         help="bfloat16 compute under autocast over fp32 "
-                             "parameters (needed on the card)")
+                             "parameters (default fp32, with TF32 off on the card)")
+    parser.add_argument("--pallas", action="store_true",
+                        help="run the SW-attention towers (and the code "
+                             "transformer's attention) through the hand-written "
+                             "CUDA kernels (custom-VJP backward through the "
+                             "module math); default: the module path")
     parser.add_argument("--val-data-root", default=None,
                         help="VFHQ val split root; enables the periodic "
                              "val loop (PSNR/SSIM + saved images)")
@@ -294,7 +311,9 @@ def _train(args, parser, group) -> int:
 
     device = group.device if group is not None else resolve_device(args.device)
     if device.type == "cuda" and not args.bf16:
-        parser.error("training on the card needs --bf16: the CUDA kernels take bf16")
+        # fp32 means fp32: cuDNN would take TF32 for the convs
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
     world, rank = (group.world, group.rank) if group is not None else (1, 0)
     logger = get_root_logger()
     if rank:
@@ -308,7 +327,8 @@ def _train(args, parser, group) -> int:
         weights_path=args.lpips_weights, device=device)
     trainer, hp = build_from_options(
         opt, stage, args.data_root, lpips_fn=lpips_fn,
-        dtype=torch.bfloat16 if args.bf16 else torch.float32, device=device, group=group)
+        dtype=torch.bfloat16 if args.bf16 else torch.float32, device=device, group=group,
+        use_pallas=args.pallas)
 
     ds_opt = opt.get("datasets", {}).get("train", {})
     batch = (args.batch_size or int(ds_opt.get("batch_size_per_gpu", 1))) * world

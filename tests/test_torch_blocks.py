@@ -1,5 +1,8 @@
-"""nn blocks and the two kernels' plain versions of the PyTorch port
-against the JAX package's XLA path (CPU, fp32, atol/rtol 1e-4)."""
+"""nn blocks and the two kernels' XLA forms of the PyTorch port against the
+JAX package's XLA path (CPU, fp32, atol/rtol 1e-4).  The kernels' plain
+versions equal the XLA forms under bf16; under fp32 they take the kernels'
+fp32 form (bf16 inside), which tests/test_torch_fp32_plans.py holds to the
+JAX kernels."""
 
 import numpy as np
 import pytest
@@ -14,8 +17,10 @@ import pgtformer_tpu_torch.nn.transformer as tt
 from pgtformer_tpu.ops.flash_attn import _dense_mha_ref
 from pgtformer_tpu.ops.pallas_attn import sw_block_5d_xla
 from pgtformer_tpu.ops.window import relative_position_index, shifted_window_mask
-from pgtformer_tpu_torch.ops.dense_mha import dense_mha, dense_mha_plain
-from pgtformer_tpu_torch.ops.sw_block import sw_block, sw_block_plain
+from pgtformer_tpu.ops.flash_attn import dense_mha as jax_dense_mha
+from pgtformer_tpu_torch.ops.dense_mha import (
+    dense_mha, dense_mha_plain, dense_mha_plain_bnhd, dense_mha_ref)
+from pgtformer_tpu_torch.ops.sw_block import sw_block, sw_block_plain, sw_block_xla
 from tests.test_torch_common import close, japply, random_variables, t, to_port
 
 RNG = np.random.default_rng(0)
@@ -73,8 +78,9 @@ def test_encoder_layer(C, hw):
 
 @pytest.mark.parametrize("shift", [(0, 0), (2, 2)])
 def test_sw_block_plain_matches_xla(shift):
-    """The kernel's plain version (and the CPU path of the wrapper) against
-    the JAX package's sw_block_5d_xla, the oracle of the TPU kernel."""
+    """The XLA form against the JAX package's sw_block_5d_xla, the oracle of
+    the TPU kernel (fp32); the kernel's plain version (and the CPU path of
+    the wrapper) equals it under bf16."""
     C, heads, T = 64, 4, 3
     x = RNG.normal(size=(2, T, 8, 12, C)).astype(np.float32)
     jmod = jb.SWTransformerBlock(dim=C, num_heads=heads, num_frames=T, window_size=(4, 4),
@@ -89,29 +95,42 @@ def test_sw_block_plain_matches_xla(shift):
     w = mod.kernel_weights(torch.device("cpu"))
     close(w.rel_bias, rb, atol=0, rtol=0)
     with torch.no_grad():
-        close(sw_block_plain(t(x), w, shift), ref)
-        close(sw_block(t(x), w, shift), ref)
+        close(sw_block_xla(t(x), w, shift), ref)
+        xb = t(x).to(torch.bfloat16)
+        assert torch.equal(sw_block_plain(xb, w, shift), sw_block_xla(xb, w, shift))
+        assert torch.equal(sw_block(xb, w, shift), sw_block_xla(xb, w, shift))
 
 
 def test_dense_mha_plain_matches_ref():
+    """dense_mha_ref against the JAX package's _dense_mha_ref (fp32); the
+    plain version equals it under bf16."""
     q, k, v = (RNG.normal(size=(2, 4, 40, 16)).astype(np.float32) for _ in range(3))
     ref = _dense_mha_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 0.25)
-    close(dense_mha_plain(t(q), t(k), t(v), 0.25), ref, atol=1e-5)
+    close(dense_mha_ref(t(q), t(k), t(v), 0.25), ref, atol=1e-5)
+    qb, kb, vb = (t(a).to(torch.bfloat16) for a in (q, k, v))
+    assert torch.equal(dense_mha_plain(qb, kb, vb, 0.25), dense_mha_ref(qb, kb, vb, 0.25))
 
 
 def test_dense_mha_wrapper_reads_packed_projections():
-    """CPU path of the wrapper on strided views of packed [B, N, 2C] / [B, N, C]."""
+    """CPU path of the wrapper on strided views of packed [B, N, 2C] / [B, N, C]
+    (fp32, the kernel's fp32 form): equal to the plain version on contiguous
+    copies, and within the kernel rule (2e-2 * max|ref|) of the JAX kernel
+    on the same packed views (interpret mode)."""
     B, N, H, D = 2, 24, 4, 16
     C = H * D
-    qk = t(RNG.normal(size=(B, N, 2 * C)))
-    v = t(RNG.normal(size=(B, N, C)))
+    qk = t(RNG.normal(size=(B, N, 2 * C)).astype(np.float32))
+    v = t(RNG.normal(size=(B, N, C)).astype(np.float32))
     split = lambda a: a.reshape(B, N, H, D)
-    out = dense_mha(split(qk[..., :C]), split(qk[..., C:]), split(v), scale=D ** -0.5,
-                    layout="bnhd").reshape(B, N, C)
-    heads = lambda a: np.asarray(a).reshape(B, N, H, D).transpose(0, 2, 1, 3)
-    ref = _dense_mha_ref(jnp.asarray(heads(qk[..., :C])), jnp.asarray(heads(qk[..., C:])),
-                         jnp.asarray(heads(v)), D ** -0.5)
-    close(out, np.asarray(ref).transpose(0, 2, 1, 3).reshape(B, N, C), atol=1e-5)
+    views = (split(qk[..., :C]), split(qk[..., C:]), split(v))
+    out = dense_mha(*views, scale=D ** -0.5, layout="bnhd")
+    assert out.dtype == torch.float32
+    assert torch.equal(out, dense_mha_plain_bnhd(*(a.contiguous() for a in views), D ** -0.5))
+    jqk, jv = jnp.asarray(qk.numpy()), jnp.asarray(v.numpy())
+    jsplit = lambda a: a.reshape(B, N, H, D)
+    ref = np.asarray(jax_dense_mha(jsplit(jqk[..., :C]), jsplit(jqk[..., C:]), jsplit(jv),
+                                   scale=D ** -0.5, layout="bnhd", interpret=True))
+    err = np.abs(out.numpy() - ref).max()
+    assert ref.dtype == np.float32 and err <= 2e-2 * np.abs(ref).max(), err
 
 
 @pytest.mark.parametrize("with_pos", [True, False])

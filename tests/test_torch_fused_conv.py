@@ -327,7 +327,7 @@ def decoder():
                                        ("up", {"subpixel_up_conv3x3": 1, "fused_decoder_tail": 0})])
 def test_decoder3d_fused_tail_matches_jax(monkeypatch, decoder, mode, want):
     model, z, ref = decoder
-    m16 = tvae.Decoder3D(tcfg.DDConfig(**_DD))
+    m16 = tvae.Decoder3D(tcfg.DDConfig(**_DD), use_pallas=True)    # the knob needs the kernels' plan
     m16.load_state_dict(model.state_dict())
     m16 = m16.to(BF16).eval()
     run = lambda: m16(t(z).to(BF16), fuse_fn=_tfuse, middle_only=True, fuse_resolutions=(16,))
@@ -356,7 +356,7 @@ def test_decoder3d_guard_keeps_the_stock_path(monkeypatch, decoder, case):
         kw = {}
     elif case == "narrow":                   # C = 64 at level 1: C % 128 != 0
         dd.update(ch=32)
-    m = tvae.Decoder3D(tcfg.DDConfig(**dd))
+    m = tvae.Decoder3D(tcfg.DDConfig(**dd), use_pallas=True)
     if case != "narrow":
         m.load_state_dict(model.state_dict())
     else:

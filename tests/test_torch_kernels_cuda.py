@@ -41,6 +41,13 @@ bf16 on the card against the same weights in fp32 on the CPU: features and
 logits within 5e-2 relative, codes agreeing on >= 0.95 of tokens, the
 RQVAE's decode of the CPU's codes within 5e-2 of the largest output
 (mean), exact launches.
+
+float32 (the kernels' fp32 form: bf16 inside, fp32 output): K1, K3, K4 and
+K6/K2 on fp32 activations within the same rules of their plain versions'
+fp32 forms, and rounded to bf16 bit-equal to the bf16 kernel on the
+rounded input; K3 bit-equal to K1, K4 to two fp32 K1 launches.  The module
+path (use_pallas=False) launches no K1/K3/K4/K2/K6 on the card (K5 still
+runs) and takes a window that does not divide the map.
 """
 
 import numpy as np
@@ -209,25 +216,26 @@ def test_dense_mha_kernel_matches_plain(B, H, N, D, kind):
 def test_kernels_refuse_instead_of_falling_back():
     dev = _card()
     w = _block_weights(64, 4, 3, seed=1).to(dev).kernel_weights(dev)
+    half = torch.float16
     with pytest.raises(NotImplementedError):
-        sw_block(torch.zeros((1, 3, 8, 8, 64), device=dev), w, (0, 0))      # fp32
+        sw_block(torch.zeros((1, 3, 8, 8, 64), device=dev, dtype=half), w, (0, 0))   # fp16
     with pytest.raises(NotImplementedError):
-        EncoderLayer(64, 2, 4, 3, (4, 4), 1.0).to(dev, torch.bfloat16)(
+        EncoderLayer(64, 2, 4, 3, (4, 4), 1.0, use_pallas=True).to(dev, torch.bfloat16)(
             torch.zeros((1, 3, 6, 6, 64), device=dev, dtype=torch.bfloat16))
     q = torch.zeros((1, 12, 4, 16), device=dev, dtype=torch.bfloat16)
     for layout in ("bnhd", "bhnd"):
         with pytest.raises(NotImplementedError):
             dense_mha(q, q, q, scale=0.25, layout=layout)                    # N % 8
-    q = torch.zeros((1, 16, 4, 16), device=dev)
+    q = torch.zeros((1, 16, 4, 16), device=dev, dtype=half)
     with pytest.raises(NotImplementedError):
-        dense_mha(q, q, q, scale=0.25, layout="bnhd")                        # fp32
+        dense_mha(q, q, q, scale=0.25, layout="bnhd")                        # fp16
     tok = torch.zeros((4, 48, 64), device=dev, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError):
         sw_block_tokens(tok, w, np.zeros((4, 48, 48), np.float32), 4)        # host mask
     with pytest.raises(NotImplementedError):
-        sw_block_tokens(tok.float(), w, None, 4)
+        sw_block_tokens(tok.to(half), w, None, 4)
     with pytest.raises(NotImplementedError):
-        sw_block_pair(torch.zeros((1, 3, 8, 8, 64), device=dev), w, w, (2, 2))
+        sw_block_pair(torch.zeros((1, 3, 8, 8, 64), device=dev, dtype=half), w, w, (2, 2))
     x = torch.zeros((8, 64), device=dev)
     with pytest.raises(NotImplementedError):
         nearest_code(x.to(torch.bfloat16), x.to(torch.bfloat16))
@@ -237,12 +245,12 @@ def test_kernels_refuse_instead_of_falling_back():
 
 def test_encoder_layer_cuda_matches_cpu():
     """The layer on the card (kernel, bf16) against the layer on the CPU
-    (plain version, fp32), same weights."""
+    (module path, fp32), same weights."""
     dev = _card()
     cpu = init_weights(EncoderLayer(128, 2, 4, 3, (4, 4), 1.0),
                        torch.Generator().manual_seed(5)).eval()
     x = torch.randn((2, 3, 16, 16, 128), generator=torch.Generator().manual_seed(6))
-    gpu = EncoderLayer(128, 2, 4, 3, (4, 4), 1.0)
+    gpu = EncoderLayer(128, 2, 4, 3, (4, 4), 1.0, use_pallas=True)
     gpu.load_state_dict(cpu.state_dict())
     gpu = gpu.to(dev, torch.bfloat16)
     with torch.no_grad():
@@ -368,7 +376,7 @@ def test_encoder_layer_plans_on_the_card():
     """tokens and pair plans of EncoderLayer equal the default plan bit for
     bit on the card (one device function), with the right launches."""
     dev = _card()
-    layer = init_weights(EncoderLayer(128, 2, 4, 3, (4, 4), 1.0),
+    layer = init_weights(EncoderLayer(128, 2, 4, 3, (4, 4), 1.0, use_pallas=True),
                          torch.Generator().manual_seed(5)).to(dev, torch.bfloat16).eval()
     x = torch.randn((2, 3, 16, 16, 128), generator=torch.Generator().manual_seed(6))
     x = x.to(dev, torch.bfloat16)
@@ -611,8 +619,9 @@ def test_decoder3d_fused_tail_on_the_card(mode, k8, k7):
     from pgtformer_tpu_torch.models.vae import Decoder3D
     dd = DDConfig(z_channels=32, resolution=32, ch=64, ch_mult=(1, 2), depths=(2, 2),
                   num_heads=(4, 4), window_sizes=((4, 4), (4, 4)), attn_resolutions=(16,))
-    cpu = init_weights(Decoder3D(dd), torch.Generator().manual_seed(13)).to(torch.bfloat16).eval()
-    gpu = Decoder3D(dd).to(torch.bfloat16)
+    cpu = init_weights(Decoder3D(dd, use_pallas=True),
+                       torch.Generator().manual_seed(13)).to(torch.bfloat16).eval()
+    gpu = Decoder3D(dd, use_pallas=True).to(torch.bfloat16)
     gpu.load_state_dict(cpu.state_dict())
     gpu = gpu.to(dev).eval()
     z = torch.randn((6, 16, 16, 32), generator=torch.Generator().manual_seed(14))
@@ -731,8 +740,11 @@ def test_stage1_step_bf16_on_the_card_matches_cpu():
     results = {}
     for device, dtype in (("cpu", torch.float32), ("cpu", torch.bfloat16),
                           (dev, torch.bfloat16)):
+        # the CPU's fp32 step on the module path (the fp32 reference), the
+        # bf16 steps on the kernels' plan (their plain versions on the CPU)
         tr = Stage1Trainer(cfg, hp, lpips_fn=make_lpips_fn(device=device, warn_random=False),
-                           device=device, dtype=dtype, disc=VQGANDiscriminator(ndf=16, n_layers=2))
+                           device=device, dtype=dtype, disc=VQGANDiscriminator(ndf=16, n_layers=2),
+                           use_pallas=dtype == torch.bfloat16)
         state = tr.init_state(torch.Generator().manual_seed(45))
         p0 = {n: p.detach().cpu().clone() for n, p in state.g.params.items()}
         c0 = {n: t.detach().cpu().clone() for n, t in state.g.codebook.items()}
@@ -819,7 +831,7 @@ def test_stage1_checkpoint_resume_on_the_card(tmp_path):
 
     def trainer(seed):
         tr = Stage1Trainer(cfg, hp, device=dev, dtype=torch.bfloat16,
-                           disc=VQGANDiscriminator(ndf=16, n_layers=2))
+                           disc=VQGANDiscriminator(ndf=16, n_layers=2), use_pallas=True)
         return tr, tr.init_state(torch.Generator().manual_seed(seed))
 
     def tensors(tr, state):
@@ -901,7 +913,7 @@ def test_eval_cli_on_the_card(tmp_path, monkeypatch, capsys):
     for i in range(3):
         cv2.imwrite(str(tmp_path / "GT" / "clip_a" / f"{i:08d}.png"),
                     rng.integers(0, 256, (32, 32, 3), dtype=np.uint8))
-    model = PGTFormer(cfg, generator=torch.Generator().manual_seed(3))
+    model = PGTFormer(cfg, generator=torch.Generator().manual_seed(3), use_pallas=True)
     torch.save({"params_ema": model.state_dict()}, str(tmp_path / "w.pth"))
     arc_sd = init_weights(IResNet(IRESNET50_LAYERS), torch.Generator().manual_seed(4)).state_dict()
     torch.save(arc_sd, str(tmp_path / "arc.pth"))
@@ -986,6 +998,21 @@ def test_restore_video_on_the_card(tmp_path):
         assert np.array_equal(np.stack(frames), ref), inflight
 
 
+def _parallel_workers():
+    """tests/torch_parallel_workers.py imported as a top-level module.
+    `tests` here is a namespace package, so a regular package of that name
+    installed on the card's machine shadows it under `from tests import`;
+    the spawned ranks find the module by this name on the path they are
+    handed."""
+    import importlib
+    import os
+    import sys
+    here = os.path.dirname(os.path.abspath(__file__))
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    return importlib.import_module("torch_parallel_workers")
+
+
 def test_sharded_serving_two_ranks_on_one_card(tmp_path):
     """Two gloo ranks spawned on the one card serve the small bf16 model
     (seeded weights, B=4: 2 windows a rank, 3 chunks): rank 0's gathered
@@ -995,7 +1022,7 @@ def test_sharded_serving_two_ranks_on_one_card(tmp_path):
     from pgtformer_tpu_torch import parallel
     from pgtformer_tpu_torch import pipeline
     from pgtformer_tpu_torch.config import DDConfig, PGTFormerConfig, VQVAEConfig
-    from tests import torch_parallel_workers as W
+    W = _parallel_workers()
     dd = DDConfig(z_channels=32, resolution=32, ch=32, ch_mult=(1, 2), depths=(2, 2),
                   num_heads=(4, 4), window_sizes=((4, 4), (4, 4)), attn_resolutions=(16,))
     cfg = PGTFormerConfig(vqvae=VQVAEConfig(ddconfig=dd, embed_dim=32, n_embed=64,
@@ -1036,6 +1063,8 @@ def test_codeformer_small_on_the_card_matches_cpu():
                 res_blocks=1, attn_resolutions=(8,), emb_dim=32,
                 generator=torch.Generator().manual_seed(50)).eval()
     gpu = copy.deepcopy(cpu).to(dev, torch.bfloat16)
+    for layer in gpu.ft_layers:
+        layer.self_attn.use_pallas = True
     x = torch.from_numpy(np.random.default_rng(51).uniform(0, 1, (2, 64, 64, 3)).astype(np.float32))
     before = dense_mha_bnhd.launches
     with torch.no_grad():
@@ -1074,3 +1103,102 @@ def test_rqvae_small_on_the_card_matches_cpu():
     assert z_rel <= 5e-2
     assert (codes_g.cpu() == codes_c).float().mean() >= 0.95
     assert ((dec_g - dec_c).abs().mean() / dec_c.abs().max()).item() <= 5e-2
+
+
+# -- the fp32 forms (bf16 inputs, fp32 output) and the module path -------------
+
+@pytest.mark.parametrize("shape,shift", [
+    ((8, 3, 64, 64, 256), (2, 2)), ((8, 3, 32, 32, 512), (0, 0)),
+    ((8, 3, 32, 32, 512), (2, 2)), ((1, 3, 4, 12, 256), (2, 2))])
+def test_sw_block_fp32_forms_match_plain(shape, shift):
+    """K1, K3 and K4 on fp32 activations: fp32 out, within K1's rule of the
+    plain version's fp32 form; rounded to bf16, bit-equal to the bf16
+    kernel on the rounded input (only the store differs); K3 bit-equal to
+    K1 on the same windows, K4 to two fp32 K1 launches."""
+    dev = _card()
+    B, T, H, W, C = shape
+    w0 = _block_weights(C, 8, T, seed=61).to(dev).kernel_weights(dev)
+    w1 = _block_weights(C, 8, T, seed=62).to(dev).kernel_weights(dev)
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(63)).to(dev)
+    bf = torch.bfloat16
+    rule = lambda out, ref: ((out - ref).abs().max() <= 2e-2 * ref.abs().max()).item()
+    with torch.no_grad():
+        out = sw_block(x, w1, shift)
+        assert out.dtype == torch.float32 and torch.isfinite(out).all()
+        assert rule(out, sw_block_plain(x, w1, shift))
+        assert torch.equal(out.to(bf), sw_block(x.to(bf), w1, shift))
+        rolled = torch.roll(x, (-shift[0], -shift[1]), dims=(2, 3))
+        tok = window_partition(rolled, (4, 4)).contiguous()
+        nW = (H // 4) * (W // 4)
+        mask = (torch.as_tensor(shifted_window_mask(T, H, W, (4, 4), shift), device=dev)
+                if any(shift) else None)
+        k3 = sw_block_tokens(tok, w1, mask, nW)
+        assert k3.dtype == torch.float32
+        assert rule(k3, sw_block_tokens_plain(tok, w1, mask, nW))
+        k1_tok = window_partition(torch.roll(out, (-shift[0], -shift[1]), dims=(2, 3)), (4, 4))
+        assert torch.equal(k3, k1_tok)
+        if any(shift):
+            pair = sw_block_pair(x, w0, w1, shift)
+            assert pair.dtype == torch.float32
+            assert torch.equal(pair, sw_block(sw_block(x, w0, (0, 0)), w1, shift))
+            assert rule(pair, sw_block_pair_plain(x, w0, w1, shift))
+
+
+@pytest.mark.parametrize("B,H,N,D,kind", [(8, 8, 3072, 64, "normal"), (1, 2, 200, 32, "normal"),
+                                          (2, 2, 520, 64, "sharp")])
+def test_dense_mha_fp32_form_matches_plain(B, H, N, D, kind):
+    """K6 and K2 on fp32 views of the packed projections: fp32 out, within
+    K2's rule of the plain version's fp32 form; rounded to bf16, bit-equal
+    to the bf16 kernel on the rounded operands; the two layouts bit-equal."""
+    dev = _card()
+    C = H * D
+    qk, v = (a.to(dev) for a in mha_operands(B, H, N, D, kind))
+    split = lambda a: a.reshape(B, N, H, D)
+    q, k, v = split(qk[..., :C]), split(qk[..., C:]), split(v)
+    heads = lambda a: a.transpose(1, 2)
+    packed = dense_mha(q, k, v, scale=D ** -0.5, layout="bnhd")
+    out = dense_mha(heads(q), heads(k), heads(v), scale=D ** -0.5, layout="bhnd")
+    assert packed.dtype == out.dtype == torch.float32
+    assert torch.equal(heads(packed), out)
+    ref = dense_mha_plain(heads(q), heads(k), heads(v), D ** -0.5)
+    assert ref.dtype == torch.float32
+    assert (out - ref).abs().max() <= 1e-2 * ref.abs().max()
+    bf = torch.bfloat16
+    assert torch.equal(packed.to(bf), dense_mha(q.to(bf), k.to(bf), v.to(bf), scale=D ** -0.5,
+                                                 layout="bnhd"))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_module_path_launches_no_kernel_on_the_card(dtype):
+    """use_pallas=False on the card: the module composition in plain
+    PyTorch, no K1/K3/K4/K2/K6 launch; the quantizer's K5 still runs (it
+    follows the device); a window that does not divide the map runs there
+    too; against the same layer on the CPU."""
+    dev = _card()
+    _exact_fp32()
+    from pgtformer_tpu_torch.config import DDConfig, VQVAEConfig
+    from pgtformer_tpu_torch.models.vae import TDCRQVAE3
+    dd = DDConfig(z_channels=32, resolution=32, ch=32, ch_mult=(1, 2), depths=(2, 2),
+                  num_heads=(4, 4), window_sizes=((4, 4), (4, 4)), attn_resolutions=(16,))
+    cfg = VQVAEConfig(ddconfig=dd, embed_dim=32, n_embed=64, latent_shape=(16, 16, 32),
+                      code_shape=(16, 16, 1))
+    vae = TDCRQVAE3(cfg, generator=torch.Generator().manual_seed(64)).to(dev, dtype).eval()
+    x = torch.from_numpy(np.random.default_rng(65).uniform(-1, 1, (2, 3, 32, 32, 3))
+                         .astype(np.float32)).to(dev, dtype)
+    wrappers = (sw_block, sw_block_tokens, sw_block_pair, dense_mha_bhnd, dense_mha_bnhd)
+    before = [w.launches for w in wrappers] + [nearest_code.launches]
+    cpu = init_weights(EncoderLayer(64, 2, 4, 3, (4, 4), 1.0),
+                       torch.Generator().manual_seed(66)).eval()
+    odd = torch.randn((1, 3, 6, 6, 64), generator=torch.Generator().manual_seed(67))
+    gpu = EncoderLayer(64, 2, 4, 3, (4, 4), 1.0)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu = gpu.to(dev, dtype)
+    with torch.no_grad():
+        out, loss, codes = vae(x)
+        got = gpu(odd.to(dev, dtype)).float().cpu()
+        ref = cpu(odd)
+    after = [w.launches for w in wrappers] + [nearest_code.launches]
+    assert [a - b for a, b in zip(after, before)] == [0, 0, 0, 0, 0, 1]
+    assert torch.isfinite(out).all() and torch.isfinite(loss)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    assert (got - ref).abs().mean() <= tol * ref.abs().mean()

@@ -2,16 +2,21 @@
 the CPU, where the plain version stands in for each kernel.
 
 * Each wrapper, given inputs that require a gradient, runs its Function;
-  against autograd through its plain version: x, every weight, the
-  gathered bias (K1/K3/K4), q, k, v (K2/K6).  The Function's
-  backward is that same autograd graph recomputed, so the gradients are
-  equal to within 1e-6 relative (the recompute may fuse nothing else).
-* An `EncoderLayer` (both shifts; each of the three plans) and a
-  `TransformerSALayer` against `jax.grad` of the JAX package's modules:
-  gradients of x and of every parameter within 1e-4 of that tensor's
-  largest magnitude, or of 1e-2 of the largest parameter gradient's where
-  that is larger (fp32 sums in another order; the relative-position table's
-  gradient is a scatter-add of the gathered bias's).
+  its output is its plain version's (in fp32 the kernels' fp32 form), and
+  its gradients are autograd's through the XLA form it recomputes (as the
+  JAX package's custom VJPs differentiate its XLA path): x, every weight,
+  the gathered bias (K1/K3/K4), q, k, v (K2/K6), equal to within 1e-6
+  relative (the recompute may fuse nothing else).
+* An `EncoderLayer(use_pallas=True)` (both shifts; each of the three plans)
+  and a `TransformerSALayer` against the JAX package's gradients: gradients
+  of x and of every parameter within 1e-4 of that tensor's largest
+  magnitude, or of 1e-2 of the largest parameter gradient's where that is
+  larger (fp32 sums in another order; the relative-position table's
+  gradient is a scatter-add of the gathered bias's).  For the layer, the
+  custom VJP's gradients: JAX's XLA blocks differentiated at the inputs
+  each kernel call saved (the port's forward values; in fp32 block 1's
+  input is block 0's fp32-form output), chained as the calls were; the
+  pair is one call, so its gradient is `jax.grad` of the XLA layer.
 * After an optimizer step the next forward, with or without a recorded
   gradient, uses the new weights: the kernel-weight cache follows the
   parameters' versions.
@@ -54,7 +59,8 @@ def _layer(C=64, hw=(8, 12), depth=2, seed=0):
     jmod = jb.EncoderLayer(dim=C, depth=depth, num_heads=4, num_frames=3,
                            window_size=(4, 4), mlp_ratio=1.0)
     v = random_variables(jmod, jnp.asarray(x), seed=seed)
-    return jmod, v, to_port(tb.EncoderLayer(C, depth, 4, 3, (4, 4), mlp_ratio=1.0), v), x
+    mod = to_port(tb.EncoderLayer(C, depth, 4, 3, (4, 4), mlp_ratio=1.0, use_pallas=True), v)
+    return jmod, v, mod, x
 
 
 def _leaves(w: sw.SWBlockWeights):
@@ -89,13 +95,16 @@ def test_sw_block_functions_match_plain_autograd(kind, shift):
         cot = torch.from_numpy(RNG.normal(size=xt.shape).astype(np.float32))
         mask = shifted_window_mask(3, 8, 12, (4, 4), (2, 2)) if any(shift) else None
         runs = [lambda xx, w, _: sw.sw_block_tokens(xx, w, mask, 6),
-                lambda xx, w, _: sw.sw_block_tokens_plain(xx, w, mask, 6)]
+                lambda xx, w, _: sw.sw_block_tokens_xla(xx, w, mask, 6)]
+        plain = lambda xx, w, _: sw.sw_block_tokens_plain(xx, w, mask, 6)
     elif kind == "block":
         runs = [lambda xx, w, _: sw.sw_block(xx, w, shift),
-                lambda xx, w, _: sw.sw_block_plain(xx, w, shift)]
+                lambda xx, w, _: sw.sw_block_xla(xx, w, shift)]
+        plain = lambda xx, w, _: sw.sw_block_plain(xx, w, shift)
     else:
         runs = [lambda xx, w, wb: sw.sw_block_pair(xx, w, wb, shift),
-                lambda xx, w, wb: sw.sw_block_pair_plain(xx, w, wb, shift)]
+                lambda xx, w, wb: sw.sw_block_pair_xla(xx, w, wb, shift)]
+        plain = lambda xx, w, wb: sw.sw_block_pair_plain(xx, w, wb, shift)
     results, names = [], []
     for fn in runs:
         xx = xt.detach().clone().requires_grad_()
@@ -104,11 +113,12 @@ def test_sw_block_functions_match_plain_autograd(kind, shift):
         inputs = [xx, *ts, *(tsb if kind == "pair" else [])]
         results.append(_grads(lambda: fn(xx, w, wb), inputs, cot))
         names += fn_names
-    (g_fn, out_fn), (g_plain, out_plain) = results
+    (g_fn, out_fn), (g_xla, _) = results
     assert names[0] == "KernelFunctionBackward" != names[1]    # the wrapper took the Function
-    assert torch.equal(out_fn, out_plain)
+    with torch.no_grad():
+        assert torch.equal(out_fn, plain(xt, w0, w1))
     assert len(g_fn) == 1 + 17 * (2 if kind == "pair" else 1)
-    _assert_same(g_fn, g_plain)
+    _assert_same(g_fn, g_xla)
     assert all(g.abs().max() > 0 for g in g_fn)
 
 
@@ -119,15 +129,16 @@ def test_dense_mha_function_matches_plain_autograd(layout):
     if layout == "bhnd":
         q, k, v = (a.transpose(1, 2) for a in (q, k, v))
     plain = dm.dense_mha_plain if layout == "bhnd" else dm.dense_mha_plain_bnhd
+    ref = dm.dense_mha_ref if layout == "bhnd" else dm.dense_mha_ref_bnhd
     cot = torch.from_numpy(RNG.normal(size=q.shape).astype(np.float32))
     res, names = [], []
     for fn in (lambda a, b, c: dm.dense_mha(a, b, c, scale=0.25, layout=layout),
-               lambda a, b, c: plain(a, b, c, 0.25)):
+               lambda a, b, c: ref(a, b, c, 0.25)):
         leaves = [a.detach().clone().requires_grad_() for a in (q, k, v)]
         res.append(_grads(lambda: fn(*leaves), leaves, cot))
         names += fn_names
     assert names[0] == "KernelFunctionBackward" != names[1]
-    assert torch.equal(res[0][1], res[1][1])
+    assert torch.equal(res[0][1], plain(q, k, v, 0.25))
     _assert_same(res[0][0], res[1][0])
     with pytest.raises(ValueError, match="layout"):
         dm.dense_mha(q, k, v, scale=0.25, layout="nope")
@@ -140,6 +151,27 @@ def _jax_grads(jmod, v, x, cot, *extra):
         return jnp.sum(jmod.apply({**v, "params": params}, xx, *extra) * cot)
     gp, gx = jax.jit(jax.grad(f, argnums=(0, 1)))(v["params"], jnp.asarray(x))
     return flax_to_state_dict({"params": gp}), np.asarray(gx)
+
+
+def _chain_grads(jmod, v, x, y0, cot):
+    """The custom VJP of two single-block kernel calls: JAX's XLA block 1
+    differentiated at y0 (what the second call saved), its input cotangent
+    through JAX's XLA block 0 at x."""
+    half = tuple(w // 2 for w in jmod.window_size)
+    blocks = [jb.SWTransformerBlock(dim=jmod.dim, num_heads=jmod.num_heads,
+                                    num_frames=jmod.num_frames, window_size=jmod.window_size,
+                                    shift_size=s, mlp_ratio=jmod.mlp_ratio)
+              for s in ((0, 0), half)]
+    p = v["params"]
+
+    def vjp(i, xx, g):
+        _, back = jax.vjp(lambda pp, z: blocks[i].apply({"params": pp}, z),
+                          p[f"blocks_{i}"], jnp.asarray(xx))
+        return back(g)
+
+    g1, gy = vjp(1, y0, cot)
+    g0, gx = vjp(0, x, gy)
+    return flax_to_state_dict({"params": {"blocks_0": g0, "blocks_1": g1}}), np.asarray(gx)
 
 
 def _assert_grads(mod, xt, gp, gx, rel=1e-4):
@@ -171,7 +203,12 @@ def test_encoder_layer_gradients_match_jax(monkeypatch, plan):
     elif plan == "pair":
         knobs.set_knob("SW_PAIR", "1")
     cot = RNG.normal(size=x.shape).astype(np.float32)
-    gp, gx = _jax_grads(jmod, v, x, jnp.asarray(cot))
+    if plan == "pair":
+        gp, gx = _jax_grads(jmod, v, x, jnp.asarray(cot))
+    else:
+        with torch.no_grad():
+            y0 = sw.sw_block_plain(t(x), mod.blocks[0].kernel_weights(torch.device("cpu")), (0, 0))
+        gp, gx = _chain_grads(jmod, v, x, y0.numpy(), jnp.asarray(cot))
     xt = t(x).requires_grad_()
     (mod(xt) * torch.from_numpy(cot)).sum().backward()
     entry = {"5d": "sw_block", "tokens": "sw_block_tokens", "pair": "sw_block_pair"}[plan]
@@ -210,7 +247,7 @@ def test_next_forward_uses_the_stepped_weights():
     assert torch.equal(after.wq, blk.attn.q.weight.detach().to(torch.bfloat16))
     assert not torch.equal(after.wq, before.wq)
     assert torch.equal(after.rel_bias, blk.attn.rel_bias().detach())
-    fresh = tb.EncoderLayer(64, 2, 4, 3, (4, 4), mlp_ratio=1.0)
+    fresh = tb.EncoderLayer(64, 2, 4, 3, (4, 4), mlp_ratio=1.0, use_pallas=True)
     fresh.load_state_dict(mod.state_dict())
     with torch.no_grad():
         ref = fresh(t(x))

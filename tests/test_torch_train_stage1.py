@@ -74,7 +74,7 @@ def runs(one_torch_thread):
 
         phs = P.StageHyper(warmup_iter=-1, gan_weight_mode=mode)
         ptr = P.Stage1Trainer(tvq, phs, lpips_fn=tfn, device="cpu",
-                              disc=VQGANDiscriminator(**SMALL_DISC))
+                              disc=VQGANDiscriminator(**SMALL_DISC), use_pallas=False)
         state = ptr.init_state(torch.Generator().manual_seed(0),
                                state_dict=flax_to_state_dict(g_vars),
                                disc_state_dict=flax_to_state_dict(d_vars))

@@ -1,14 +1,20 @@
 """The serving step's other evaluation plans in the PyTorch port, and the
 knob registry that selects them (CPU).
 
-* EncoderLayer under SW_KERNEL=tokens and SW_PAIR=1 against the default
-  plan (exactly equal on the CPU, where every plan runs plain PyTorch on the
-  same operands in the same order) and the JAX XLA path (1e-5 abs + 1e-5
-  relative, fp32 summation order);
+* EncoderLayer(use_pallas=True) under SW_KERNEL=tokens and SW_PAIR=1
+  against the default plan (exactly equal on the CPU, where every plan runs
+  plain PyTorch on the same operands in the same order) and the JAX
+  package's EncoderLayer(use_pallas=True), its Pallas kernels in interpret
+  mode (2e-2 * max|ref|: in fp32 both compute the kernels' fp32 form, bf16
+  inside; the JAX kernels' LayerNorm eps and tanh GELU differ); where H
+  equals the window the JAX kernels keep the half-window shift (ROADMAP C),
+  so there the JAX XLA path at the same rule.  The module path
+  (use_pallas=False) against the JAX XLA path (1e-5 abs + 1e-5 relative,
+  fp32 summation order);
 * dense_mha's two layouts against the JAX package's dense_mha (Pallas,
-  interpret mode): 2e-2 * max|ref| in bf16 (the plain version rounds the
-  probabilities after normalization, the Pallas kernel before), 1e-5 in fp32
-  against its XLA reference;
+  interpret mode): 2e-2 * max|ref| in bf16 and fp32 (the plain version
+  rounds the probabilities after normalization, the Pallas kernel before);
+  dense_mha_ref 1e-5 in fp32 against the JAX XLA reference;
 * knobs: validation, environment fallback, CLI flags, registry subset.
 """
 
@@ -23,12 +29,14 @@ import pgtformer_tpu.knobs as jknobs
 import pgtformer_tpu.nn.blocks as jb
 import pgtformer_tpu.nn.transformer as jt
 import pgtformer_tpu.ops.flash_attn as jfa
+import pgtformer_tpu.ops.pallas_attn as jpa
 import pgtformer_tpu_torch.nn.blocks as tb
 import pgtformer_tpu_torch.nn.transformer as tt
 import pgtformer_tpu_torch.ops.sw_block as sw
 from pgtformer_tpu_torch import knobs
 from pgtformer_tpu_torch.ops.dense_mha import (
-    dense_mha, dense_mha_bhnd, dense_mha_bnhd, dense_mha_plain, dense_mha_plain_bnhd)
+    dense_mha, dense_mha_bhnd, dense_mha_bnhd, dense_mha_plain, dense_mha_plain_bnhd,
+    dense_mha_ref, dense_mha_ref_bnhd)
 from pgtformer_tpu_torch.ops.window import shifted_window_mask, window_partition
 from tests.test_torch_common import close, japply, random_variables, t, to_port
 
@@ -50,7 +58,33 @@ def _layer(C, hw, depth=2, seed=0):
     jmod = jb.EncoderLayer(dim=C, depth=depth, num_heads=4, num_frames=3,
                            window_size=(4, 4), mlp_ratio=1.0)
     v = random_variables(jmod, jnp.asarray(x), seed=seed)
-    return jmod, v, to_port(tb.EncoderLayer(C, depth, 4, 3, (4, 4), mlp_ratio=1.0), v), x
+    mod = to_port(tb.EncoderLayer(C, depth, 4, 3, (4, 4), mlp_ratio=1.0, use_pallas=True), v)
+    return jmod, v, mod, x
+
+
+def _module_path_matches_xla(jmod, v, x):
+    """The port's use_pallas=False layer on the same variables against the
+    JAX XLA path."""
+    C, depth = jmod.dim, jmod.depth
+    mod = to_port(tb.EncoderLayer(C, depth, 4, 3, (4, 4), mlp_ratio=1.0), v)
+    with torch.no_grad():
+        close(mod(t(x)), japply(jmod, v, x), atol=1e-5, rtol=1e-5)
+
+
+def _jax_kernels(monkeypatch, jmod, v, x):
+    """The JAX EncoderLayer(use_pallas=True) with its Pallas kernels in
+    interpret mode."""
+    for name in ("fused_sw_block_5d", "fused_sw_block_tokens", "fused_sw_block_pair_5d"):
+        orig = getattr(jpa, name)
+        monkeypatch.setattr(jpa, name, lambda *a, _o=orig, **kw: _o(*a, **{**kw, "interpret": True}))
+    fused = jb.EncoderLayer(dim=jmod.dim, depth=jmod.depth, num_heads=4, num_frames=3,
+                            window_size=(4, 4), mlp_ratio=1.0, use_pallas=True)
+    return japply(fused, v, x)
+
+
+def _kernel_rule(out, ref):
+    err = np.abs(out.numpy() - np.asarray(ref)).max()
+    assert err <= 2e-2 * np.abs(ref).max(), (err, np.abs(ref).max())
 
 
 def _count_calls(monkeypatch):
@@ -80,7 +114,8 @@ def test_encoder_layer_plan_equals_default(monkeypatch, plan, C, hw, depth):
     with torch.no_grad():
         out = mod(t(x))
     assert torch.equal(out, default)
-    close(out, japply(jmod, v, x), atol=1e-5, rtol=1e-5)
+    _kernel_rule(out, _jax_kernels(monkeypatch, jmod, v, x))
+    _module_path_matches_xla(jmod, v, x)
     if plan == "tokens":
         assert calls == {"sw_block": 0, "sw_block_tokens": depth, "sw_block_pair": 0}
     else:   # pairs, then the leftover block on its own
@@ -115,7 +150,8 @@ def test_pair_plan_with_clamped_shift(monkeypatch, hw, pairs, singles):
         out = mod(t(x))
     assert calls == {"sw_block": singles, "sw_block_tokens": 0, "sw_block_pair": pairs}
     assert torch.equal(out, default)
-    close(out, japply(jmod, v, x), atol=1e-5, rtol=1e-5)
+    _kernel_rule(out, japply(jmod, v, x))
+    _module_path_matches_xla(jmod, v, x)
 
 
 def test_pair_and_token_plain_versions():
@@ -150,16 +186,16 @@ def test_dense_mha_layouts_match_jax(layout, dtype):
     assert torch.equal(out, plain(tq, tk, tv, 0.25))
     entry = {"bhnd": dense_mha_bhnd, "bnhd": dense_mha_bnhd}[layout]
     assert torch.equal(out, entry(tq, tk, tv, 0.25))
-    if dtype == "bfloat16":
-        jq, jk, jv = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v))
-        ref = np.asarray(jfa.dense_mha(jq, jk, jv, scale=0.25, layout=layout,
-                                       interpret=True).astype(jnp.float32))
-        err = np.abs(out.float().numpy() - ref).max()
-        assert err <= 2e-2 * np.abs(ref).max(), err
-    else:
+    jq, jk, jv = (jnp.asarray(a).astype(getattr(jnp, dtype)) for a in (q, k, v))
+    ref = np.asarray(jfa.dense_mha(jq, jk, jv, scale=0.25, layout=layout,
+                                   interpret=True).astype(jnp.float32))
+    err = np.abs(out.float().numpy() - ref).max()
+    assert err <= 2e-2 * np.abs(ref).max(), err
+    if dtype == "float32":
         tr = (lambda a: a.transpose(0, 2, 1, 3)) if layout == "bnhd" else (lambda a: a)
         ref = tr(np.asarray(jfa._dense_mha_ref(*(jnp.asarray(tr(a)) for a in (q, k, v)), 0.25)))
-        close(out, ref, atol=1e-5, rtol=0)
+        ours = {"bhnd": dense_mha_ref, "bnhd": dense_mha_ref_bnhd}[layout]
+        close(ours(tq, tk, tv, 0.25), ref, atol=1e-5, rtol=0)
 
 
 def test_dense_mha_rejects_unknown_layout():
@@ -174,20 +210,22 @@ def test_dense_mha_rejects_unknown_layout():
 
 @pytest.mark.parametrize("same_qk", [True, False])
 def test_mhsa_layouts_agree(same_qk):
-    """mha_layout="bhnd" equals "bnhd" exactly on the CPU, and the JAX module."""
+    """Under use_pallas, mha_layout="bhnd" equals "bnhd" exactly on the CPU;
+    the module path equals the JAX module."""
     q, k, vv = (RNG.normal(size=(2, 16, 64)).astype(np.float32) for _ in range(3))
     jmod = jt.MultiHeadSelfAttention(embed_dim=64, num_heads=4)
     v = random_variables(jmod, jnp.asarray(q), jnp.asarray(k), jnp.asarray(vv), seed=1)
-    a = to_port(tt.MultiHeadSelfAttention(64, 4), v)
-    b = to_port(tt.MultiHeadSelfAttention(64, 4, mha_layout="bhnd"), v)
+    a = to_port(tt.MultiHeadSelfAttention(64, 4, use_pallas=True), v)
+    b = to_port(tt.MultiHeadSelfAttention(64, 4, mha_layout="bhnd", use_pallas=True), v)
     assert a.mha_layout == "bnhd" and b.mha_layout == "bhnd"
     tq = t(q)
     tk = tq if same_qk else t(k)
     with torch.no_grad():
         out_a, out_b = a(tq, tk, t(vv)), b(tq, tk, t(vv))
+        plain = to_port(tt.MultiHeadSelfAttention(64, 4), v)(tq, tk, t(vv))
     assert torch.equal(out_a, out_b)
     if not same_qk:
-        close(out_a, japply(jmod, v, q, k, vv))
+        close(plain, japply(jmod, v, q, k, vv))
     layer = tt.TransformerSALayer(64, 4, 128, mha_layout="bhnd")
     assert layer.self_attn.mha_layout == "bhnd"
 
