@@ -14,7 +14,8 @@ Phases, in order; any failure exits non-zero:
     the shapes its path gives it, with its time, the plain version's time,
     the bound from shapes and, where one PyTorch call computes the same
     function, that call's time as a yardstick (the port never calls it):
-    K1 sw_block, K3 sw_block_tokens, K4 sw_block_pair (also bit-equal to two
+    K1 sw_block (also at one and two slabs per CTA, SW_RPS=1 and 2, bit-equal
+    and timed), K3 sw_block_tokens, K4 sw_block_pair (also bit-equal to two
     K1 launches), K2/K6 dense_mha in both layouts (two launches and the two
     layouts bit-equal, achieved TFLOP/s and share of the bound; edge cases:
     partial tiles, D=32 and 16, strongly negative and sharp logits), K5
@@ -23,19 +24,25 @@ Phases, in order; any failure exits non-zero:
     gn_silu_conv3x3 in its four forms at 8 x 512 x 512 (TFLOP/s and share of
     the bound; 30 launches bit-equal there and at ragged shapes) and K8
     subpixel_up_conv3x3 at its four shapes (output and emitted statistics,
-    ragged shapes, a strided batch), each beside the stock PyTorch sequence
-    for the same function;
+    ragged shapes, a strided batch; the stock Upsample under both SUBPIXEL
+    plans against it, and their fp32 gradients against each other), each
+    beside the stock PyTorch sequence for the same function;
  4. the serving step at full width: RELEASE_PGTFORMER (512x512, B=8
     windows) with seeded random weights through VideoRestorer, prime + 5
-    chunks; asserts exactly 22 K1 and 9 K6 launches per step and no other
-    kernel's, and prints step time, frames/s and peak memory;
+    chunks, under the default plans (SUBPIXEL=dilated: each upsample one
+    cuDNN transposed conv; FUSE_TPATH=conv); asserts exactly 22 K1 and 9 K6
+    launches per step and no other kernel's, and prints step time, frames/s,
+    peak memory and out_sha256 beside the card;
  5. the same step under its other evaluation plans (SW_KERNEL=tokens: 22 K3;
     SW_PAIR=1: 11 K4; mha_layout="bhnd": 9 K2), each with exact launch
     counts, its step time beside the default's, and its uint8 output
-    compared with the default step's on the same frames; and under the
-    fused decoder tail (FUSED_TAIL=1: 22 K1 + 9 K6 + 1 K8 + 4 K7;
-    FUSED_TAIL=up: 22 K1 + 9 K6 + 4 K8), whose output rounds to bf16 at
-    other places and is held to a mean and a maximum difference;
+    compared with the default step's on the same frames; under SW_RPS=1
+    (K1 at one slab per CTA where the default takes two), whose frames must
+    give the default's out_sha256; SW_RPS=2, which the C=512 layers refuse
+    (they fit one slab per CTA); and under the plans that round at other
+    places than the default (SUBPIXEL=quad, FUSE_TPATH=einsum: 22 K1 + 9
+    K6; FUSED_TAIL=1: 22 K1 + 9 K6 + 1 K8 + 4 K7; FUSED_TAIL=up: 22 K1 + 9
+    K6 + 4 K8), each held to a mean and a maximum difference in LSB;
  6. the autoencoder / code path at full width: TDCRQVAE3 forward on 2 clips
     of 3 frames at 512x512 (22 K1 + 1 K5), decode_code(get_codes(x)) against
     the forward's output, the forward under FUSED_TAIL=up (+ 4 K8) against
@@ -89,8 +96,9 @@ Phases, in order; any failure exits non-zero:
     LPIPS VGG, GAN from step 0, 1 warm-up + 10 timed steps each (median,
     min and max step ms); asserts finite
     losses, moved parameters, EMA and stage-I codebook, untouched frozen
-    modules and teacher, and exact launches per step (I: 22 K1 + 1 K5; III:
-    30 K1 + 9 K6 + 1 K5); prints `[train:I]` / `[train:III]` lines with step
+    modules and teacher, and exact launches per step (TRAIN_PER_STEP, the one
+    table every training phase reads: I 22 K1 + 1 K5; III 22 K1 + 9 K6 + 1
+    K5, the teacher on the module path as in JAX); prints `[train:I]` / `[train:III]` lines with step
     ms, peak memory, the losses and the card's name and power limit;
  9b. the use_pallas plans (`phase_train_plans`): stage I at full width with
     use_pallas False (the module path) and True (the kernels), each in fp32
@@ -98,8 +106,8 @@ Phases, in order; any failure exits non-zero:
     fp32 (the JAX package's default plan) and True in bf16, each through
     `bench_train_step.bench` (its seeded trainers, no LPIPS): best of two
     rounds of three steps (CUDA events) after a warm-up, peak memory, exact
-    launches per step (False: no K1/K6, 1 K5; True: 22 K1 + 1 K5, stage III
-    30 K1 + 9 K6 + 1 K5); `bench_train_step --mode both --iters 2` and
+    launches per step (False: no K1/K6, 1 K5; True: TRAIN_PER_STEP);
+    `bench_train_step --mode both --iters 2` and
     `profile_step --code` once each; the batch degradations on a [8, 512,
     512, 3] batch on the card (shape, range, determinism per seed, noise
     moments against the CPU); the serving weights through the port's own
@@ -113,8 +121,8 @@ Phases, in order; any failure exits non-zero:
     ("auto-resumed from step 4", the schedulers at 6, the loader past its 4
     batches); stage III for 3 steps from stage I's step-6 exports (teacher,
     student, discriminator; merge_pretrained's counts); exact launches per
-    training step and, apart, per validation forward (I: 22 K1 + 1 K5 both;
-    III: 30 K1 + 9 K6 + 1 K5 a step, 22 K1 + 9 K6 a validation forward); the
+    training step and, apart, per validation forward (TRAIN_PER_STEP a step;
+    I: 22 K1 + 1 K5, III: 22 K1 + 9 K6 a validation forward); the
     teacher and the frozen modules bit-identical; validation's saved frames,
     computed while the live parameters were moved far from their EMA,
     against fresh models loaded from the same step's exports (K1_TOL); stage
@@ -258,7 +266,19 @@ K7_STATS_TOL = 1e-3     # emitted (sum, sumsq) per channel: max|d| over the chan
 # what the first run on an H100 measured (0.45 / 10 for the tail; 1.02 / 20
 # for `up`, whose three earlier upsamples feed seven attention layers that
 # amplify a bf16 ulp under random weights).
-FUSED_LSB = {"fused_tail": (1.0, 20), "fused_up": (2.0, 40)}
+# SUBPIXEL=quad sums the same bf16 taps as the default's transposed conv in
+# another order; FUSE_TPATH=einsum rounds the fuse blocks' temporal path at
+# other places (after each 1x1 conv).  Both are held to fused_up's limits,
+# the widest; on an H100 both read 0 LSB (the seeded weights zero every bias
+# and start each Fuse-SFT block as the identity, see FUSE_TPATH_TOL).
+ROUNDING_LSB = {"fused_tail": (1.0, 20), "fused_up": (2.0, 40),
+                "subpixel_quad": (2.0, 40), "fuse_einsum": (2.0, 40)}
+# The seeded weights zero every bias and start each Fuse-SFT block as the
+# identity, so the frames cannot show FUSE_TPATH's plans apart: their
+# temporal paths are compared instead, max|conv - einsum| <= this * max|conv|
+# (four bf16 ulps of the largest value: einsum rounds after each 1x1 conv and
+# product; 8.3e-3 of max|conv| on the CPU at C=64, tests/test_torch_eval_plans.py)
+FUSE_TPATH_TOL = 2.0 ** -5
 
 
 def log(*a):
@@ -439,7 +459,45 @@ def phase_k1(iters: int):
         log(f"[k1] ragged x{list(shape)} shift{shift}: max|d|={err:.3e} "
             f"(max|ref|={scale:.3e}, tol {K1_TOL}*max|ref|), two launches bit-equal OK")
         worst = max(worst, err)
-    return rows, worst
+    return rows, worst, _k1_slabs_per_cta(iters)
+
+
+def _k1_slabs_per_cta(iters: int) -> dict:
+    """SW_RPS: K1 at one and at two slabs per CTA on the C=256 serving shape
+    (both shifts), bit-equal and each timed; at C=512, which fits one,
+    SW_RPS=2 is refused with the values that fit.  Returns {nw: ms}."""
+    import torch
+    from pgtformer_tpu_torch import knobs
+    from pgtformer_tpu_torch.ops.sw_block import sw_block
+    ms = {}
+    try:
+        for i, (shape, shift, _) in enumerate(K1_CASES[:2]):
+            w = _sw_block_weights(shape[-1], 8, shape[1], seed=100 + i)
+            x = _case_input(i, shape)
+            outs = {}
+            for nw in ("1", "2"):
+                knobs.set_knob("SW_RPS", nw)
+                outs[nw] = sw_block(x, w, shift)
+                ms.setdefault(nw, []).append(time_ms(lambda: sw_block(x, w, shift), iters))
+            if not torch.equal(outs["1"], outs["2"]):
+                raise SystemExit(f"K1 {shape} {shift}: one and two slabs per CTA differ")
+        shape, shift, _ = K1_CASES[4]
+        w = _sw_block_weights(shape[-1], 8, shape[1], seed=104)
+        knobs.set_knob("SW_RPS", "2")
+        try:
+            sw_block(_case_input(4, shape), w, shift)
+        except ValueError as e:
+            refusal = str(e)
+        else:
+            raise SystemExit(f"K1 {shape}: SW_RPS=2 was not refused")
+        if not refusal.endswith("slabs per CTA that fit: 1"):
+            raise SystemExit(f"K1 {shape}: SW_RPS=2 refused as {refusal!r}")
+    finally:
+        knobs.reset("SW_RPS")
+    ms = {nw: sum(v) / len(v) for nw, v in ms.items()}
+    log(f"[k1] SW_RPS at {list(K1_CASES[0][0])}, both shifts: one slab per CTA "
+        f"{ms['1']:.4f} ms, two {ms['2']:.4f} ms, outputs bit-equal; at C=512: {refusal} OK")
+    return ms
 
 
 def phase_k3(iters: int):
@@ -847,6 +905,47 @@ def _k8_operands(seed: int, shape):
     return x, k3.to(torch.bfloat16), bias
 
 
+def _upsample_plans(x, k3, bias, k8_out, iters: int) -> dict:
+    """The port's stock bf16 Upsample on K8's operands under both SUBPIXEL
+    plans (the default's one cuDNN transposed conv, the four phase convs):
+    each within K7_TOL of K8's output (K8 adds the bias before its one
+    rounding, the module after), and timed.  Then the backward, which every
+    training step on the card takes through the default: an fp32 copy on
+    one clip of x, the gradients of the weight, the bias and x under
+    ``dilated`` against those under ``quad`` (the plan the CPU tests hold
+    to jax.grad), each within GRAD_TOL of its largest magnitude."""
+    import torch
+    from pgtformer_tpu_torch import knobs
+    from pgtformer_tpu_torch.nn.blocks import Upsample
+    C = x.shape[-1]
+    up32 = Upsample(C).cuda()
+    with torch.no_grad():
+        up32.conv.weight.copy_(k3.float().permute(3, 2, 0, 1))
+        up32.conv.bias.copy_(bias)
+    up = Upsample(C).to(device="cuda", dtype=torch.bfloat16)
+    up.load_state_dict(up32.state_dict())
+    res = {"max_abs_err": 0.0}
+    xs = x[:3].float()
+    cot = _grad_leaves((3, 2 * x.shape[1], 2 * x.shape[2], C), 910 + C, torch.float32)
+    grads = {}
+    try:
+        for plan in ("dilated", "quad"):
+            knobs.set_knob("SUBPIXEL", plan)
+            with torch.inference_mode():
+                err, _ = _compare(f"Upsample[{plan}] {list(x.shape)}", up(x), k8_out, K7_TOL)
+                res["max_abs_err"] = max(res["max_abs_err"], err)
+                res[f"{plan}_ms"] = time_ms(lambda: up(x), iters)
+            up32.zero_grad()
+            xg = xs.clone().requires_grad_(True)
+            (up32(xg) * cot).sum().backward()
+            grads[plan] = [up32.conv.weight.grad.clone(), up32.conv.bias.grad.clone(), xg.grad]
+    finally:
+        knobs.reset("SUBPIXEL")
+    res["grad_rel_err"] = _compare_grads(f"Upsample backward dilated vs quad {list(xs.shape)}",
+                                         grads["dilated"], grads["quad"], ["weight", "bias", "x"])
+    return res
+
+
 def phase_k8(iters: int):
     """K8 at the four upsample shapes of the serving step, with and without
     statistics, then ragged shapes and a strided batch."""
@@ -878,6 +977,7 @@ def phase_k8(iters: int):
         flops = 2.0 * N * H * W * 4 * 4 * C * C
         nbytes = N * H * W * C * 2 * 5 + 16 * C * C * 2 + C * 4
         bms, by = bound_ms(flops, nbytes)
+        plans = _upsample_plans(x, k3, bias, out, iters)
         # every work item (one pixel tile x 64 output channels x one output
         # row phase: one statistics partial each) reads its 64 columns of
         # the eight phase matrices of its row phase from L2
@@ -889,12 +989,17 @@ def phase_k8(iters: int):
             f"stats_err={st_err:.3e} (tol {K7_STATS_TOL}) kernel_ms={ms:.4f} "
             f"with_stats_ms={ms_st:.4f} plain_ms={plain:.4f} interpolate_conv_ms={lib:.4f} "
             f"bound_ms={bms:.4f} ({by}) {tflops:.1f} TFLOP/s = {bms / ms:.3f} of the bound; "
-            f"L2 weight reads {wbytes / 1e9:.3f} GB/launch = {feed:.3f} TB/s OK")
+            f"L2 weight reads {wbytes / 1e9:.3f} GB/launch = {feed:.3f} TB/s OK; the stock "
+            f"Upsample (SUBPIXEL): dilated_ms={plans['dilated_ms']:.4f} "
+            f"quad_ms={plans['quad_ms']:.4f}, max|d| vs K8 {plans['max_abs_err']:.3e}; fp32 "
+            f"backward, dilated vs quad: worst max|d|/max|ref| {plans['grad_rel_err']:.3e} "
+            f"(tol {GRAD_TOL}) OK")
         worst = max(worst, err)
         rows.append(dict(shape=list(shape), per_step=per_up, per_step_fused_tail=per_tail, ms=ms,
                          with_stats_ms=ms_st, plain_ms=plain, library_ms=lib, bound_ms=bms,
                          bound_by=by, max_abs_err=err, stats_err=st_err, tflops=tflops,
-                         bound_share=bms / ms, l2_weight_gb=wbytes / 1e9, weight_feed_tb_s=feed))
+                         bound_share=bms / ms, l2_weight_gb=wbytes / 1e9, weight_feed_tb_s=feed,
+                         upsample_plans=plans))
         del x, out, ref, bare
     for i, shape in enumerate([(1, 13, 21, 128), (1, 9, 37, 64)]):
         x, k3, bias = _k8_operands(80 + i, shape)
@@ -928,9 +1033,16 @@ def _serve(r, frames, n_chunks: int, B: int):
     return outs, (time.perf_counter() - t0) * 1e3 / (n_chunks - 1)
 
 
-def phase_serving(n_chunks: int = 5):
+def _digest(outs) -> str:
+    """A digest of a run's restored frames: two trees that print the same
+    one compute the step bit for bit alike."""
+    return hashlib.sha256(b"".join(o.cpu().numpy().tobytes() for o in outs)).hexdigest()[:16]
+
+
+def phase_serving(smi: str = "", n_chunks: int = 5):
     import numpy as np
     import torch
+    from pgtformer_tpu_torch import knobs
     from pgtformer_tpu_torch.config import RELEASE_PGTFORMER
     from pgtformer_tpu_torch.pipeline import VideoRestorer
 
@@ -958,22 +1070,23 @@ def phase_serving(n_chunks: int = 5):
             raise SystemExit(f"serving output {tuple(o.shape)} {o.dtype}")
     if not all(bool(f.item()) for f in finite) or len(finite) != n_chunks:
         raise SystemExit("serving step produced non-finite values")
-    # a digest of the restored frames: two trees that print the same one
-    # compute the default step bit for bit alike
-    digest = hashlib.sha256(b"".join(o.cpu().numpy().tobytes() for o in outs)).hexdigest()[:16]
+    digest = _digest(outs)
     log(f"[serve] RELEASE_PGTFORMER {res}x{res}, B={B}: {n_chunks} steps, launches "
         f"K1={counts['sw_block']} (22/step) K6 dense_mha_bnhd={counts['dense_mha_bnhd']} "
         f"(9/step), no other kernel; steady step_ms={step_ms:.2f} "
         f"frames_per_s={B * 1e3 / step_ms:.3f} peak_mem_GiB={peak / 2 ** 30:.2f} "
-        f"first_step_s={r._first_chunk_s:.2f} prime_s={r._prime_s:.2f} out_sha256={digest}")
+        f"first_step_s={r._first_chunk_s:.2f} prime_s={r._prime_s:.2f} out_sha256={digest}; "
+        f"plans SUBPIXEL={knobs.get('SUBPIXEL')} FUSE_TPATH={knobs.get('FUSE_TPATH')}; "
+        f"card: {smi}")
     return dict(counts=counts, steps=n_chunks, step_ms=step_ms, restorer=r, frames=frames,
                 outs=outs, digest=digest)
 
 
-def phase_variants(serve: dict, n_chunks: int = 3):
+def phase_variants(serve: dict, smi: str = "", n_chunks: int = 3):
     """The serving step under its other evaluation plans, on the default
     run's model and frames: launch counts, step time, uint8 output against
-    the default step's."""
+    the default step's.  The SW_RPS plans run the default run's chunks and
+    must give its out_sha256; SW_RPS=2 must be refused at the C=512 layers."""
     import torch
     from pgtformer_tpu_torch import knobs
     from pgtformer_tpu_torch.nn.transformer import MultiHeadSelfAttention
@@ -985,27 +1098,39 @@ def phase_variants(serve: dict, n_chunks: int = 3):
             if isinstance(m, MultiHeadSelfAttention):
                 m.mha_layout = layout
 
-    # name: (select, expected launches, held to VARIANT_LSB of the default)
+    def default_counts(n):
+        return dict(sw_block=22 * n, dense_mha_bnhd=9 * n)
+
+    # name: (select, expected launches, rule against the default step: "lsb"
+    # (VARIANT_LSB), "rounding" (ROUNDING_LSB) or "bits" (its out_sha256))
     plans = {
         "tokens": (lambda: knobs.set_knob("SW_KERNEL", "tokens"),
-                   dict(sw_block_tokens=22 * n_chunks, dense_mha_bnhd=9 * n_chunks), True),
+                   dict(sw_block_tokens=22 * n_chunks, dense_mha_bnhd=9 * n_chunks), "lsb"),
         "pair": (lambda: knobs.set_knob("SW_PAIR", "1"),
-                 dict(sw_block_pair=11 * n_chunks, dense_mha_bnhd=9 * n_chunks), True),
+                 dict(sw_block_pair=11 * n_chunks, dense_mha_bnhd=9 * n_chunks), "lsb"),
         "bhnd": (lambda: set_layout("bhnd"),
-                 dict(sw_block=22 * n_chunks, dense_mha_bhnd=9 * n_chunks), True),
+                 dict(sw_block=22 * n_chunks, dense_mha_bhnd=9 * n_chunks), "lsb"),
+        "sw_rps_1": (lambda: knobs.set_knob("SW_RPS", "1"), default_counts(serve["steps"]),
+                     "bits"),
+        "subpixel_quad": (lambda: knobs.set_knob("SUBPIXEL", "quad"), default_counts(n_chunks),
+                          "rounding"),
+        "fuse_einsum": (lambda: knobs.set_knob("FUSE_TPATH", "einsum"),
+                        default_counts(n_chunks), "rounding"),
         "fused_tail": (lambda: knobs.set_knob("FUSED_TAIL", "1"),
                        dict(sw_block=22 * n_chunks, dense_mha_bnhd=9 * n_chunks,
-                            subpixel_up_conv3x3=n_chunks, gn_silu_conv3x3=4 * n_chunks), False),
+                            subpixel_up_conv3x3=n_chunks, gn_silu_conv3x3=4 * n_chunks),
+                       "rounding"),
         "fused_up": (lambda: knobs.set_knob("FUSED_TAIL", "up"),
                      dict(sw_block=22 * n_chunks, dense_mha_bnhd=9 * n_chunks,
-                          subpixel_up_conv3x3=4 * n_chunks), False),
+                          subpixel_up_conv3x3=4 * n_chunks), "rounding"),
     }
     res = {}
-    for name, (select, want, same_arithmetic) in plans.items():
+    for name, (select, want, rule) in plans.items():
+        n = serve["steps"] if rule == "bits" else n_chunks
         try:
             select()
             reset_counts()
-            outs, step_ms = _serve(r, frames, n_chunks, B)
+            outs, step_ms = _serve(r, frames, n, B)
             counts = expect_counts(f"serving step [{name}]", **want)
         finally:
             knobs.reset()
@@ -1014,23 +1139,84 @@ def phase_variants(serve: dict, n_chunks: int = 3):
                             for a, b in zip(outs, serve["outs"])])
         worst, n_diff = int(diff.max().item()), int((diff > 0).sum().item())
         mean = diff.float().mean().item()
-        if same_arithmetic:
+        digest = _digest(outs)
+        if rule == "bits":
+            ok, need = digest == serve["digest"], f"need out_sha256={serve['digest']}"
+        elif rule == "lsb":
             ok, need = worst <= VARIANT_LSB, f"need <= {VARIANT_LSB} LSB"
         else:
-            mean_lsb, max_lsb = FUSED_LSB[name]
+            mean_lsb, max_lsb = ROUNDING_LSB[name]
             ok = mean <= mean_lsb and worst <= max_lsb
             need = f"need mean <= {mean_lsb} and max <= {max_lsb} LSB"
         launched = {k: v for k, v in counts.items() if v}
-        log(f"[variant:{name}] {n_chunks} steps, launches {launched}; steady "
+        log(f"[variant:{name}] {n} steps, launches {launched}; steady "
             f"step_ms={step_ms:.2f} frames_per_s={B * 1e3 / step_ms:.3f} (default "
             f"{default_ms:.2f} ms, {B * 1e3 / default_ms:.3f} frames/s in this run); uint8 "
             f"output vs default: max|d|={worst} LSB, mean|d|={mean:.4f} LSB, {n_diff} of "
-            f"{diff.numel()} values differ ({need}) {'OK' if ok else 'FAIL'}")
+            f"{diff.numel()} values differ, out_sha256={digest} ({need}) "
+            f"{'OK' if ok else 'FAIL'}; card: {smi}")
         if not ok:
             raise SystemExit(f"serving step [{name}] differs from the default step")
         res[name] = dict(counts=counts, step_ms=step_ms, max_lsb=worst, mean_lsb=mean,
-                         n_diff=n_diff)
+                         n_diff=n_diff, out_sha256=digest)
+    res["fuse_einsum"]["temporal_path"] = _fuse_tpath_gap(r, frames, B, smi)
+    # SW_RPS=2: two slabs per CTA do not fit the C=512 layers' shared memory
+    try:
+        knobs.set_knob("SW_RPS", "2")
+        _serve(r, frames, 2, B)
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise SystemExit("serving step [SW_RPS=2] ran: its C=512 layers should refuse it")
+    finally:
+        knobs.reset()
+    if not refusal.endswith("slabs per CTA that fit: 1"):
+        raise SystemExit(f"serving step [SW_RPS=2] refused as {refusal!r}")
+    log(f"[variant:sw_rps_2] refused: {refusal} OK")
     return res
+
+
+def _fuse_tpath_gap(r, frames, B: int, smi: str) -> dict:
+    """Each Fuse-SFT block's temporal path (its tfusion1's input) on one
+    serving chunk under FUSE_TPATH=conv and =einsum.  The seeded weights
+    start every block as the identity (zero-initialized SFT heads) and zero
+    every bias, so the frames cannot tell these plans apart; their temporal
+    paths must: some values differ, none by more than FUSE_TPATH_TOL of the
+    path's largest (bf16 rounding at other places)."""
+    import torch
+    from pgtformer_tpu_torch import knobs
+    from pgtformer_tpu_torch.models.pgtformer import FuseSftBlock
+    blocks = {n: m for n, m in r.model.named_modules() if isinstance(m, FuseSftBlock)}
+    paths = {}
+    for plan in ("conv", "einsum"):
+        cur = paths[plan] = {}
+        hooks = [m.tfusion1.register_forward_pre_hook(
+            lambda mod, a, n=n: cur.__setitem__(n, a[0].clone())) for n, m in blocks.items()]
+        try:
+            knobs.set_knob("FUSE_TPATH", plan)
+            r.reset()
+            r.prime(frames[0])
+            r.restore_chunk(frames[1:1 + B])
+            torch.cuda.synchronize()
+        finally:
+            knobs.reset()
+            for h in hooks:
+                h.remove()
+    rows = {}
+    for n in blocks:
+        a, b = paths["conv"][n].float(), paths["einsum"][n].float()
+        d = (a - b).abs()
+        rows[n] = dict(share=(d > 0).float().mean().item(),
+                       max_rel=(d.max() / a.abs().max()).item(), shape=list(a.shape))
+    ok = all(0 < v["share"] and v["max_rel"] <= FUSE_TPATH_TOL for v in rows.values())
+    log(f"[variant:fuse_einsum] temporal paths, conv vs einsum on one chunk: " + "; ".join(
+        f"{n} {v['shape']}: {v['share']:.4f} of values differ, max|d| {v['max_rel']:.3e} of "
+        f"max|conv|" for n, v in rows.items())
+        + f" (need some and <= {FUSE_TPATH_TOL}) {'OK' if ok else 'FAIL'}; card: {smi}")
+    if not ok:
+        raise SystemExit("FUSE_TPATH: the two plans' temporal paths are not two roundings of "
+                         "one function")
+    return rows
 
 
 def phase_autoencoder(serve: dict):
@@ -1620,6 +1806,13 @@ TRAIN_WARMUP, TRAIN_TIMED = 1, 10    # steps of phase_train: warm-up, then timed
 # trainable tensors, not on every one.
 EMA_MOVED_SHARE = 0.9
 TRAIN_RES = 512
+# Exact launches per training step of the kernels' plan (use_pallas=True,
+# train_cli --pallas), forwards only: the backwards launch none.  The stage
+# II-IV teacher runs the module path, as JAX builds it without use_pallas:
+# its quantizer's K5 is the one K5 of a stage-III step.  Every training phase
+# (phase_train, phase_train_loop, phase_multi, phase_train_plans) reads this.
+TRAIN_PER_STEP = {"I": dict(sw_block=22, vq_nearest=1),
+                  "III": dict(sw_block=22, dense_mha_bnhd=9, vq_nearest=1)}
 # the kernels' shapes on the training path: one clip of 3 frames at 512^2
 TRAIN_K1_SHAPES = [(1, 3, 128, 128, 256), (1, 3, 64, 64, 256), (1, 3, 32, 32, 512)]
 TRAIN_VQ_ROWS = 3 * 32 * 32
@@ -1875,8 +2068,7 @@ def phase_train(smi: str):
     p0 = _clone_params(state.g.params.items())
     e0 = {n: t.clone() for n, t in state.g.ema_params.items()}
     c0 = {n: t.detach().clone() for n, t in state.g.codebook.items()}
-    state, ms1, peak1, losses1 = _train("I", tr, state, gt, smi,
-                                        dict(sw_block=22, vq_nearest=1))
+    state, ms1, peak1, losses1 = _train("I", tr, state, gt, smi, TRAIN_PER_STEP["I"])
     trainable = {n for n, p in state.g.params.items() if p.requires_grad}
     moved = _moved(p0, state.g.params.items())
     ema_moved = {n for n, t in state.g.ema_params.items() if not torch.equal(e0[n], t)}
@@ -1889,7 +2081,7 @@ def phase_train(smi: str):
     log(f"[train:I] all {len(trainable)} parameters, the EMA of {len(ema_moved & trainable)} "
         f"of them and the {len(c0)} codebook buffers moved OK")
     out["I"] = dict(step_ms=ms1, peak_gib=peak1 / 2 ** 30, losses=losses1,
-                    per_step=dict(sw_block=22, vq_nearest=1))
+                    per_step=TRAIN_PER_STEP["I"])
     del tr, state, p0, e0, c0
     torch.cuda.empty_cache()
 
@@ -1906,7 +2098,7 @@ def phase_train(smi: str):
     buffers0 = {n: b.detach().clone() for n, b in tr.model.named_buffers()}
     e0 = {n: t.clone() for n, t in state.g.ema_params.items()}
     c0 = _clone_params(state.g.codebook.items())
-    per_step = dict(sw_block=22 + 8, vq_nearest=1, dense_mha_bnhd=9)
+    per_step = TRAIN_PER_STEP["III"]
     state, ms3, peak3, losses3 = _train("III", tr, state, {"lq": lq, "gt": gt}, smi, per_step)
     trainable = {n for n, p in state.g.params.items() if p.requires_grad}
     frozen = set(state.g.params) - trainable
@@ -1935,8 +2127,6 @@ def phase_train(smi: str):
 
 LOOP_RES = 512            # the seeded VFHQ tree's frames
 LOOP_VAL_SAMPLES = 3      # val/GT: 1 clip x 3 frames, inter_space 1
-LOOP_PER_STEP = {"I": dict(sw_block=22, vq_nearest=1),
-                 "III": dict(sw_block=22 + 8, dense_mha_bnhd=9, vq_nearest=1)}
 LOOP_PER_VAL = {"I": dict(sw_block=22, vq_nearest=1),        # TDCRQVAE3 forward
                 "III": dict(sw_block=22, dense_mha_bnhd=9)}  # PGTFormer forward
 # JAX's default training command (neither --bf16 nor --pallas): fp32 on the
@@ -2042,7 +2232,7 @@ def _loop_run(tag: str, stage: str, argv, obs_steps: int, smi: str, expect_resum
     got = _launch_counts()
     val = {k: sum(v[k] for v in obs.val_launches) for k in got}
     n_val = len(obs.val_launches) * LOOP_VAL_SAMPLES
-    per_step = LOOP_PER_STEP[stage] if per_step is None else per_step
+    per_step = TRAIN_PER_STEP[stage] if per_step is None else per_step
     per_val = LOOP_PER_VAL[stage] if per_val is None else per_val
     want_val = {k: per_val.get(k, 0) * n_val for k in got}
     want_train = {k: per_step.get(k, 0) * obs_steps for k in got}
@@ -3151,8 +3341,6 @@ MULTI_B = 8                   # the serving chunk: Bl = 4 windows a rank at two 
 MULTI_CHUNKS = 3
 MULTI_SERVE_PER_STEP = dict(sw_block=22, dense_mha_bnhd=9)    # per rank and step
 MULTI_TRAIN_STEPS = 2
-MULTI_TRAIN_PER_STEP = {"I": dict(sw_block=22, vq_nearest=1),
-                        "III": dict(sw_block=30, vq_nearest=1, dense_mha_bnhd=9)}
 MULTI_LOSS_TOL = 5e-2         # |loss(ranks) - loss(one process)| <= this * max(|ref|, 0.1),
                               # the card test's bf16 step tolerance
 MULTI_TIMEOUT_S = 600.0
@@ -3413,7 +3601,7 @@ def _multi_training(tag: str, backend: str, kind: str, ref_first, smi: str):
         shutil.rmtree(root, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
-    want = MULTI_TRAIN_PER_STEP[kind]
+    want = TRAIN_PER_STEP[kind]          # per rank and step
     for i in range(MULTI_TRAIN_STEPS):
         digests = [r["steps"][i]["digest"] for r in res]
         if len(set(digests)) != 1:
@@ -3521,9 +3709,8 @@ FP32_CHUNKS = 4          # fp32 serving: prime + this many steps (the first one 
 FP32_AGREE = 0.9         # fp32 vs bf16 serving: share of predicted codes that agree
                          # (bf16 alone flips ~2.7% of random-weight codes, phase 7)
 PLAN_ROUNDS, PLAN_STEPS = 2, 3     # training plans: best of two rounds of three steps
-PLAN_PER_STEP = {False: dict(vq_nearest=1), True: dict(sw_block=22, vq_nearest=1)}
-PLAN_PER_STEP_III = {False: dict(vq_nearest=1),
-                     True: dict(sw_block=22 + 8, dense_mha_bnhd=9, vq_nearest=1)}
+PLAN_PER_STEP = {False: dict(vq_nearest=1), True: TRAIN_PER_STEP["I"]}
+PLAN_PER_STEP_III = {False: dict(vq_nearest=1), True: TRAIN_PER_STEP["III"]}
 # the small geometry in fp32, card (kernels' fp32 forms) against the CPU's fp32
 # module path: between the fp32 reading (lq 6.6e-3, logits 5.7e-3, forced-code
 # out 1.4e-3) and the bf16 one (phase_small_model: 1.38e-2, 1.32e-2, 2.7e-3),
@@ -3910,7 +4097,7 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
-    k1_rows, k1_err = phase_k1(iters=10)
+    k1_rows, k1_err, k1_nw_ms = phase_k1(iters=10)
     k3_rows, k3_err = phase_k3(iters=10)
     k4_rows, k4_err = phase_k4(iters=10)
     mha = phase_mha(iters=10)
@@ -3918,8 +4105,8 @@ def main() -> int:
     k7_rows, k7_err = phase_k7(iters=5)
     k8_rows, k8_err = phase_k8(iters=5)
     grads = phase_train_grad()
-    serve = phase_serving()
-    variants = phase_variants(serve)
+    serve = phase_serving(smi)
+    variants = phase_variants(serve, smi)
     vae = phase_autoencoder(serve)
     phase_small_model()
     phase_small_vae()
@@ -3945,7 +4132,8 @@ def main() -> int:
     mha_src = "pgtformer_tpu_torch/csrc/dense_mha.cu"
     kernels = [
         _entry("sw_block", "sw_block.cu", "pallas_attn.py:546", k1_rows, k1_err,
-               serve["counts"]["sw_block"], step_share=_mix(k1_rows, "ms") * 22 / step),
+               serve["counts"]["sw_block"], step_share=_mix(k1_rows, "ms") * 22 / step,
+               ms_by_slabs_per_cta_c256=k1_nw_ms),
         _entry("sw_block_tokens", "sw_block.cu", "pallas_attn.py:306", k3_rows, k3_err,
                variants["tokens"]["counts"]["sw_block_tokens"],
                step_ms=variants["tokens"]["step_ms"]),

@@ -8,12 +8,17 @@ noise), made from a seed; each row writes them through
 `NativeVideoWriter.write` (RGB, the writer's swscale included) into a
 temporary file, timed from open to close.
 
-    python -m pgtformer_tpu_torch.bench_encode [--frames 96] [--size 512]
+    python -m pgtformer_tpu_torch.bench_encode [--frames 96] [--size 512] [--out rows.json]
+
+``--out`` writes the rows as JSON as well (`bench`'s dict: host cores,
+frames, size, one row per case with its frames/s and kbit per frame, or the
+error that kept it from running).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import tempfile
@@ -57,11 +62,11 @@ def bench_one(frames, fps: float, codec: str, path: str):
     return len(frames) / dt, size
 
 
-def bench(frames: int = 96, size: int = 512, codecs=CASES) -> dict:
+def bench(frames: int = 96, size: int = 512, codecs=None) -> dict:
     data = synth_frames(frames, size)
     rows = []
     with tempfile.TemporaryDirectory(prefix="pgt_enc_") as d:
-        for codec in codecs:
+        for codec in CASES if codecs is None else codecs:
             try:
                 fps, nbytes = bench_one(data, 25.0, codec, os.path.join(d, "out.mp4"))
             except Exception as e:
@@ -76,6 +81,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=96)
     ap.add_argument("--size", type=int, default=512)
+    ap.add_argument("--out", default=None, help="also write the rows to this JSON file")
     args = ap.parse_args(argv)
     out = bench(args.frames, args.size)
     print(f"host cores {out['host_cores']}, {out['frames']} frames at "
@@ -86,6 +92,10 @@ def main(argv=None) -> int:
         else:
             print(f"  {row['codec']:54s} {row['fps']:8.2f} frames/s "
                   f"{row['kbits_per_frame']:8.1f} kbit/frame")
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1)
+        print(f"wrote {args.out}")
     return 0
 
 

@@ -65,13 +65,13 @@ def build(stage: str, use_pallas: bool, dtype, device, res: int, batch: int):
 
 
 def set_plan(tr, use_pallas: bool, dtype) -> None:
-    """Switch a built trainer, its model and teacher, in place to the plan
-    `use_pallas` and the compute dtype `dtype` (the weights stay)."""
+    """Switch a built trainer and its model in place to the plan `use_pallas`
+    and the compute dtype `dtype` (the weights stay; a stage II-IV teacher
+    keeps the module path)."""
     tr.use_pallas, tr.dtype = use_pallas, dtype
-    for model in (tr.model, getattr(tr, "teacher", None)):
-        for m in model.modules() if model is not None else ():
-            if hasattr(m, "use_pallas"):
-                m.use_pallas = use_pallas
+    for m in tr.model.modules():
+        if hasattr(m, "use_pallas"):
+            m.use_pallas = use_pallas
 
 
 def bench(tr, state, data, iters: int, rounds: int = 2):

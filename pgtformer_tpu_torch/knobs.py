@@ -1,8 +1,7 @@
 """Documented evaluation-plan / numerics knobs (PyTorch port).
 
-An independent copy of the JAX package's ``knobs.py`` registry, holding only
-the knobs whose code this package has.  Resolution order, highest priority
-first:
+An independent copy of the JAX package's ``knobs.py`` registry: the same
+names, defaults and choices.  Resolution order, highest priority first:
 
 1. programmatic ``set_knob()`` (what the CLI flags call);
 2. the ``PGT_<NAME>`` environment variable;
@@ -15,6 +14,12 @@ first:
 * ``SW_KERNEL`` / ``SW_PAIR``: evaluation plans of the shifted-window
   blocks.  All plans compute the same function and are tested against each
   other.
+* ``SUBPIXEL`` / ``FUSE_TPATH``: evaluation plans of the upsample's conv
+  and of the Fuse-SFT block's frame mix.  Their plans round at different
+  places in bf16 (each one where the JAX package's same plan does), so they
+  agree to bf16 accuracy and exactly in fp32 up to summation order.
+* ``SW_RPS``: the shifted-window kernels' slabs per CTA; every value that
+  fits gives the same output bit for bit.
 * ``FUSED_TAIL``: evaluation plan of the decoder's upsamples and per-frame
   tail (bf16 inference only).  The fused chain rounds to bf16 at other
   places than the stock modules, so its output agrees with theirs to bf16
@@ -60,6 +65,25 @@ KNOBS: Dict[str, Knob] = {k.name: k for k in [
          "norm_out and SiLU) as a chain of fused GroupNorm+SiLU+conv3x3 "
          "kernels that pass GroupNorm statistics along. Default '0' keeps the "
          "stock modules; under fp32 the knob is ignored"),
+    Knob("FUSE_TPATH", "conv", ("conv", "einsum"),
+         "Fuse-SFT block's frame mix: 'conv' folds the 1x1 tconvenc/tconvdec "
+         "convs into tfusion0's kernel in fp32 and runs one product over "
+         "(frame, channel) per input (default); 'einsum' runs the two 1x1 "
+         "convs, then two products over (frame, tcc channel). Same "
+         "parameters"),
+    Knob("SW_RPS", "", None,
+         "Slabs of 48 window-token rows per CTA of the shifted-window "
+         "kernels (sw_block and sw_block_tokens; sw_block_pair takes only "
+         "1); an integer that fits shared memory at the layer's width. "
+         "Empty = picked from the geometry (default). The output is the "
+         "same for every value. The name is the JAX package's, the meaning "
+         "is not (there: window rows per stripe): its values are not taken "
+         "as they are, and 2, for one, is refused at width 512"),
+    Knob("SUBPIXEL", "dilated", ("dilated", "quad"),
+         "Upsample conv3x3(nearest_up2) plan: 'dilated' = one transposed "
+         "conv (stride 2) with the 4x4 kernel summed from the 3x3 taps "
+         "(default); 'quad' = four 2x2 phase convs on the source grid, "
+         "interleaved. Same parameters"),
 ]}
 
 _overrides: Dict[str, str] = {}

@@ -15,33 +15,47 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from pgtformer_tpu_torch import knobs
 from pgtformer_tpu_torch.config import PGTFormerConfig
 from pgtformer_tpu_torch.models.parser import BiSeNet
 from pgtformer_tpu_torch.models.quantizer import RQBottleneck
 from pgtformer_tpu_torch.models.vae import Decoder3D, Encoder3D
-from pgtformer_tpu_torch.nn.blocks import ResnetBlock, conv_nhwc, init_weights, layer_norm
+from pgtformer_tpu_torch.nn.blocks import (
+    Float32Conv2d, KernelWeightCache, ResnetBlock, compute_dtype, conv_nhwc, init_weights,
+    layer_norm)
 from pgtformer_tpu_torch.nn.transformer import TransformerSALayer
 from pgtformer_tpu_torch.ops.image import (
     adaptive_instance_normalization, imagenet_normalize)
 from pgtformer_tpu_torch.registry import ARCH_REGISTRY
 
 
-class FuseSftBlock(nn.Module):
+class FuseSftBlock(KernelWeightCache):
     """Controllable feature transformation with cross-frame temporal fusion
     (reference pgtformer_arch.py:435-484 `Fuse_sft_block`).
 
     I/O: enc_feat, dec_feat [B, T, H, W, C] -> [B, T, H, W, C], or
     [B, 1, H, W, C] with `middle_only` (only the middle frame's output is
-    computed; the temporal path still reads every frame)."""
+    computed; the temporal path still reads every frame).
+
+    The temporal path (per-frame 1x1 convs `tconvenc`/`tconvdec` to `tcc`
+    channels, then `tfusion0` mixing frames and channels) runs the
+    ``FUSE_TPATH`` knob's plan, each rounding where the JAX package's same
+    plan does: ``conv`` folds the 1x1 convs into tfusion0's kernel in fp32,
+    rounds the folded kernels once and sums over (frame, channel) in one
+    product per input; ``einsum`` runs the 1x1 convs (bias added in the
+    compute dtype), then one product over (frame, tcc channel) per input.
+    The three convs keep fp32 parameters under a dtype cast.  Under a
+    recorded gradient the folded weights are derived from the live
+    parameters, else cached."""
 
     def __init__(self, in_ch: int, out_ch: int, t: int = 3, tcc: int = 32):
         super().__init__()
         self.t = t
         self.tcc = tcc
-        self.tconvenc = nn.Conv2d(in_ch, tcc, 1)
-        self.tconvdec = nn.Conv2d(in_ch, tcc, 1)
+        self.tconvenc = Float32Conv2d(in_ch, tcc, 1)
+        self.tconvdec = Float32Conv2d(in_ch, tcc, 1)
         # input channels t-major [enc frames | dec frames], output t-major
-        self.tfusion0 = nn.Conv2d(2 * t * tcc, t * tcc, 1)
+        self.tfusion0 = Float32Conv2d(2 * t * tcc, t * tcc, 1)
         self.tfusion1 = nn.Conv2d(tcc, tcc, 1)
         self.encode_enc = ResnetBlock(2 * in_ch + tcc, out_ch, shortcut_name="conv_out")
         self.scale = nn.Sequential(nn.Conv2d(out_ch, out_ch, 3, padding=1),
@@ -56,22 +70,55 @@ class FuseSftBlock(nn.Module):
                 head[2].weight.zero_()
                 head[2].bias.zero_()
 
+    def _tpath_weights(self, plan: str, T: int, middle_only: bool, dt: torch.dtype):
+        """The temporal path's weights, (frame, channel) rows by (output
+        frame, tcc) columns, rounded to `dt`: for ``conv`` the folded
+        (Ke [T*C, s*d], Kd, bc [s*d]); for ``einsum`` (ke [tcc, C], be, kd,
+        bd, k_enc [T*tcc, s*d], k_dec, b_sd)."""
+        def build():
+            tcc, mid = self.tcc, T // 2
+            with torch.autocast(self.tfusion0.weight.device.type, enabled=False):
+                kf = self.tfusion0.weight[:, :, 0, 0].t()       # [(enc|dec, t, c), (s, d)]
+                k_enc = kf[:T * tcc].reshape(T, tcc, T, tcc)
+                k_dec = kf[T * tcc:].reshape(T, tcc, T, tcc)
+                b_sd = self.tfusion0.bias.reshape(T, tcc)
+                if middle_only:         # only the middle output frame is consumed
+                    k_enc, k_dec, b_sd = (k_enc[:, :, mid:mid + 1], k_dec[:, :, mid:mid + 1],
+                                          b_sd[mid:mid + 1])
+                sd = b_sd.numel()
+                ke, kd = self.tconvenc.weight[:, :, 0, 0], self.tconvdec.weight[:, :, 0, 0]
+                if plan == "conv":
+                    fold = lambda k, kt: torch.einsum("ic,tisd->tcsd", k, kt).reshape(-1, sd)
+                    bc = (torch.einsum("i,tisd->sd", self.tconvenc.bias, k_enc)
+                          + torch.einsum("i,tisd->sd", self.tconvdec.bias, k_dec) + b_sd)
+                    out = (fold(ke, k_enc), fold(kd, k_dec), bc.reshape(sd))
+                else:
+                    out = (ke, self.tconvenc.bias, kd, self.tconvdec.bias,
+                           k_enc.reshape(-1, sd), k_dec.reshape(-1, sd), b_sd.reshape(sd))
+                return tuple(w.to(dt) for w in out)
+        if torch.is_grad_enabled() and self.tfusion0.weight.requires_grad:
+            return build()
+        return self._cached((plan, T, middle_only, dt), build,
+                            (self.tconvenc, self.tconvdec, self.tfusion0))
+
     def forward(self, enc_feat: torch.Tensor, dec_feat: torch.Tensor,
                 w: float = 1.0, middle_only: bool = False) -> torch.Tensor:
         B, T, H, W, C = enc_feat.shape
         tcc = self.tcc
-        enct = conv_nhwc(self.tconvenc, enc_feat.reshape(B * T, H, W, C))
-        dect = conv_nhwc(self.tconvdec, dec_feat.reshape(B * T, H, W, C))
-        fold = lambda a: a.reshape(B, T, H, W, tcc).permute(0, 2, 3, 1, 4).reshape(
-            B, H, W, T * tcc)
-        weight = self.tfusion0.weight[:, :, 0, 0]          # [(s, d), (enc|dec, t, c)]
-        bias = self.tfusion0.bias
-        t_out, mid = T, T // 2
-        if middle_only:
-            weight = weight[mid * tcc:(mid + 1) * tcc]
-            bias = bias[mid * tcc:(mid + 1) * tcc]
-            t_out = 1
-        fut = F.linear(torch.cat([fold(enct), fold(dect)], dim=-1), weight, bias)
+        dt = compute_dtype(enc_feat)
+        plan = knobs.get("FUSE_TPATH")
+        wts = self._tpath_weights(plan, T, middle_only, dt)
+        # [B, T, H, W, c] -> rows (b, h, w) by columns (t, c)
+        rows = lambda a: a.reshape(B, T, H, W, -1).permute(0, 2, 3, 1, 4).reshape(B * H * W, -1)
+        if plan == "conv":
+            Ke, Kd, bc = wts
+            fut = rows(enc_feat.to(dt)) @ Ke + rows(dec_feat.to(dt)) @ Kd + bc
+        else:
+            ke, be, kd, bd, k_enc, k_dec, b_sd = wts
+            enct = F.linear(enc_feat.to(dt), ke) + be
+            dect = F.linear(dec_feat.to(dt), kd) + bd
+            fut = rows(enct) @ k_enc + rows(dect) @ k_dec + b_sd
+        t_out, mid = fut.shape[-1] // tcc, T // 2
         fut = fut.reshape(B, H, W, t_out, tcc).permute(0, 3, 1, 2, 4)
         fut = conv_nhwc(self.tfusion1, fut.reshape(B * t_out, H, W, tcc))
 

@@ -199,7 +199,8 @@ class _SeqTower(nn.Module):
             elif kind in ("down", "up"):
                 if arg != ch:
                     raise ValueError(f"{kind} block from {ch} to {arg} channels")
-                blocks.append(Downsample(ch) if kind == "down" else Upsample(ch))
+                # nearest-up then conv3x3 as is, as the JAX package's VQGAN runs it
+                blocks.append(Downsample(ch) if kind == "down" else Upsample(ch, subpixel=False))
             elif kind == "norm":
                 blocks.append(GroupNorm(ch))
             elif kind == "silu":

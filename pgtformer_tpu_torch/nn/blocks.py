@@ -125,20 +125,24 @@ def _unfold(x: torch.Tensor, lead) -> torch.Tensor:
     return x if lead is None else x.reshape(*lead, *x.shape[1:])
 
 
-class _KernelWeightCache(nn.Module):
-    """A module that keeps a derived copy of its weights in the layout of a
-    hand-written kernel.  The copy is made at first use and dropped whenever
-    the parameters move, change dtype, are loaded or change in place (an
-    optimizer step: their version counters move)."""
+class KernelWeightCache(nn.Module):
+    """A module that keeps a derived copy of its weights: in the layout of a
+    hand-written kernel, or summed and rounded for an evaluation plan.  The
+    copy is made at first use and dropped whenever the parameters move,
+    change dtype, are loaded or change in place (an optimizer step: their
+    version counters move)."""
 
     def __init__(self):
         super().__init__()
         self._kernel_cache = None
 
-    def _cached(self, key, build):
-        """The copy made by `build()` for `key`, remade when the key or a
-        parameter's version counter has changed since."""
-        key = (key, tuple(p._version for p in self.parameters()))
+    def _cached(self, key, build, sources: Optional[Tuple[nn.Module, ...]] = None):
+        """The copy made by `build()` for `key`, remade when the key or the
+        version counter of a parameter it is built from (of `sources`, by
+        default of the whole module) has changed since."""
+        params = self.parameters() if sources is None else (
+            p for m in sources for p in m.parameters())
+        key = (key, tuple(p._version for p in params))
         if self._kernel_cache is None or self._kernel_cache[0] != key:
             self._kernel_cache = (key, build())
         return self._kernel_cache[1]
@@ -152,7 +156,7 @@ class _KernelWeightCache(nn.Module):
         return super()._load_from_state_dict(*args, **kwargs)
 
 
-class ResnetBlock(_KernelWeightCache):
+class ResnetBlock(KernelWeightCache):
     """GroupNorm -> SiLU -> conv3x3, twice, with a 1x1 shortcut on a channel
     change (named `nin_shortcut`, or `conv_out` in the Fuse-SFT block)."""
 
@@ -199,23 +203,98 @@ class Float32Conv2d(KeepFloat32, nn.Conv2d):
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
-class Upsample(_KernelWeightCache):
-    """Nearest-2x upsample, then conv3x3.  The conv's parameters stay fp32,
-    so the phase kernels of :meth:`kernel_weights` are summed from the fp32
-    taps and rounded once, as the JAX package's are."""
+def compute_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype a module computes in on x: autocast's where it is on for
+    x's device, else x's own."""
+    dev = x.device.type
+    return torch.get_autocast_dtype(dev) if torch.is_autocast_enabled(dev) else x.dtype
 
-    def __init__(self, channels: int, with_conv: bool = True):
+
+def _taps4(k: torch.Tensor, dim: int) -> torch.Tensor:
+    """Along `dim` of a 3x3 kernel, the four taps of nearest-up2x + conv3x3
+    as one conv over the 2x-dilated input: {r0, r0+r1, r1+r2, r2}."""
+    s0, s1, s2 = k.unbind(dim)
+    return torch.stack([s0, s0 + s1, s1 + s2, s2], dim)
+
+
+def subpixel_kernel(w3: torch.Tensor, plan: str) -> torch.Tensor:
+    """The ``SUBPIXEL`` `plan`'s kernel from a conv3x3 weight [o, i, 3, 3],
+    summed in its dtype: for ``dilated`` ``K44[u, v] = sum A[u, r] A[v, c]
+    k3[r, c]`` in conv_transpose2d's layout [i, o, 4, 4] (taps flipped);
+    for ``quad`` the phase kernels [2(a), 2(b), o, i, 2, 2]."""
+    if plan == "dilated":
+        return _taps4(_taps4(w3, 2), 3).flip(2, 3).transpose(0, 1)
+    return phase_kernels_2x2(w3.permute(2, 3, 1, 0)).permute(0, 1, 5, 4, 2, 3)
+
+
+def subpixel_up_conv(x: torch.Tensor, k: torch.Tensor, bias: torch.Tensor,
+                     plan: str) -> torch.Tensor:
+    """conv3x3(nearest_up2(x)) of x [N, H, W, C] on the source grid by the
+    ``SUBPIXEL`` `plan`, with its kernel `k` (:func:`subpixel_kernel`) and
+    `bias` in x's dtype, the bias added after the conv: ``dilated``, one
+    transposed conv (stride 2, padding 1: the 2x-dilated input padded by 2);
+    ``quad``, four 2x2 convs with the asymmetric pads, interleaved."""
+    xc = x.permute(0, 3, 1, 2)
+    if plan == "dilated":
+        return F.conv_transpose2d(xc, k, stride=2, padding=1).permute(0, 2, 3, 1) + bias
+    N, H, W, C = x.shape
+    phases = [F.conv2d(F.pad(xc, (1 - b, b, 1 - a, a)), k[a, b]).permute(0, 2, 3, 1) + bias
+              for a in (0, 1) for b in (0, 1)]
+    y = torch.stack(phases).reshape(2, 2, N, H, W, C).permute(2, 3, 0, 4, 1, 5)
+    return y.reshape(N, 2 * H, 2 * W, C)
+
+
+class Upsample(KernelWeightCache):
+    """Nearest-2x upsample, then conv3x3.  The conv's parameters stay fp32.
+
+    With `subpixel` (the JAX package's field and default) the conv runs on
+    the source grid by the ``SUBPIXEL`` knob's plan
+    (:func:`subpixel_up_conv`): ``dilated``, one transposed conv with the
+    4x4 kernel ``K44 = A k3 A^T``; ``quad``, four 2x2 phase convs
+    (:func:`phase_kernels_2x2`) interleaved.  Both sum their kernels from the
+    fp32 taps, round them once to the compute dtype and add the bias after
+    the conv in that dtype, as JAX does: the 4x4 kernel's taps are the phase
+    kernels' bit for bit, so the two plans differ only in the order of the
+    conv's fp32 sums.  On a CPU tensor both run the phase convs: the one
+    transposed conv of oneDNN drew the fp32 stage-I step (LPIPS at full
+    weight) 1.0e-3 of a gradient leaf's scale away from the JAX package's
+    CPU step, the phase convs 1.1e-5 (tests/test_torch_train_fp64.py), and
+    in bf16 each lies as close to either JAX plan as JAX's two lie to each
+    other.  Without `subpixel` (the VQGAN family, as in JAX) the input is
+    upsampled and convolved as is.  Under a recorded gradient the kernels
+    are derived from the live parameter, else cached."""
+
+    def __init__(self, channels: int, with_conv: bool = True, subpixel: bool = True):
         super().__init__()
         self.with_conv = with_conv
+        self.subpixel = subpixel
         if with_conv:
             self.conv = Float32Conv2d(channels, channels, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, lead = _fold(x)
+        if self.with_conv and self.subpixel:
+            dt = compute_dtype(x)
+            # on the CPU both plans run the phase convs (see the docstring)
+            plan = knobs.get("SUBPIXEL") if x.is_cuda else "quad"
+            k, bias = self._plan_weights(plan, dt)
+            return _unfold(subpixel_up_conv(x.to(dt), k, bias, plan), lead)
         y = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2, mode="nearest")
         if self.with_conv:
             y = self.conv(y)
         return _unfold(y.permute(0, 2, 3, 1), lead)
+
+    def _plan_weights(self, plan: str, dt: torch.dtype):
+        """(kernel, bias) of the `plan`, rounded to `dt`: the transposed
+        conv's [C, C, 4, 4] kernel for ``dilated``, the phase kernels [2(a),
+        2(b), C, C, 2, 2] for ``quad``."""
+        def build():
+            with torch.autocast(self.conv.weight.device.type, enabled=False):
+                k = subpixel_kernel(self.conv.weight.float(), plan)
+                return k.to(dt).contiguous(), self.conv.bias.to(dt)
+        if torch.is_grad_enabled() and self.conv.weight.requires_grad:
+            return build()
+        return self._cached((plan, dt), build)
 
     def kernel_weights(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(bf16 phase kernels [2, 2, 2, 2, C, C], fp32 bias) for
@@ -325,7 +404,7 @@ class WindowAttention3D(nn.Module):
         return self.proj(out.reshape(Bn, N, C).to(x.dtype))
 
 
-class SWTransformerBlock(_KernelWeightCache):
+class SWTransformerBlock(KernelWeightCache):
     """(Shifted-)window self-attention block on [B, T, H, W, C]:
     LN -> (shift) -> W-MSA -> LN -> MLP (the reference encoder block).
 

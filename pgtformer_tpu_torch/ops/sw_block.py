@@ -20,7 +20,9 @@ The kernel (``csrc/sw_block.cu``) is laid out by :func:`sw_plan`: a
 consumer warpgroup owns a slab of 48 token rows (a 64-row ``wgmma`` tile);
 a CTA holds ``nw`` slabs and a producer warpgroup that feeds the weights by
 TMA through a ring of 64 x 64 tiles in shared memory, so a tile leaves L2
-once per ``nw`` slabs.  The four GEMMs run on ``wgmma`` with accumulators in
+once per ``nw`` slabs (the ``SW_RPS`` knob sets ``nw`` for K1 and K3, the
+counterpart of the TPU kernels' rows per stripe; a slab's arithmetic does
+not depend on its CTA, so every ``nw`` gives the same output).  The four GEMMs run on ``wgmma`` with accumulators in
 registers; the window attention runs on ``mma.sync`` a head group at a
 time.  What bounds it is measured in PERF.md.
 
@@ -55,11 +57,12 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from pgtformer_tpu_torch import knobs
 from pgtformer_tpu_torch.ops import _build
 from pgtformer_tpu_torch.ops.autograd import KernelFunction
 from pgtformer_tpu_torch.ops.window import (
@@ -256,28 +259,43 @@ def _carve(C: int, gw: int, nw: int, stages: int) -> Dict[str, int]:
                 off_lab=off_lab, off_bar=off_bar, smem=off_bar + 16 * stages + 1024)
 
 
+def _fits(C: int, gw: int, nw: int, pair: bool) -> Optional[int]:
+    """The deepest weight ring (4, 3 or 2 slots) beside `nw` slabs that fits
+    shared memory, or None."""
+    for stages in (4, 3, 2):
+        if _carve(C, gw, nw, stages)["smem"] <= SMEM_LIMIT - (PAIR_ARGS if pair else 0):
+            return stages
+    return None
+
+
 def sw_plan(C: int, heads: int, N: int, nwin: int, pair: bool = False) -> SWPlan:
-    """The kernels' plan for `nwin` windows of N tokens at width C: two slabs
-    per CTA where both fit beside the ring, else one (always one for the
-    pair kernel, whose persistent loop needs the registers); the deepest ring (up
-    to 4 slots) that fits.  The grid covers every slab; the slabs past the
-    input (in a ragged last CTA) run on zeros and write nothing."""
+    """The kernels' plan for `nwin` windows of N tokens at width C: the
+    ``SW_RPS`` knob's slabs per CTA, and where that is empty two slabs where
+    both fit beside the ring, else one (always one for the pair kernel,
+    whose persistent loop needs the registers); the deepest ring (up to 4
+    slots) that fits.  The grid covers every slab; the slabs past the input
+    (in a ragged last CTA) run on zeros and write nothing.  A knob value
+    that does not fit raises ValueError."""
     hd = C // heads if heads > 0 and C % heads == 0 else 0
     if C % 64 or C > 512 or not hd or hd % 16 or hd > 64 or N not in (16, 48) or nwin <= 0:
         raise NotImplementedError(f"sw_block kernel: C={C} heads={heads} N={N} windows={nwin}")
     gw = math.lcm(hd, TILE)
-    for nw in range(1 if pair else MAX_NW, 0, -1):
-        for stages in (4, 3, 2):
-            carve = _carve(C, gw, nw, stages)
-            if carve["smem"] <= SMEM_LIMIT - (PAIR_ARGS if pair else 0):
-                break
-        else:
-            continue
-        break
-    else:
+    fit = [n for n in range(1, 1 + (1 if pair else MAX_NW)) if _fits(C, gw, n, pair)]
+    if not fit:
         raise NotImplementedError(f"sw_block kernel: C={C} hd={hd} does not fit shared memory")
+    rps = knobs.get("SW_RPS")
+    if rps == "":
+        nw = fit[-1]
+    else:
+        nw = int(rps) if rps.strip().isdigit() else rps
+        if nw not in fit:
+            kernel = "sw_block_pair" if pair else "sw_block and sw_block_tokens"
+            raise ValueError(f"SW_RPS={rps!r} does not fit {kernel} at C={C} hd={hd}; "
+                             f"slabs per CTA that fit: {', '.join(map(str, fit))}")
+    stages = _fits(C, gw, nw, pair)
     nslab = -(-nwin * N // SLAB)
-    return SWPlan(nw=nw, stages=stages, gw=gw, grid=-(-nslab // nw), nslab=nslab, **carve)
+    return SWPlan(nw=nw, stages=stages, gw=gw, grid=-(-nslab // nw), nslab=nslab,
+                  **_carve(C, gw, nw, stages))
 
 
 _P = ctypes.c_void_p

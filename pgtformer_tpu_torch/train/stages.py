@@ -34,8 +34,10 @@ launches no kernel.  Without it the forwards run the module path, plain
 PyTorch, as JAX's XLA path.  The quantizer's K5 runs on the card under both
 (JAX keys it to the backend).  Under fp32 (``dtype=float32``, no autocast)
 the kernels take fp32 activations in their fp32 form.  The fused decoder
-tail (``FUSED_TAIL``) stays inference-only.  The stage II-IV teacher takes
-the trainer's plan; JAX builds it without ``use_pallas`` (XLA always).
+tail (``FUSED_TAIL``) stays inference-only.  The stage II-IV teacher runs
+the module path in every plan, as JAX builds it without ``use_pallas``: its
+codes are the CE labels, so they follow JAX's rounding (on the card its
+quantizer still launches K5).
 
 With a ``group`` of ranks (``parallel/group.py``; the JAX package's mesh,
 its ``shard_map`` and ``_pmean_if``) every rank builds the same trainer,
@@ -398,7 +400,7 @@ class PGTFormerTrainer(_Trainer):
         self.stage = stage
         self.code_only = stage == "II"
         self.model = PGTFormer(cfg, use_pallas=use_pallas)
-        self.teacher = TDCRQVAE3(cfg.vqvae, use_pallas=use_pallas)
+        self.teacher = TDCRQVAE3(cfg.vqvae)     # the module path, as in JAX
         self.disc = ((disc if disc is not None else VQGANDiscriminator()).set_group(self.group)
                      if self.hp.use_gan else None)
 

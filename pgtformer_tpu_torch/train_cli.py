@@ -34,10 +34,9 @@ experiment directory (``train/trainer.py``).
 
 Differences from the JAX package's CLI:
 
-  * Under ``--pallas`` the stage II-IV teacher runs the kernels too (the
-    JAX trainer builds its teacher without ``use_pallas``), and geometry
-    the kernels cannot take raises on the card instead of taking the
-    module path.
+  * Under ``--pallas`` geometry the kernels cannot take raises on the card
+    instead of taking the module path (the stage II-IV teacher runs the
+    module path in both CLIs).
   * ``--devices`` counts processes (one per card), not the devices of one
     controller, and defaults to 1 (the JAX CLI takes every device).
   * Resuming stage II–IV needs ``--teacher-ckpt``: the frozen teacher is no

@@ -90,14 +90,15 @@ def test_norm_bf16_matches_flax_bf16(name):
 
 def test_upsample_phase_kernels_round_once_from_fp32_taps():
     """`Upsample.kernel_weights` of a bf16 module: the JAX package's phase
-    kernels of the fp32 parameters, rounded once, bit for bit; the stock
-    forward still rounds the weight to bf16 at use, as a bf16-stored
-    weight did."""
+    kernels of the fp32 parameters, rounded once, bit for bit; without
+    `subpixel` (the VQGAN family's upsample) the forward still rounds the
+    weight to bf16 at use, as a bf16-stored weight did.  The subpixel plans
+    are held to JAX's in tests/test_torch_eval_plans.py."""
     rng = np.random.default_rng(13)
     C = 64
     k3 = (rng.normal(size=(3, 3, C, C)) / 24.0).astype(np.float32)     # HWIO
     b = (rng.normal(size=C) * 0.05).astype(np.float32)
-    up = tb.Upsample(C)
+    up = tb.Upsample(C, subpixel=False)
     up.load_state_dict({"conv.weight": t(k3).permute(3, 2, 0, 1), "conv.bias": t(b)})
     up = up.to(BF16)
     k2, bias = up.kernel_weights()

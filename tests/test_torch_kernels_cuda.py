@@ -583,6 +583,52 @@ def test_subpixel_up_conv3x3_kernel_edges_and_repeats(shape):
     assert torch.equal(again, out) and torch.equal(st2, st)    # no atomics
 
 
+@pytest.mark.parametrize("plan", ["dilated", "quad"])
+@pytest.mark.parametrize("shape", [(3, 16, 16, 512), (3, 32, 24, 128)])
+def test_upsample_plans_on_the_card(shape, plan):
+    """The stock Upsample under each SUBPIXEL plan on the card (cuDNN, no
+    K8 launch) against the module on the CPU (the phase convs, which the CPU
+    tests hold to JAX): fp32 forward and the gradients of the weight, the
+    bias and x within 1e-4 of each one's largest magnitude (cuDNN's fp32
+    conv algorithms sum in other orders); in bf16, within half a bf16 ulp
+    of the largest output of the CPU's bf16 module."""
+    dev = _card()
+    _exact_fp32()
+    from pgtformer_tpu_torch.nn.blocks import Upsample
+    C = shape[-1]
+    g = torch.Generator().manual_seed(14)
+    up = Upsample(C)
+    with torch.no_grad():
+        up.conv.weight.copy_(torch.randn(up.conv.weight.shape, generator=g) * (9 * C) ** -0.5)
+        up.conv.bias.copy_(0.1 * torch.randn((C,), generator=g))
+    x = torch.randn(shape, generator=g)
+    cot = torch.randn((shape[0], 2 * shape[1], 2 * shape[2], C), generator=g)
+    knobs.set_knob("SUBPIXEL", plan)
+    try:
+        res = {}
+        for device in ("cpu", dev):
+            m = Upsample(C).to(device)
+            m.load_state_dict(up.state_dict())
+            xg = x.to(device).detach().requires_grad_(True)
+            before = subpixel_up_conv3x3.launches
+            y = m(xg)
+            (y * cot.to(device)).sum().backward()
+            assert subpixel_up_conv3x3.launches == before
+            m16 = Upsample(C).to(device, torch.bfloat16)
+            m16.load_state_dict(up.state_dict())
+            with torch.no_grad():
+                y16 = m16(x.to(device, torch.bfloat16))
+            res[str(device)] = [a.detach().float().cpu() for a in
+                                (y, m.conv.weight.grad, m.conv.bias.grad, xg.grad, y16)]
+    finally:
+        knobs.reset("SUBPIXEL")
+    card, cpu = res[str(dev)], res["cpu"]
+    for a, b in zip(card[:4], cpu[:4]):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+    assert (card[4] - cpu[4]).abs().max() <= 2.0 ** -8 * cpu[4].abs().max()
+
+
 def test_fused_conv_kernels_refuse_instead_of_falling_back():
     dev = _card()
     bf = torch.bfloat16

@@ -80,3 +80,21 @@ def test_bench_encode_small():
     ok, missing = out["rows"]
     assert ok["codec"] == "mpeg4" and ok["fps"] > 0 and ok["kbits_per_frame"] > 0
     assert missing["codec"] == "libnotacodec" and "cannot open" in missing["error"]
+
+
+def test_bench_encode_out_writes_the_rows(monkeypatch, tmp_path, capsys):
+    """`--out` writes `bench`'s dict as JSON, as the JAX tool does; a codec
+    that cannot open (or every one, where the native library cannot be
+    built) is a row with its error."""
+    from pgtformer_tpu_torch import bench_encode
+    monkeypatch.setattr(bench_encode, "CASES", ("mpeg4", "libnotacodec"))
+    path = tmp_path / "rows.json"
+    assert bench_encode.main(["--frames", "2", "--size", "32", "--out", str(path)]) == 0
+    with open(path) as f:
+        out = json.load(f)
+    assert (out["frames"], out["size"], out["host_cores"]) == (2, 32, os.cpu_count())
+    assert [r["codec"] for r in out["rows"]] == ["mpeg4", "libnotacodec"]
+    assert "error" in out["rows"][1]
+    assert all("error" in r or (r["fps"] > 0 and r["kbits_per_frame"] > 0)
+               for r in out["rows"])
+    assert f"wrote {path}" in capsys.readouterr().out
