@@ -1045,6 +1045,7 @@ def phase_serving(smi: str = "", n_chunks: int = 5):
     from pgtformer_tpu_torch import knobs
     from pgtformer_tpu_torch.config import RELEASE_PGTFORMER
     from pgtformer_tpu_torch.pipeline import VideoRestorer
+    from pgtformer_tpu_torch.utils import profiling
 
     B = 8
     res = RELEASE_PGTFORMER.vqvae.ddconfig.resolution
@@ -1071,11 +1072,13 @@ def phase_serving(smi: str = "", n_chunks: int = 5):
     if not all(bool(f.item()) for f in finite) or len(finite) != n_chunks:
         raise SystemExit("serving step produced non-finite values")
     digest = _digest(outs)
+    prime = profiling.last("pgt.prime")
+    first = next(s for s in profiling.spans() if s.name == "pgt.call" and s.t0 >= prime.t1)
     log(f"[serve] RELEASE_PGTFORMER {res}x{res}, B={B}: {n_chunks} steps, launches "
         f"K1={counts['sw_block']} (22/step) K6 dense_mha_bnhd={counts['dense_mha_bnhd']} "
         f"(9/step), no other kernel; steady step_ms={step_ms:.2f} "
         f"frames_per_s={B * 1e3 / step_ms:.3f} peak_mem_GiB={peak / 2 ** 30:.2f} "
-        f"first_step_s={r._first_chunk_s:.2f} prime_s={r._prime_s:.2f} out_sha256={digest}; "
+        f"first_step_s={first.seconds:.2f} prime_s={prime.seconds:.2f} out_sha256={digest}; "
         f"plans SUBPIXEL={knobs.get('SUBPIXEL')} FUSE_TPATH={knobs.get('FUSE_TPATH')}; "
         f"card: {smi}")
     return dict(counts=counts, steps=n_chunks, step_ms=step_ms, restorer=r, frames=frames,

@@ -97,6 +97,7 @@ def main(argv=None) -> int:
     from pgtformer_tpu_torch.config import RELEASE_PGTFORMER
     from pgtformer_tpu_torch.convert import load_checkpoint, local_checkpoint
     from pgtformer_tpu_torch.pipeline import VideoRestorer
+    from pgtformer_tpu_torch.utils import profiling
 
     device = resolve_device(args.device)
     dtype = torch.float32 if args.fp32 else torch.bfloat16
@@ -144,9 +145,13 @@ def main(argv=None) -> int:
                                    frame_callback=frame_cb, codec=codec)
     io = (f"; reader {stats['reader']}, writer {stats['writer']}"
           if "writer" in stats else "")
+    # the start-up's parts, from the tracer's spans (utils/profiling.py)
+    parts = [(label, profiling.last(name)) for label, name in (
+        ("prime", "pgt.prime"), ("first call's sync", "pgt.first_chunk_sync"))]
+    split = ", ".join(f"{label} {s.seconds:.1f}s" for label, s in parts if s is not None)
     print(f"restored {stats['frames']} frames in {stats['seconds']:.1f}s "
           f"({stats['fps']:.2f} fps; steady {stats['steady_fps']:.2f} fps, "
-          f"startup {stats['startup_seconds']:.1f}s{io})")
+          f"startup {stats['startup_seconds']:.1f}s{': ' + split if split else ''}{io})")
     phases = stats.get("phases", {})
     if phases:
         print("phase totals: " + ", ".join(f"{k} {v['total_s']:.1f}s"

@@ -10,6 +10,7 @@ encoder / generator block indices.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
@@ -22,6 +23,8 @@ from pgtformer_tpu_torch.nn.blocks import conv_nhwc, init_weights, layer_norm
 from pgtformer_tpu_torch.nn.transformer import TransformerSALayer
 from pgtformer_tpu_torch.ops.image import adaptive_instance_normalization
 from pgtformer_tpu_torch.registry import ARCH_REGISTRY
+from pgtformer_tpu_torch.utils import profiling
+from pgtformer_tpu_torch.utils.profiling import span
 
 
 class FuseSftBlock2D(nn.Module):
@@ -58,7 +61,10 @@ class CodeFormer(nn.Module):
     `mha_layout` is the transformer's attention plan (nn/transformer.py).
     `use_pallas` is the transformer layers' plan (False by default): the
     JAX CodeFormer has no such switch and runs its attention on the XLA
-    path, which the module path ports; True runs K6 (or K2) on CUDA."""
+    path, which the module path ports; True runs K6 (or K2) on CUDA.
+    A forward is traced (utils/profiling.py) as the spans ``pgt.encode``,
+    ``pgt.transformer`` and ``pgt.decode``, inside a ``pgt.call`` of its own
+    where no span is open."""
 
     # encoder tap / generator fuse block indices (reference :278-280)
     FUSE_ENCODER_BLOCK = {"512": 2, "256": 5, "128": 8, "64": 11, "32": 14, "16": 18}
@@ -110,34 +116,44 @@ class CodeFormer(nn.Module):
 
     def forward(self, x: torch.Tensor, w: Optional[float] = None, detach_16: bool = True,
                 code_only: bool = False, adain: Optional[bool] = None):
-        w = self.w if w is None else w
-        adain = self.adain if adain is None else adain
         N = x.shape[0]
-        taps = tuple(self.FUSE_ENCODER_BLOCK[k] for k in self.connect_list)
-        lq_feat, tapped = self.encoder(x, taps=taps)
-        enc_feat_dict = {str(v.shape[-2]): v for v in tapped.values()}
+        call = (span("pgt.call", frames=N) if profiling.current() is None
+                else contextlib.nullcontext())
+        with call:
+            return self._forward(x, self.w if w is None else w, detach_16, code_only,
+                                 self.adain if adain is None else adain)
 
-        hh, ww, cc = lq_feat.shape[1:]
-        tokens = self.feat_emb(lq_feat.reshape(N, hh * ww, cc))
-        pos = self.position_emb[None].to(tokens.dtype)
-        for layer in self.ft_layers:
-            tokens = layer(tokens, query_pos=pos)
-        logits = self.idx_pred_layer(tokens)                 # [N, hw, codebook_size]
+    def _forward(self, x, w: float, detach_16: bool, code_only: bool, adain: bool):
+        N = x.shape[0]
+        with span("pgt.encode", frames=N):
+            taps = tuple(self.FUSE_ENCODER_BLOCK[k] for k in self.connect_list)
+            lq_feat, tapped = self.encoder(x, taps=taps)
+            enc_feat_dict = {str(v.shape[-2]): v for v in tapped.values()}
+        profiling.count("pgt.frames_encoded", N)
+
+        with span("pgt.transformer"):
+            hh, ww, cc = lq_feat.shape[1:]
+            tokens = self.feat_emb(lq_feat.reshape(N, hh * ww, cc))
+            pos = self.position_emb[None].to(tokens.dtype)
+            for layer in self.ft_layers:
+                tokens = layer(tokens, query_pos=pos)
+            logits = self.idx_pred_layer(tokens)                 # [N, hw, codebook_size]
+            top_idx = None if code_only else logits.argmax(dim=-1)
         if code_only:
             return logits, lq_feat
 
-        top_idx = logits.argmax(dim=-1)
-        quant_feat = self.quantize.get_codebook_feat(top_idx, (N, hh, ww, self.emb_dim))
-        quant_feat = quant_feat.to(lq_feat.dtype)
-        if detach_16:
-            quant_feat = quant_feat.detach()
-        if adain:
-            quant_feat = adaptive_instance_normalization(quant_feat, lq_feat)
+        with span("pgt.decode"):
+            quant_feat = self.quantize.get_codebook_feat(top_idx, (N, hh, ww, self.emb_dim))
+            quant_feat = quant_feat.to(lq_feat.dtype)
+            if detach_16:
+                quant_feat = quant_feat.detach()
+            if adain:
+                quant_feat = adaptive_instance_normalization(quant_feat, lq_feat)
 
-        hooks = None
-        if w > 0:
-            def hook_for(k):
-                return lambda h: self.fuse_convs_dict[k](enc_feat_dict[k].detach(), h, w=w)
-            hooks = {self.FUSE_GENERATOR_BLOCK[k]: hook_for(k) for k in self.connect_list}
-        out = self.generator(quant_feat, hooks=hooks)
+            hooks = None
+            if w > 0:
+                def hook_for(k):
+                    return lambda h: self.fuse_convs_dict[k](enc_feat_dict[k].detach(), h, w=w)
+                hooks = {self.FUSE_GENERATOR_BLOCK[k]: hook_for(k) for k in self.connect_list}
+            out = self.generator(quant_feat, hooks=hooks)
         return out, logits, lq_feat

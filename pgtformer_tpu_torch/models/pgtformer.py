@@ -27,6 +27,8 @@ from pgtformer_tpu_torch.nn.transformer import TransformerSALayer
 from pgtformer_tpu_torch.ops.image import (
     adaptive_instance_normalization, imagenet_normalize)
 from pgtformer_tpu_torch.registry import ARCH_REGISTRY
+from pgtformer_tpu_torch.utils import profiling
+from pgtformer_tpu_torch.utils.profiling import span
 
 
 class FuseSftBlock(KernelWeightCache):
@@ -216,29 +218,36 @@ class PGTFormer(nn.Module):
         """Per-window compute over gathered per-frame features (each
         [B, T, ...]): encoder attention levels, transformer, code
         prediction, fuse-SFT decode.  Returns (out, logits, lq_feat); `out`
-        is [B*T, H, W, 3], or [B, H, W, 3] with `middle_only`."""
+        is [B*T, H, W, 3], or [B, H, W, 3] with `middle_only`.  Traced as
+        the spans ``pgt.attn``, ``pgt.transformer`` and ``pgt.decode``
+        (utils/profiling.py)."""
         cfg = self.cfg
         w = cfg.w if w is None else w
         adain = cfg.adain if adain is None else adain
         B, T, th, tw, pc = pos.shape
         query_pos = pos.reshape(B, T * th * tw, pc)
 
-        z, head_feats = self.encoder(trunk_h, return_multi_res_feats=True, stage="head")
-        feats = list(trunk_feats) + list(head_feats)
-        enc_feat_dict = {f: feats[self.fuse_encoder_indices[f]] for f in cfg.connect_list}
-        lq_feat = conv_nhwc(self.quant_conv, z)
+        with span("pgt.attn"):
+            z, head_feats = self.encoder(trunk_h, return_multi_res_feats=True, stage="head")
+            feats = list(trunk_feats) + list(head_feats)
+            enc_feat_dict = {f: feats[self.fuse_encoder_indices[f]] for f in cfg.connect_list}
+            lq_feat = conv_nhwc(self.quant_conv, z)
 
-        tokens = self.feat_emb(lq_feat)
-        tokens = tokens.reshape(B, T * th * tw, tokens.shape[-1])
-        for layer in self.ft_layers:
-            tokens = layer(tokens, query_pos=query_pos)
-        logits = self.idx_pred_layer(tokens).reshape(
-            B * T, th, tw, self.quantizer_depth, self.codebook_size)
+        with span("pgt.transformer"):
+            tokens = self.feat_emb(lq_feat)
+            tokens = tokens.reshape(B, T * th * tw, tokens.shape[-1])
+            for layer in self.ft_layers:
+                tokens = layer(tokens, query_pos=query_pos)
+            logits = self.idx_pred_layer(tokens).reshape(
+                B * T, th, tw, self.quantizer_depth, self.codebook_size)
+            codes = None if code_only else logits.argmax(dim=-1)
         if code_only:
             return logits, lq_feat
-        codes = logits.argmax(dim=-1)
-        out = self._decode_restored(codes, lq_feat, enc_feat_dict, w=w, detach_16=detach_16,
-                                    adain=adain, middle_only=middle_only)
+        with span("pgt.decode"):
+            out = self._decode_restored(codes, lq_feat, enc_feat_dict, w=w,
+                                        detach_16=detach_16, adain=adain,
+                                        middle_only=middle_only)
+        profiling.count("pgt.windows_restored", B)
         return out, logits, lq_feat
 
     def _decode_restored(self, codes, lq_feat, enc_feat_dict: Dict[str, torch.Tensor],

@@ -38,7 +38,8 @@ from pgtformer_tpu_torch.convert import load_into
 from pgtformer_tpu_torch.io.video import VideoReader, VideoWriter
 from pgtformer_tpu_torch.models.pgtformer import PGTFormer
 from pgtformer_tpu_torch.parallel import group as P
-from pgtformer_tpu_torch.utils.profiling import StageTimer
+from pgtformer_tpu_torch.utils import profiling
+from pgtformer_tpu_torch.utils.profiling import StageTimer, span
 
 # what rank 0 asks the other ranks to do next (VideoRestorer with a group)
 _OP_STOP, _OP_PRIME, _OP_CHUNK = 0, 1, 2
@@ -197,41 +198,52 @@ class VideoRestorer:
         self._win_idx = torch.stack(
             [torch.arange(i, i + T) for i in range(windows)]).to(self.device)
         self._tail: Optional[List[torch.Tensor]] = None
-        self._first_chunk_s: Optional[float] = None
-        self._prime_s = 0.0
+        self._first_call = True         # the next restore_chunk is its clip's first
 
     def _upload(self, frames_u8) -> torch.Tensor:
-        t = torch.as_tensor(np.ascontiguousarray(frames_u8))
-        if self.device.type == "cuda":
-            # from pinned memory the copy is enqueued without waiting for
-            # the steps ahead of it on the stream
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+        with span("pgt.upload"):
+            t = torch.as_tensor(np.ascontiguousarray(frames_u8))
+            if self.device.type == "cuda":
+                # from pinned memory the copy is enqueued without waiting
+                # for the steps ahead of it on the stream
+                return t.pin_memory().to(self.device, non_blocking=True)
+            return t.to(self.device)
 
     def _encode(self, frames_u8: torch.Tensor) -> List[torch.Tensor]:
         """[F, H, W, 3] uint8 -> flat per-frame features [pos, trunk, *skips]."""
-        x = frames_u8.to(torch.float32) / 255.0
-        pos, trunk, skips = self.model.encode_frames(x)
+        F = frames_u8.shape[0]
+        with span("pgt.encode", frames=F):
+            x = frames_u8.to(torch.float32) / 255.0
+            pos, trunk, skips = self.model.encode_frames(x)
+        profiling.count("pgt.frames_encoded", F)
         return [pos, trunk, *skips]
 
     def _restore(self, windows: List[torch.Tensor]):
         pos, trunk, *skips = windows
         out, _, _ = self.model.restore_windows(pos, trunk, tuple(skips), w=self.w,
                                                middle_only=True)
-        out = out.to(torch.float32).clamp(0.0, 1.0)
-        if self.readback == "yuv420":
-            return _rgb_to_yuv420(out)
-        return (out * 255.0).round().to(torch.uint8)
+        with span("pgt.output"):
+            out = out.to(torch.float32).clamp(0.0, 1.0)
+            if self.readback == "yuv420":
+                return _rgb_to_yuv420(out)
+            return (out * 255.0).round().to(torch.uint8)
+
+    def _sync(self) -> None:
+        torch.cuda.synchronize(self.device)
+        profiling.count("pgt.syncs")
 
     @torch.inference_mode()
     def _step(self, new_u8: torch.Tensor):
         if self.group is not None:
             return self._sharded_step(new_u8)
         ff_new = self._encode(new_u8)
-        ff = [torch.cat([a, b]) for a, b in zip(self._tail, ff_new)]
-        out = self._restore([a[self._win_idx] for a in ff])
-        r = self.radius
-        self._tail = [a[-2 * r:] if r else a[:0] for a in ff]
+        with span("pgt.gather"):
+            ff = [torch.cat([a, b]) for a, b in zip(self._tail, ff_new)]
+            windows = [a[self._win_idx] for a in ff]
+            r = self.radius
+            tail = [a[-2 * r:] if r else a[:0] for a in ff]
+        out = self._restore(windows)
+        self._tail = tail
         return out
 
     def _sharded_step(self, new_local: torch.Tensor):
@@ -276,8 +288,7 @@ class VideoRestorer:
 
     def reset(self):
         self._tail = None
-        self._first_chunk_s = None
-        self._prime_s = 0.0
+        self._first_call = True
 
     def _order(self, op: int = _OP_STOP, shape=(0, 0)) -> Tuple[int, int, int]:
         """Rank 0 sends (op, H, W) to every rank; every rank returns what
@@ -306,17 +317,16 @@ class VideoRestorer:
             self._prime(first_frame)
 
     def _prime(self, first_frame, H: int = 0, W: int = 0):
-        t0 = time.perf_counter()
-        if self.group is not None:
-            f = (torch.as_tensor(np.ascontiguousarray(first_frame)) if self.group.rank == 0
-                 else torch.empty((H, W, 3), dtype=torch.uint8))
-            first_frame = P.broadcast_(f, self.group).numpy()
-        with torch.inference_mode():
-            self._tail = self._encode(self._upload(
-                np.repeat(first_frame[None], 2 * self.radius, axis=0)))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self._prime_s = time.perf_counter() - t0
+        with span("pgt.prime"):
+            if self.group is not None:
+                f = (torch.as_tensor(np.ascontiguousarray(first_frame)) if self.group.rank == 0
+                     else torch.empty((H, W, 3), dtype=torch.uint8))
+                first_frame = P.broadcast_(f, self.group).numpy()
+            with torch.inference_mode():
+                self._tail = self._encode(self._upload(
+                    np.repeat(first_frame[None], 2 * self.radius, axis=0)))
+            if self.device.type == "cuda":
+                self._sync()
 
     def _chunk(self, new_frames_u8, H: int = 0, W: int = 0):
         """One chunk: this process's step, or (with a group) rank 0's frames
@@ -337,21 +347,22 @@ class VideoRestorer:
         the device (or YUV420 planes), returned without waiting for the
         device.  `prime()` must come first.  With a group, rank 0's output is
         the whole chunk's, gathered (on the host under gloo); the other ranks
-        pass None and get None."""
+        pass None and get None.  The first call after :meth:`reset` runs to
+        its end on the device (``pgt.first_chunk_sync``)."""
         if self._tail is None:
             raise RuntimeError("call prime() before restore_chunk()")
-        H = W = 0
-        if self.group is not None:
-            H, W = self._expect(_OP_CHUNK, new_frames_u8.shape[1:3]
-                                if new_frames_u8 is not None else (0, 0))
-        if self._first_chunk_s is None:
-            t0 = time.perf_counter()
+        with span("pgt.call", frames=self.batch, root=True):
+            H = W = 0
+            if self.group is not None:
+                H, W = self._expect(_OP_CHUNK, new_frames_u8.shape[1:3]
+                                    if new_frames_u8 is not None else (0, 0))
             out = self._chunk(new_frames_u8, H, W)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self._first_chunk_s = time.perf_counter() - t0
+            if self._first_call:
+                self._first_call = False
+                if self.device.type == "cuda":
+                    with span("pgt.first_chunk_sync"):
+                        self._sync()
             return out
-        return self._chunk(new_frames_u8, H, W)
 
     def _follow(self) -> dict:
         """A rank other than 0 in :meth:`restore_video`: prime and restore
@@ -399,11 +410,12 @@ class VideoRestorer:
         if yuv and frame_callback is not None:
             raise ValueError("frame_callback needs readback='rgb' "
                              "(yuv420 mode never materializes RGB on host)")
-        timer = StageTimer()
+        timer = StageTimer("pgt.video.")
         reader = _open_reader(input_path, self.io_backend)
         B, r = self.batch, self.radius
         n_frames = 0
         pending: List = []     # (readback future, n_valid)
+        startup = [0.0]        # the pgt.prime span and the clip's first pgt.call
         self.reset()
         t0 = time.perf_counter()
 
@@ -506,9 +518,11 @@ class VideoRestorer:
 
         def flush(chunk, n_valid):
             # the first chunk's dispatch runs to its end (startup)
-            name = "dispatch" if self._first_chunk_s is not None else "first_chunk"
-            with timer.stage(name):
+            first = self._first_call
+            with timer.stage("first_chunk" if first else "dispatch"):
                 out = self.restore_chunk(np.stack(chunk))
+            if first:
+                startup[0] += profiling.last("pgt.call").seconds
             pending.append(submit(out, n_valid))
             if len(pending) > self.inflight:
                 drain(pending.pop(0))
@@ -538,6 +552,7 @@ class VideoRestorer:
                     break
                 if last_frame is None:
                     self.prime(frame)
+                    startup[0] += profiling.last("pgt.prime").seconds
                     last_frame = frame
                     continue
                 last_frame = frame
@@ -580,7 +595,7 @@ class VideoRestorer:
         timer.totals["encode(threaded)"] = encode_s[0]
         timer.counts["encode(threaded)"] = 1
         dt = time.perf_counter() - t0
-        startup = (self._first_chunk_s or 0.0) + self._prime_s
+        startup = startup[0]
         steady = dt - startup if startup else dt
         steady_frames = max(n_frames - B, 0)
         return {"frames": n_frames, "seconds": dt,

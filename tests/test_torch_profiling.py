@@ -19,11 +19,14 @@ pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 def test_stage_timer_matches_jax(monkeypatch):
     """The same stages on the same (stubbed) clock give the same summary;
-    `sync` runs inside the stage."""
+    `sync` runs inside the stage.  (The port's stages are spans, on
+    `perf_counter_ns`: the same clock in ns.)"""
     summaries = []
     for mod in (T, J):
         clock = itertools.count(0.0, 0.25)
+        clock_ns = itertools.count(0, 250_000_000)
         monkeypatch.setattr(time, "perf_counter", lambda: next(clock))
+        monkeypatch.setattr(time, "perf_counter_ns", lambda: next(clock_ns))
         synced = []
         timer = mod.StageTimer()
         for name in ("decode", "dispatch", "decode", "readback"):
@@ -43,17 +46,6 @@ def test_codebook_stats_match_jax(n_embed, kind):
              "sparse": rng.integers(0, n_embed // 4, (2, 16, 16)),
              "single": np.full((3, 4), 5)}[kind]
     assert T.codebook_stats(codes, n_embed) == J.codebook_stats(codes, n_embed)
-
-
-def test_device_trace_writes_a_trace_on_the_cpu(tmp_path):
-    import torch
-    with T.device_trace(str(tmp_path)):
-        torch.ones(64, 64) @ torch.ones(64, 64)
-    traces = [f for f in os.listdir(tmp_path) if f.endswith(".pt.trace.json")]
-    assert len(traces) == 1
-    with open(tmp_path / traces[0]) as f:
-        events = json.load(f)["traceEvents"]
-    assert any("mm" in e.get("name", "") for e in events)
 
 
 def test_profile_stages_small_on_the_cpu(monkeypatch):
