@@ -27,6 +27,16 @@ Phases, in order; any failure exits non-zero:
     ragged shapes, a strided batch; the stock Upsample under both SUBPIXEL
     plans against it, and their fp32 gradients against each other), each
     beside the stock PyTorch sequence for the same function;
+ 3b. the GroupNorm (+ SiLU) kernel pair (`phase_group_norm`, replaces no TPU
+    kernel) at every GroupNorm shape of one serving call of each benchmark
+    cell (a RELEASE_PGTFORMER step of 8 frames, a CodeFormer forward on 16
+    faces), on the call's own activations: launches a call, bf16 ulps from
+    its plain version (GN_ULP_SHARE within 1 ulp), two launches bit-equal,
+    kernel, plain and `group_norm` + `silu` device times (CUDA graphs, so the
+    host's launch cost is left out; the kernel's host-paced loop beside it)
+    against the bound (x read once and y written once), summed over the
+    call (GN_BOUND_SHARE); then
+    the PGTFormer step's frames against the same step on the plain norms;
  4. the serving step at full width: RELEASE_PGTFORMER (512x512, B=8
     windows) with seeded random weights through VideoRestorer, prime + 5
     chunks, under the default plans (SUBPIXEL=dilated: each upsample one
@@ -298,6 +308,34 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int, replays: int = 3) -> float:
+    """Device ms a call of fn: `iters` calls captured in one CUDA graph,
+    replayed, so the host's launch cost is left out."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * iters)
+    del graph
+    return ms
 
 
 def bound_ms(flops: float, nbytes: float, peak_flops: float = H100_BF16_FLOPS):
@@ -4072,6 +4110,179 @@ def phase_train_plans(smi: str, serve: dict):
     return dict(runs=runs, bench=bench, profile_code=prof, degradations=deg, checkpoint=ckpt)
 
 
+GN_ULP_SHARE = 0.999     # share of elements within 1 bf16 ulp of the plain version
+GN_BOUND_SHARE = 0.5     # the kernel's bound over its time, summed over a call's shapes
+
+
+def _bf16_ulps(a, b):
+    """|a - b| elementwise in bf16 ulps (distance of the ordered bit patterns)."""
+    import torch
+
+    def ordered(t):
+        bits = t.contiguous().view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return (ordered(a) - ordered(b)).abs()
+
+
+class _GnRecorder:
+    """Wraps the GroupNorm modules' kernel entry: counts the calls of each
+    (shape, batch stride, silu) and keeps the first call's input."""
+
+    def __init__(self):
+        import pgtformer_tpu_torch.nn.blocks as blocks
+        self.blocks, self.fn = blocks, blocks.group_norm_silu
+        self.calls, self.inputs, self.on = {}, {}, False
+        blocks.group_norm_silu = self
+
+    def __call__(self, x, weight, bias, silu=False, groups=32, eps=1e-6):
+        if self.on:
+            key = (tuple(x.shape), x.stride(0), bool(silu))
+            self.calls[key] = self.calls.get(key, 0) + 1
+            self.inputs.setdefault(key, x)
+        return self.fn(x, weight, bias, silu, groups, eps)
+
+    def remove(self):
+        self.blocks.group_norm_silu = self.fn
+
+
+def _gn_cell(tag: str, run_call, iters: int, smi: str) -> dict:
+    """The GroupNorm kernel at every shape of one call of `run_call`:
+    launches a call, bf16 ulps from its plain version, two launches
+    bit-equal, kernel / plain / library time against the bound (x read once
+    and y written once in bf16), each summed over the call's shapes."""
+    import torch
+    import torch.nn.functional as F
+    from pgtformer_tpu_torch.ops.group_norm import group_norm_silu, group_norm_silu_plain
+    rec = _GnRecorder()
+    try:
+        run_call()                      # warm-up: builds and caches
+        torch.cuda.synchronize()
+        n0 = group_norm_silu.launches
+        rec.on = True
+        run_call()
+        torch.cuda.synchronize()
+        rec.on = False
+        per_call = group_norm_silu.launches - n0
+    finally:
+        rec.remove()
+    if per_call != sum(rec.calls.values()):
+        raise SystemExit(f"[gn:{tag}] {per_call} launches, {sum(rec.calls.values())} calls seen")
+    g = torch.Generator(device="cuda").manual_seed(7)
+    rows, tot = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, elements=0,
+                         within_1ulp=0, max_ulp=0)
+    by_elements = sorted(rec.calls.items(), key=lambda kv: -kv[1] * math.prod(kv[0][0]))
+    for (shape, stride0, silu), n in by_elements:
+        x = rec.inputs[(shape, stride0, silu)]
+        C = shape[-1]
+        w = 1.0 + 0.3 * torch.randn(C, device="cuda", generator=g)
+        b = 0.2 * torch.randn(C, device="cuda", generator=g)
+        out = group_norm_silu(x, w, b, silu)
+        again = group_norm_silu(x, w, b, silu)
+        ref = group_norm_silu_plain(x, w, b, silu)
+        torch.cuda.synchronize()
+        if not torch.equal(out.view(torch.int16), again.view(torch.int16)):
+            raise SystemExit(f"[gn:{tag}] {shape}: two launches differ")
+        if not bool(torch.isfinite(out).all()):
+            raise SystemExit(f"[gn:{tag}] {shape}: non-finite output")
+        ulps = _bf16_ulps(out, ref)
+        within = int((ulps <= 1).sum())
+        ms = graph_ms(lambda: group_norm_silu(x, w, b, silu), iters)
+        loop = time_ms(lambda: group_norm_silu(x, w, b, silu), iters)
+        plain = graph_ms(lambda: group_norm_silu_plain(x, w, b, silu), iters)
+        w16, b16 = w.to(torch.bfloat16), b.to(torch.bfloat16)
+        xc = x.permute(0, 3, 1, 2)
+        lib = graph_ms(lambda: (F.silu(F.group_norm(xc, 32, w16, b16, 1e-6)) if silu
+                                else F.group_norm(xc, 32, w16, b16, 1e-6)), iters)
+        bms, _ = bound_ms(0.0, 2 * 2 * x.numel())
+        row = dict(shape=list(shape), batch_stride=stride0, silu=silu, per_call=n, ms=ms,
+                   host_loop_ms=loop, plain_ms=plain, library_ms=lib, bound_ms=bms,
+                   bound_share=bms / ms, max_ulp=int(ulps.max()),
+                   share_within_1ulp=within / x.numel())
+        rows.append(row)
+        log(f"[gn:{tag}] x{list(shape)} stride0={stride0} silu={int(silu)} x{n} a call: "
+            f"max_ulp={row['max_ulp']} within_1ulp={row['share_within_1ulp']:.6f} repeat "
+            f"bit-equal; kernel_ms={ms:.4f} (host loop {loop:.4f}) plain_ms={plain:.4f} lib_ms="
+            f"{lib:.4f} bound_ms={bms:.4f} = {bms / ms:.3f} of the bound")
+        for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("bound_ms", bms)):
+            tot[k] += n * v
+        tot["elements"] += n * x.numel()
+        tot["within_1ulp"] += n * within
+        tot["max_ulp"] = max(tot["max_ulp"], row["max_ulp"])
+        del out, again, ref, ulps
+    rec.inputs.clear()
+    share = tot["within_1ulp"] / tot["elements"]
+    bound_share = tot["bound_ms"] / tot["ms"]
+    log(f"[gn:{tag}] a call: {per_call} launches of group_norm_silu ({2 * per_call} kernels), "
+        f"{len(rows)} shapes, {tot['elements'] / 1e9:.3f} G elements; kernel "
+        f"{tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, group_norm+silu "
+        f"{tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms = {bound_share:.3f} of "
+        f"the bound; within 1 ulp {share:.6f}, max {tot['max_ulp']} ulp; card: {smi}")
+    if share < GN_ULP_SHARE or bound_share < GN_BOUND_SHARE:
+        raise SystemExit(f"[gn:{tag}] within 1 ulp {share:.6f} (need {GN_ULP_SHARE}), "
+                         f"bound share {bound_share:.3f} (need {GN_BOUND_SHARE})")
+    return dict(per_call=per_call, rows=rows, share_within_1ulp=share,
+                bound_share=bound_share, **tot)
+
+
+def phase_group_norm(smi: str, iters: int = 10) -> dict:
+    """The GroupNorm (+ SiLU) kernel at every shape of one serving call of
+    the benchmark's two cells: a PGTFormer step (RELEASE_PGTFORMER 512x512,
+    8 new frames, seeded weights) and a CodeFormer forward on 16 faces
+    (w=0.5, AdaIN), both bf16; then the PGTFormer step's frames with the
+    kernel against the same step on the plain norms."""
+    import numpy as np
+    import torch
+    import pgtformer_tpu_torch.nn.blocks as blocks
+    from pgtformer_tpu_torch.config import RELEASE_PGTFORMER
+    from pgtformer_tpu_torch.models.codeformer import CodeFormer
+    from pgtformer_tpu_torch.ops.group_norm import group_norm_silu_plain
+    from pgtformer_tpu_torch.pipeline import VideoRestorer
+    B = 8
+    res = RELEASE_PGTFORMER.vqvae.ddconfig.resolution
+    r = VideoRestorer(None, RELEASE_PGTFORMER, w=1.0, batch_windows=B,
+                      dtype=torch.bfloat16, device="cuda", seed=0)
+    frames = np.random.default_rng(0).integers(0, 256, (3 * B + 1, res, res, 3), dtype=np.uint8)
+    r.reset()
+    r.prime(frames[0])
+    step = iter(range(3))
+
+    def video_call():
+        i = next(step)
+        return r.restore_chunk(frames[1 + i * B:1 + (i + 1) * B])
+
+    out = {"pgt-video-b8": _gn_cell("video", video_call, iters, smi)}
+    # the same clip on the plain norms: the restored frames' difference
+    kernel, served = blocks.group_norm_silu, []
+    try:
+        for fn in (kernel, group_norm_silu_plain):
+            blocks.group_norm_silu = fn
+            r.reset()
+            r.prime(frames[0])
+            served.append([r.restore_chunk(frames[1 + i * B:1 + (i + 1) * B]).cpu()
+                           for i in range(2)])
+    finally:
+        blocks.group_norm_silu = kernel
+    d = torch.cat([(a.int() - b.int()).abs().flatten() for a, b in zip(*served)]).float()
+    out["video_frames_lsb"] = dict(mean=float(d.mean()), max=int(d.max()))
+    log(f"[gn:video] 16 restored frames, kernel norms against plain norms: mean "
+        f"{d.mean().item():.4f} LSB, max {int(d.max())} LSB")
+    del r
+    torch.cuda.empty_cache()
+    cf = CodeFormer(use_pallas=True, generator=torch.Generator().manual_seed(3))
+    cf = cf.to("cuda", torch.bfloat16).eval()
+    faces = torch.rand((16, 512, 512, 3), device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(4)).mul(2).sub(1).to(torch.bfloat16)
+
+    def faces_call():
+        with torch.inference_mode():
+            return cf(faces, w=0.5, adain=True)[0]
+
+    out["codeformer-faces-b16"] = _gn_cell("faces", faces_call, iters, smi)
+    del cf
+    torch.cuda.empty_cache()
+    return out
+
+
 def _mix(rows, key):
     """Per-launch average over the serving step's mix of shapes."""
     return sum(r[key] * r["per_step"] for r in rows) / sum(r["per_step"] for r in rows)
@@ -4107,6 +4318,8 @@ def main() -> int:
     k5 = phase_k5(iters=10)
     k7_rows, k7_err = phase_k7(iters=5)
     k8_rows, k8_err = phase_k8(iters=5)
+    group_norm = phase_group_norm(smi)
+    torch.cuda.empty_cache()
     grads = phase_train_grad()
     serve = phase_serving(smi)
     variants = phase_variants(serve, smi)
@@ -4202,6 +4415,7 @@ def main() -> int:
             k["fp32"] = fp32["mha"][name]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "default_step_ms": step,
+                      "group_norm_silu": group_norm,
                       "train": {stage: {key: v for key, v in r.items() if key != "per_step"}
                                 for stage, r in train.items()},
                       "train_loop": train_loop,

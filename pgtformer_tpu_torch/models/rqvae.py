@@ -17,7 +17,6 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from pgtformer_tpu_torch.config import DDConfig, VQVAEConfig
 from pgtformer_tpu_torch.models.quantizer import RQBottleneck
@@ -81,7 +80,7 @@ class Encoder2D(nn.Module):
                     h = level.attn[j](h)
             if i != self.cfg.num_resolutions - 1:
                 h = level.downsample(h)
-        return conv_nhwc(self.conv_out, F.silu(self.norm_out(self.mid(h))))
+        return conv_nhwc(self.conv_out, self.norm_out(self.mid(h), silu=True))
 
 
 class Decoder2D(nn.Module):
@@ -121,7 +120,7 @@ class Decoder2D(nn.Module):
                     h = level.attn[j](h)
             if i != 0:
                 h = level.upsample(h)
-        return conv_nhwc(self.conv_out, F.silu(self.norm_out(h)))
+        return conv_nhwc(self.conv_out, self.norm_out(h, silu=True))
 
 
 class _RQAutoEncoder(nn.Module):

@@ -14,7 +14,6 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from pgtformer_tpu_torch import knobs
 from pgtformer_tpu_torch.config import DDConfig, VQVAEConfig
@@ -107,7 +106,7 @@ class Encoder3D(nn.Module):
         feats.extend(head)
         h = self.mid.block_2(self.mid.attn_1(self.mid.block_1(h)))
         B, T, Hc, Wc, Cc = h.shape
-        h = conv_nhwc(self.conv_out, F.silu(self.norm_out(h.reshape(B * T, Hc, Wc, Cc))))
+        h = conv_nhwc(self.conv_out, self.norm_out(h.reshape(B * T, Hc, Wc, Cc), silu=True))
         if return_multi_res_feats:
             return h, feats
         return h
@@ -246,7 +245,7 @@ class Decoder3D(nn.Module):
                 curr_res *= 2
 
         B5, T5, Hc, Wc, Cc = h.shape
-        h = F.silu(self.norm_out(h.reshape(B5 * T5, Hc, Wc, Cc)))
+        h = self.norm_out(h.reshape(B5 * T5, Hc, Wc, Cc), silu=True)
         return conv_nhwc(self.conv_out, h)
 
 

@@ -180,7 +180,8 @@ class _SeqTower(nn.Module):
     forward(x, taps, hooks): `taps` collects the activations after the
     listed block indices (returned with the output when asked for);
     `hooks` maps a block index to fn(x) -> x applied after that block
-    (CodeFormer's fuse-after-block-i)."""
+    (CodeFormer's fuse-after-block-i).  A ``norm`` followed by ``silu`` runs
+    as one call of the norm, unless the norm's output is tapped or hooked."""
 
     def __init__(self, specs: Tuple[Tuple[str, Any], ...], in_channels: int):
         super().__init__()
@@ -212,8 +213,16 @@ class _SeqTower(nn.Module):
 
     def forward(self, x: torch.Tensor, taps: Tuple[int, ...] = (), hooks=None):
         tapped = {}
+        silu_done = False
         for i, ((kind, _), block) in enumerate(zip(self.specs, self.blocks)):
-            x = conv_nhwc(block, x) if kind == "conv" else block(x)
+            if silu_done:           # the norm before this SiLU applied it
+                silu_done = False
+            elif (kind == "norm" and self.specs[i + 1:i + 2] == (("silu", None),)
+                  and i not in taps and not (hooks and i in hooks)):
+                x = block(x, silu=True)
+                silu_done = True
+            else:
+                x = conv_nhwc(block, x) if kind == "conv" else block(x)
             if i in taps:
                 tapped[i] = x
             if hooks and i in hooks:

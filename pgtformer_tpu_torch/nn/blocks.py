@@ -31,7 +31,9 @@ import torch.nn.functional as F
 
 from pgtformer_tpu_torch import knobs
 from pgtformer_tpu_torch.ops.fused_conv import (
-    ResBlockKernelWeights, conv_kernel_hwio, gn_affine_from_stats, phase_kernels_2x2)
+    ResBlockKernelWeights, conv_kernel_hwio, phase_kernels_2x2)
+from pgtformer_tpu_torch.ops.group_norm import (
+    affine_round, group_norm_silu, group_norm_silu_plain, sum_sumsq)
 from pgtformer_tpu_torch.ops.sw_block import (
     SWBlockWeights, sw_block, sw_block_pair, sw_block_tokens)
 from pgtformer_tpu_torch.ops.window import (
@@ -56,42 +58,25 @@ class KeepFloat32(nn.Module):
         return super()._apply(keep, *args, **kwargs)
 
 
-def affine_round(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """x * a + b in fp32 (a, b fp32, broadcast over x), rounded once to
-    `dtype` (default x's): one pass over x, no fp32 copy of it (autograd
-    takes no out=, so a recorded gradient gets the fp32 result cast)."""
-    dtype = dtype or x.dtype
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, a, b)):
-        return torch.addcmul(b, x, a).to(dtype)
-    return torch.addcmul(b, x, a, out=torch.empty_like(x, dtype=dtype))
-
-
-def _sum_sumsq(x: torch.Tensor, dim) -> Tuple[torch.Tensor, torch.Tensor]:
-    """fp32 sum and sum of squares of x over `dim`, reduced from x's dtype
-    (on a card without an fp32 copy of x)."""
-    s1 = x.sum(dim, dtype=torch.float32)
-    s2 = torch.linalg.vector_norm(x, 2, dim, dtype=torch.float32).square()
-    return s1, s2
-
-
 class GroupNorm(KeepFloat32, nn.GroupNorm):
-    """GroupNorm(32, eps=1e-6, affine) on [N, H, W, C].  The affine stays
-    fp32; a lower-precision input is normalized and scaled in fp32 from fp32
-    statistics (variance E[x^2] - mean^2, as flax) and rounded once."""
+    """GroupNorm(32, eps=1e-6, affine) on [N, H, W, C], followed by SiLU when
+    called with ``silu=True``.  The affine stays fp32; a lower-precision
+    input is normalized and scaled in fp32 from fp32 statistics (variance
+    E[x^2] - mean^2, as flax) and rounded once.  A bf16 input on the card
+    with no gradient recorded runs the kernel pair of
+    ``ops/group_norm.py``; every other input runs plain PyTorch."""
 
     def __init__(self, num_channels: int):
         super().__init__(32, num_channels, eps=1e-6)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, silu: bool = False) -> torch.Tensor:
         if x.dtype == self.weight.dtype:
             y = F.group_norm(x.permute(0, 3, 1, 2), self.num_groups, self.weight,
-                             self.bias, self.eps)
-            return y.permute(0, 2, 3, 1)
-        stats = torch.stack(_sum_sumsq(x, (1, 2)), dim=1)
-        a, b = gn_affine_from_stats(stats, self.weight, self.bias, x.shape[1] * x.shape[2],
-                                    self.num_groups, self.eps)
-        return affine_round(x, a[:, None, None], b[:, None, None])
+                             self.bias, self.eps).permute(0, 2, 3, 1)
+            return F.silu(y) if silu else y
+        norm = (group_norm_silu_plain if torch.is_grad_enabled() or x.dtype != torch.bfloat16
+                else group_norm_silu)
+        return norm(x, self.weight, self.bias, silu, self.num_groups, self.eps)
 
 
 class LayerNorm(KeepFloat32, nn.LayerNorm):
@@ -102,7 +87,7 @@ class LayerNorm(KeepFloat32, nn.LayerNorm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.dtype == self.weight.dtype:
             return super().forward(x)
-        s1, s2 = _sum_sumsq(x, (-1,))
+        s1, s2 = sum_sumsq(x, (-1,))
         mean, msq = s1[..., None] / x.shape[-1], s2[..., None] / x.shape[-1]
         rstd = torch.rsqrt((msq - mean * mean).clamp_min(0.0) + self.eps)
         xn = torch.addcmul(-mean * rstd, x, rstd)
@@ -174,8 +159,8 @@ class ResnetBlock(KernelWeightCache):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, lead = _fold(x)
-        h = conv_nhwc(self.conv1, F.silu(self.norm1(x)))
-        h = conv_nhwc(self.conv2, F.silu(self.norm2(h)))
+        h = conv_nhwc(self.conv1, self.norm1(x, silu=True))
+        h = conv_nhwc(self.conv2, self.norm2(h, silu=True))
         if self.shortcut_name:
             x = conv_nhwc(getattr(self, self.shortcut_name), x)
         return _unfold(x + h, lead)
