@@ -37,6 +37,11 @@ Phases, in order; any failure exits non-zero:
     against the bound (x read once and y written once), summed over the
     call (GN_BOUND_SHARE); then
     the PGTFormer step's frames against the same step on the plain norms;
+ 3c. the convs' bias kernel (`phase_bias_add`, replaces no TPU kernel) at
+    every biased conv of the same two calls, on their own outputs: one
+    launch a conv, bit-equal to ATen's broadcast bias add (and residual
+    add), kernel, plain and ATen device times against the bound (h read and
+    written, the residual read), summed over the call (BIAS_BOUND_SHARE);
  4. the serving step at full width: RELEASE_PGTFORMER (512x512, B=8
     windows) with seeded random weights through VideoRestorer, prime + 5
     chunks, under the default plans (SUBPIXEL=dilated: each upsample one
@@ -4112,6 +4117,7 @@ def phase_train_plans(smi: str, serve: dict):
 
 GN_ULP_SHARE = 0.999     # share of elements within 1 bf16 ulp of the plain version
 GN_BOUND_SHARE = 0.5     # the kernel's bound over its time, summed over a call's shapes
+BIAS_BOUND_SHARE = 0.5   # the bias kernel's bound over its time, summed over a call's shapes
 
 
 def _bf16_ulps(a, b):
@@ -4283,6 +4289,144 @@ def phase_group_norm(smi: str, iters: int = 10) -> dict:
     return out
 
 
+class _BiasRecorder:
+    """Wraps the convs' bias entry in nn/blocks.py: counts the calls of each
+    (shape, batch stride, bias dtype, residual batch stride) and keeps a
+    copy of the first call's operands (h before the kernel writes it)."""
+
+    def __init__(self):
+        import pgtformer_tpu_torch.nn.blocks as blocks
+        self.blocks, self.fn = blocks, blocks.bias_add
+        self.calls, self.inputs, self.on = {}, {}, False
+        blocks.bias_add = self
+
+    def __call__(self, h, bias, residual=None):
+        if self.on:
+            key = (tuple(h.shape), h.stride(0), str(bias.dtype).split(".")[-1],
+                   None if residual is None else residual.stride(0))
+            self.calls[key] = self.calls.get(key, 0) + 1
+            if key not in self.inputs:
+                self.inputs[key] = (h.clone(), residual)
+        return self.fn(h, bias, residual)
+
+    def remove(self):
+        self.blocks.bias_add = self.fn
+
+
+def _bias_cell(tag: str, run_call, iters: int, smi: str) -> dict:
+    """The bias kernel at every biased conv's output of one call of
+    `run_call`, on the call's own activations and a seeded bias: launches a
+    call (one a conv), bit-equal to ATen's broadcast `add_` on the
+    channels-last output (then `residual + h` where the call folds one),
+    kernel / plain / ATen device times (CUDA graphs) against the bound (h
+    read and written, the residual read, in bf16), summed over the call."""
+    import torch
+    from pgtformer_tpu_torch.ops.bias_add import bias_add, bias_add_plain
+    rec = _BiasRecorder()
+    try:
+        run_call()                      # warm-up: builds and caches
+        torch.cuda.synchronize()
+        n0 = bias_add.launches
+        rec.on = True
+        run_call()
+        torch.cuda.synchronize()
+        rec.on = False
+        per_call = bias_add.launches - n0
+    finally:
+        rec.remove()
+    if per_call != sum(rec.calls.values()):
+        raise SystemExit(f"[bias:{tag}] {per_call} launches, {sum(rec.calls.values())} calls seen")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    rows = []
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, elements=0, bytes=0,
+               host_loop_ms=0.0)
+    for key, n in sorted(rec.calls.items(), key=lambda kv: -kv[1] * math.prod(kv[0][0])):
+        shape, _, bdt, _ = key
+        h0, r = rec.inputs[key]
+        C = shape[-1]
+        b = torch.randn(C, device="cuda", generator=g).to(getattr(torch, bdt))
+        b16 = b.to(torch.bfloat16)
+
+        def aten(h):                    # what ATen runs for a biased conv (+ residual)
+            h.permute(0, 3, 1, 2).add_(b16.reshape(1, C, 1, 1))
+            return h if r is None else r + h
+        got = bias_add(h0.clone(), b, r)
+        again = bias_add(h0.clone(), b, r)
+        want = aten(h0.clone())
+        torch.cuda.synchronize()
+        if not (torch.equal(got.view(torch.int16), want.view(torch.int16))
+                and torch.equal(got.view(torch.int16), again.view(torch.int16))):
+            raise SystemExit(f"[bias:{tag}] {shape}: not bit-equal to ATen's chain")
+        work = h0.clone()
+        ms = graph_ms(lambda: bias_add(work, b, r), iters)
+        loop = time_ms(lambda: bias_add(work, b, r), iters)
+        plain = graph_ms(lambda: bias_add_plain(work, b, r), iters)
+        lib = graph_ms(lambda: aten(work), iters)
+        nbytes = (4 if r is None else 6) * h0.numel()
+        bms, _ = bound_ms(0.0, nbytes)
+        row = dict(shape=list(shape), bias=bdt, residual=r is not None, per_call=n, ms=ms,
+                   host_loop_ms=loop, plain_ms=plain, library_ms=lib, bound_ms=bms,
+                   bound_share=bms / ms, tb_per_s=nbytes / ms / 1e9)
+        rows.append(row)
+        log(f"[bias:{tag}] h{list(shape)} bias {bdt} residual={int(r is not None)} x{n} a call: "
+            f"bit-equal to ATen, repeat bit-equal; kernel_ms={ms:.4f} (host loop {loop:.4f}) "
+            f"plain_ms={plain:.4f} aten_ms={lib:.4f} bound_ms={bms:.4f} = {bms / ms:.3f} of the "
+            f"bound, {row['tb_per_s']:.2f} TB/s")
+        for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("bound_ms", bms),
+                     ("host_loop_ms", loop)):
+            tot[k] += n * v
+        tot["elements"] += n * h0.numel()
+        tot["bytes"] += n * nbytes
+        del got, again, want, work
+    rec.inputs.clear()
+    bound_share = tot["bound_ms"] / tot["ms"]
+    log(f"[bias:{tag}] a call: {per_call} launches of bias_add, {len(rows)} shapes, "
+        f"{tot['elements'] / 1e9:.3f} G elements, {tot['bytes'] / 1e9:.2f} GB; kernel "
+        f"{tot['ms']:.3f} ms ({tot['bytes'] / tot['ms'] / 1e9:.2f} TB/s; host loop "
+        f"{tot['host_loop_ms']:.3f}), plain {tot['plain_ms']:.3f} ms, ATen {tot['library_ms']:.3f} "
+        f"ms, bound {tot['bound_ms']:.3f} ms = {bound_share:.3f} of the bound; card: {smi}")
+    if bound_share < BIAS_BOUND_SHARE:
+        raise SystemExit(f"[bias:{tag}] bound share {bound_share:.3f} (need {BIAS_BOUND_SHARE})")
+    return dict(per_call=per_call, rows=rows, bound_share=bound_share, **tot)
+
+
+def phase_bias_add(smi: str, iters: int = 10) -> dict:
+    """The convs' bias kernel at every biased conv of one serving call of
+    the benchmark's two cells (the calls of `phase_group_norm`): a
+    PGTFormer step (RELEASE_PGTFORMER 512x512, 8 new frames, seeded
+    weights) and a CodeFormer forward on 16 faces (w=0.5, AdaIN), bf16."""
+    import numpy as np
+    import torch
+    from pgtformer_tpu_torch.config import RELEASE_PGTFORMER
+    from pgtformer_tpu_torch.models.codeformer import CodeFormer
+    from pgtformer_tpu_torch.pipeline import VideoRestorer
+    B = 8
+    res = RELEASE_PGTFORMER.vqvae.ddconfig.resolution
+    r = VideoRestorer(None, RELEASE_PGTFORMER, w=1.0, batch_windows=B,
+                      dtype=torch.bfloat16, device="cuda", seed=0)
+    frames = np.random.default_rng(0).integers(0, 256, (2 * B + 1, res, res, 3), dtype=np.uint8)
+    r.reset()
+    r.prime(frames[0])
+    step = iter(range(2))
+    out = {"pgt-video-b8": _bias_cell(
+        "video", lambda: r.restore_chunk(frames[1 + next(step) * B:][:B]), iters, smi)}
+    del r
+    torch.cuda.empty_cache()
+    cf = CodeFormer(use_pallas=True, generator=torch.Generator().manual_seed(3))
+    cf = cf.to("cuda", torch.bfloat16).eval()
+    faces = torch.rand((16, 512, 512, 3), device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(4)).mul(2).sub(1).to(torch.bfloat16)
+
+    def faces_call():
+        with torch.inference_mode():
+            return cf(faces, w=0.5, adain=True)[0]
+
+    out["codeformer-faces-b16"] = _bias_cell("faces", faces_call, iters, smi)
+    del cf
+    torch.cuda.empty_cache()
+    return out
+
+
 def _mix(rows, key):
     """Per-launch average over the serving step's mix of shapes."""
     return sum(r[key] * r["per_step"] for r in rows) / sum(r["per_step"] for r in rows)
@@ -4319,6 +4463,8 @@ def main() -> int:
     k7_rows, k7_err = phase_k7(iters=5)
     k8_rows, k8_err = phase_k8(iters=5)
     group_norm = phase_group_norm(smi)
+    torch.cuda.empty_cache()
+    bias = phase_bias_add(smi)
     torch.cuda.empty_cache()
     grads = phase_train_grad()
     serve = phase_serving(smi)
@@ -4416,6 +4562,7 @@ def main() -> int:
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "default_step_ms": step,
                       "group_norm_silu": group_norm,
+                      "bias_add": bias,
                       "train": {stage: {key: v for key, v in r.items() if key != "per_step"}
                                 for stage, r in train.items()},
                       "train_loop": train_loop,

@@ -168,7 +168,7 @@ class AttnBlock2D(nn.Module):
         attn = torch.matmul(q.float(), k.float().transpose(1, 2)).mul_(C ** -0.5)
         attn = torch.softmax(attn, dim=-1).to(x.dtype)
         out = torch.matmul(attn, v).reshape(B, H, W, C)
-        return x + conv_nhwc(self.proj_out, out)
+        return conv_nhwc(self.proj_out, out, residual=x)
 
 
 class _SeqTower(nn.Module):

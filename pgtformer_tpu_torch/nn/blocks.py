@@ -30,6 +30,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from pgtformer_tpu_torch import knobs
+from pgtformer_tpu_torch.ops.bias_add import bias_add
 from pgtformer_tpu_torch.ops.fused_conv import (
     ResBlockKernelWeights, conv_kernel_hwio, phase_kernels_2x2)
 from pgtformer_tpu_torch.ops.group_norm import (
@@ -41,9 +42,41 @@ from pgtformer_tpu_torch.ops.window import (
     window_partition, window_reverse)
 
 
-def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """Apply an NCHW conv module to [N, H, W, C]."""
-    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+def bias_apart(x: torch.Tensor) -> bool:
+    """Whether a biased conv on x runs cuDNN without its bias and adds the
+    bias through ``ops/bias_add.py``: a bf16 CUDA tensor with no gradient
+    recorded.  Everything else keeps the module's own call."""
+    return x.dtype == torch.bfloat16 and x.is_cuda and not torch.is_grad_enabled()
+
+
+def conv_to_nhwc(conv: nn.Conv2d, xc: torch.Tensor,
+                 residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The conv module applied to an NCHW tensor, as [N, H, W, C]; with
+    `residual` (of the output's shape) added after it.  Where
+    :func:`bias_apart`, the conv runs without its bias and one pass adds
+    the bias and the residual over its output, rounded where ATen's bias
+    add and ``residual + y`` round; a conv with forward hooks keeps its
+    module call, so that they run."""
+    if (conv.bias is not None and bias_apart(xc)
+            and not (conv._forward_hooks or conv._forward_pre_hooks)):
+        return _conv_then_bias(conv, xc, residual)
+    y = conv(xc).permute(0, 2, 3, 1)
+    return y if residual is None else residual + y
+
+
+def _conv_then_bias(conv: nn.Conv2d, xc: torch.Tensor,
+                    residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The conv's product on an NCHW tensor without its bias, as [N, H, W,
+    C], then the bias (and `residual`) added in place by one pass."""
+    y = conv._conv_forward(xc, conv.weight.to(xc.dtype), None).permute(0, 2, 3, 1)
+    return bias_add(y, conv.bias, residual)
+
+
+def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor,
+              residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Apply an NCHW conv module to [N, H, W, C], then add `residual`
+    where given (:func:`conv_to_nhwc`)."""
+    return conv_to_nhwc(conv, x.permute(0, 3, 1, 2), residual)
 
 
 class KeepFloat32(nn.Module):
@@ -159,11 +192,10 @@ class ResnetBlock(KernelWeightCache):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, lead = _fold(x)
-        h = conv_nhwc(self.conv1, self.norm1(x, silu=True))
-        h = conv_nhwc(self.conv2, self.norm2(h, silu=True))
+        h = self.norm2(conv_nhwc(self.conv1, self.norm1(x, silu=True)), silu=True)
         if self.shortcut_name:
             x = conv_nhwc(getattr(self, self.shortcut_name), x)
-        return _unfold(x + h, lead)
+        return _unfold(conv_nhwc(self.conv2, h, residual=x), lead)
 
     def kernel_weights(self) -> ResBlockKernelWeights:
         """This block's weights for ``ops/fused_conv.py:fused_resblock``
@@ -184,6 +216,8 @@ class Float32Conv2d(KeepFloat32, nn.Conv2d):
     its input's dtype, with the parameters rounded to it at use."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.bias is not None and bias_apart(x):
+            return _conv_then_bias(self, x).permute(0, 3, 1, 2)
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
@@ -212,6 +246,12 @@ def subpixel_kernel(w3: torch.Tensor, plan: str) -> torch.Tensor:
     return phase_kernels_2x2(w3.permute(2, 3, 1, 0)).permute(0, 1, 5, 4, 2, 3)
 
 
+def add_bias(y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """y [N, H, W, C] + bias [C] of y's dtype: where :func:`bias_apart`, in
+    place over y (a conv's fresh output) through ``ops/bias_add.py``."""
+    return bias_add(y, bias) if bias_apart(y) else y + bias
+
+
 def subpixel_up_conv(x: torch.Tensor, k: torch.Tensor, bias: torch.Tensor,
                      plan: str) -> torch.Tensor:
     """conv3x3(nearest_up2(x)) of x [N, H, W, C] on the source grid by the
@@ -221,9 +261,10 @@ def subpixel_up_conv(x: torch.Tensor, k: torch.Tensor, bias: torch.Tensor,
     ``quad``, four 2x2 convs with the asymmetric pads, interleaved."""
     xc = x.permute(0, 3, 1, 2)
     if plan == "dilated":
-        return F.conv_transpose2d(xc, k, stride=2, padding=1).permute(0, 2, 3, 1) + bias
+        return add_bias(F.conv_transpose2d(xc, k, stride=2, padding=1).permute(0, 2, 3, 1), bias)
     N, H, W, C = x.shape
-    phases = [F.conv2d(F.pad(xc, (1 - b, b, 1 - a, a)), k[a, b]).permute(0, 2, 3, 1) + bias
+    phases = [add_bias(F.conv2d(F.pad(xc, (1 - b, b, 1 - a, a)), k[a, b]).permute(0, 2, 3, 1),
+                       bias)
               for a in (0, 1) for b in (0, 1)]
     y = torch.stack(phases).reshape(2, 2, N, H, W, C).permute(2, 3, 0, 4, 1, 5)
     return y.reshape(N, 2 * H, 2 * W, C)
@@ -304,10 +345,8 @@ class Downsample(nn.Module):
         x, lead = _fold(x)
         y = x.permute(0, 3, 1, 2)
         if self.with_conv:
-            y = self.conv(F.pad(y, (0, 1, 0, 1)))
-        else:
-            y = F.avg_pool2d(y, 2, 2)
-        return _unfold(y.permute(0, 2, 3, 1), lead)
+            return _unfold(conv_to_nhwc(self.conv, F.pad(y, (0, 1, 0, 1))), lead)
+        return _unfold(F.avg_pool2d(y, 2, 2).permute(0, 2, 3, 1), lead)
 
 
 class Mlp(nn.Module):

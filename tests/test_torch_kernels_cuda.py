@@ -1317,3 +1317,163 @@ def test_group_norm_module_takes_the_kernel_only_without_gradient():
     yf = m.float()(x.detach().float(), silu=True)
     assert group_norm_silu.launches == n0 + 2 and yg.requires_grad and yf.dtype == torch.float32
     assert float((_ulps(y, yg.detach()) <= 1).float().mean()) >= 0.999
+
+
+# every biased conv's output [N, H, W, C] in one serving call of each
+# benchmark cell (pgt-video-b8, codeformer-faces-b16; PERF.md §6),
+# then the video's four `dilated` upsamples' outputs
+BIAS_VIDEO = [(24, 256, 256, 128), (24, 128, 128, 256), (24, 32, 32, 256), (24, 64, 64, 256),
+              (24, 128, 128, 32), (24, 32, 32, 32), (24, 64, 64, 32), (24, 32, 32, 512),
+              (8, 128, 128, 128), (8, 256, 256, 128), (8, 512, 512, 3), (8, 256, 256, 32),
+              (8, 32, 32, 512), (8, 256, 256, 64), (8, 512, 512, 64)]
+BIAS_FACES = [(16, 128, 128, 128), (16, 256, 256, 128), (16, 512, 512, 128), (16, 64, 64, 128),
+              (16, 128, 128, 256), (16, 16, 16, 256), (16, 32, 32, 256), (16, 64, 64, 256),
+              (16, 512, 512, 3), (16, 16, 16, 512), (16, 32, 32, 512), (16, 256, 256, 64),
+              (16, 512, 512, 64)]
+BIAS_UPSAMPLE = [(24, 128, 128, 256), (8, 256, 256, 128), (24, 64, 64, 128), (24, 32, 32, 256)]
+
+
+def _conv_case(shape, seed, dev, cin=32):
+    """A bf16 3x3 conv module with cin inputs and an input x [N, H, W, cin]
+    (a channels-last view, as the port hands convs their input)."""
+    N, H, W, C = shape
+    g = torch.Generator().manual_seed(seed)
+    conv = torch.nn.Conv2d(cin, C, 3, padding=1)
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=g) * 0.1)
+        conv.bias.copy_(torch.randn(C, generator=g))
+    x = torch.randn((N, H, W, cin), generator=g).to(dev, torch.bfloat16)
+    return conv.to(dev, torch.bfloat16), x
+
+
+def _bits(a, b):
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int16),
+                                              b.contiguous().view(torch.int16))
+
+
+@pytest.mark.parametrize("residual", ["none", "dense", "middle_frame"])
+@pytest.mark.parametrize("shape", [pytest.param(s, id=f"video{i}") for i, s in enumerate(BIAS_VIDEO)]
+                         + [pytest.param(s, id=f"faces{i}") for i, s in enumerate(BIAS_FACES)])
+def test_conv_bias_kernel_bit_equal_to_aten(shape, residual):
+    """conv_nhwc on the card's bf16 path (cuDNN without the bias, then
+    bias_add) against ATen's conv2d with its bias, and that plus a residual
+    (dense, or the middle frame of a clip: a batch stride of 3 samples)."""
+    dev = _card()
+    from pgtformer_tpu_torch.nn.blocks import conv_nhwc
+    from pgtformer_tpu_torch.ops.bias_add import bias_add
+    conv, x = _conv_case(shape, sum(shape), dev)
+    r = None
+    if residual != "none":
+        g = torch.Generator().manual_seed(len(residual))
+        N, H, W, C = shape
+        clip = torch.randn((N, 3, H, W, C) if residual == "middle_frame" else (N, 1, H, W, C),
+                           generator=g).to(dev, torch.bfloat16)
+        r = clip[:, clip.shape[1] // 2]
+        assert (residual == "middle_frame") != r.is_contiguous()
+    n0 = bias_add.launches
+    with torch.no_grad():
+        got = conv_nhwc(conv, x, residual=r)
+        want = F.conv2d(x.permute(0, 3, 1, 2), conv.weight, conv.bias, padding=1).permute(0, 2, 3, 1)
+        if r is not None:
+            want = r + want
+    assert bias_add.launches == n0 + 1
+    assert _bits(got, want)
+
+
+@pytest.mark.parametrize("shape", BIAS_UPSAMPLE)
+def test_dilated_upsample_bias_bit_equal_to_aten(shape):
+    """The `dilated` upsample's transposed conv, its bias added by the
+    kernel in place, against ATen's out-of-place `+ bias`; one launch."""
+    dev = _card()
+    from pgtformer_tpu_torch.nn.blocks import subpixel_kernel, subpixel_up_conv
+    from pgtformer_tpu_torch.ops.bias_add import bias_add
+    N, H, W, C = shape
+    g = torch.Generator().manual_seed(C + H)
+    w3 = torch.randn((C, C, 3, 3), generator=g) * 0.05
+    k = subpixel_kernel(w3, "dilated").to(dev, torch.bfloat16).contiguous()
+    b = torch.randn(C, generator=g).to(dev, torch.bfloat16)
+    x = torch.randn(shape, generator=g).to(dev, torch.bfloat16)
+    n0 = bias_add.launches
+    with torch.no_grad():
+        got = subpixel_up_conv(x, k, b, "dilated")
+        want = F.conv_transpose2d(x.permute(0, 3, 1, 2), k, stride=2, padding=1
+                                  ).permute(0, 2, 3, 1) + b
+    assert bias_add.launches == n0 + 1 and _bits(got, want)
+
+
+def test_bias_modules_take_the_kernel_only_on_the_bf16_path():
+    """bf16 with no gradient recorded: one launch per biased conv (nn.Conv2d
+    through conv_nhwc, the fp32-weight conv, Downsample, a ResnetBlock's
+    three convs with its residual folded), each bit-equal to the module
+    call; under a recorded gradient, in fp32 and without a bias: none."""
+    dev = _card()
+    from pgtformer_tpu_torch.nn.blocks import (
+        Downsample, Float32Conv2d, ResnetBlock, conv_nhwc, init_weights)
+    from pgtformer_tpu_torch.ops.bias_add import bias_add
+    g = torch.Generator().manual_seed(5)
+    conv, x = _conv_case((2, 12, 10, 64), 6, dev)
+    f32 = Float32Conv2d(32, 64, 3, padding=1)
+    with torch.no_grad():
+        f32.weight.copy_(torch.randn(f32.weight.shape, generator=g) * 0.1)
+        f32.bias.copy_(torch.randn(64, generator=g))
+    f32 = f32.to(dev, torch.bfloat16)
+    assert f32.bias.dtype == torch.float32
+    down = Downsample(32).to(dev, torch.bfloat16)
+    blk = init_weights(ResnetBlock(32, 64), g).to(dev, torch.bfloat16)
+    with torch.no_grad():
+        for p in blk.parameters():
+            if p.dim() == 1:
+                p.add_(torch.randn(p.shape, generator=g).to(p) * 0.5)
+    xc = x.permute(0, 3, 1, 2)
+    n0 = bias_add.launches
+    with torch.no_grad():
+        got = [conv_nhwc(conv, x), f32(xc), down(x), blk(x)]
+    assert bias_add.launches == n0 + 6
+    with torch.no_grad():
+        want = [F.conv2d(xc, conv.weight, conv.bias, padding=1).permute(0, 2, 3, 1),
+                F.conv2d(xc, f32.weight.to(torch.bfloat16), f32.bias.to(torch.bfloat16),
+                         padding=1),
+                down.conv(F.pad(xc, (0, 1, 0, 1))).permute(0, 2, 3, 1)]
+        h = F.conv2d(blk.norm1(x, silu=True).permute(0, 3, 1, 2), blk.conv1.weight,
+                     blk.conv1.bias, padding=1).permute(0, 2, 3, 1)
+        h = F.conv2d(blk.norm2(h, silu=True).permute(0, 3, 1, 2), blk.conv2.weight,
+                     blk.conv2.bias, padding=1).permute(0, 2, 3, 1)
+        want.append(F.conv2d(xc, blk.nin_shortcut.weight, blk.nin_shortcut.bias
+                             ).permute(0, 2, 3, 1) + h)
+    for a, b in zip(got, want):
+        assert _bits(a, b)
+    n0 = bias_add.launches
+    yg = conv_nhwc(conv, x.clone().requires_grad_())
+    with torch.no_grad():
+        yf = conv_nhwc(conv.float(), x.float())
+        nb = torch.nn.Conv2d(32, 64, 1, bias=False).to(dev, torch.bfloat16)
+        conv_nhwc(nb, x)
+    assert bias_add.launches == n0 and yg.requires_grad and yf.dtype == torch.float32
+
+
+def test_bias_add_kernel_edges_and_refusals():
+    """Ragged sizes, C not a multiple of 8, an fp32 bias, h whose samples
+    are not dense (copied first); refusals instead of a fallback."""
+    dev = _card()
+    from pgtformer_tpu_torch.ops.bias_add import bias_add, bias_add_plain
+    g = torch.Generator().manual_seed(9)
+    for shape in [(3, 5, 7, 8), (2, 1, 1, 24), (1, 3, 3, 3 * 8), (5, 9, 8, 3), (2, 4, 6, 4096)]:
+        h = torch.randn(shape, generator=g).to(dev, torch.bfloat16)
+        r = torch.randn(shape, generator=g).to(dev, torch.bfloat16)
+        for bias in (torch.randn(shape[-1], generator=g).to(dev, torch.bfloat16),
+                     torch.randn(shape[-1], generator=g).to(dev)):
+            for res in (None, r):
+                want = bias_add_plain(h.clone(), bias, res)
+                assert _bits(bias_add(h.clone(), bias, res), want), (shape, bias.dtype)
+    nchw = torch.randn((2, 16, 6, 5), generator=g).to(dev, torch.bfloat16)
+    h = nchw.permute(0, 2, 3, 1)          # samples not dense: copied, then added
+    b = torch.randn(16, generator=g).to(dev, torch.bfloat16)
+    assert _bits(bias_add(h, b), h + b) and torch.equal(h, nchw.permute(0, 2, 3, 1))
+    with pytest.raises(NotImplementedError):
+        bias_add(torch.zeros((2, 3, 3, 5), device=dev, dtype=torch.bfloat16),
+                 torch.zeros(5, device=dev))     # H*W*C not a multiple of 8
+    with pytest.raises(NotImplementedError):
+        bias_add(torch.zeros((2, 4, 4, 8), device=dev), torch.zeros(8, device=dev))
+    with pytest.raises(NotImplementedError):
+        bias_add(torch.zeros((2, 4, 4, 8), device=dev, dtype=torch.bfloat16),
+                 torch.zeros(8, device=dev, dtype=torch.float16))
