@@ -9,7 +9,7 @@ Phases, in order; any failure exits non-zero:
  1. the card's name and power limit, torch/CUDA versions, TF32 off;
  2. build the hand-written kernels from pgtformer_tpu_torch/csrc/ with nvcc
     (one process per source, in parallel) and print ptxas register/smem use
-    (K7's and K8's registers and spilled bytes summed up);
+    (K1/K3/K4's, K7's and K8's registers and spilled bytes summed up);
  3. each kernel's wrapper against its plain PyTorch version on the card at
     the shapes its path gives it, with its time, the plain version's time,
     the bound from shapes and, where one PyTorch call computes the same
@@ -407,7 +407,7 @@ def phase_build():
         for line in rep.splitlines():
             if any(k in line for k in ("Compiling entry", "registers", "spill", "smem", "C75")):
                 log(f"[build:{name}] {line.strip()}")
-    for name in ("fused_conv", "subpixel_up"):
+    for name in ("fused_conv", "subpixel_up", "sw_block"):
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", reports[name])]
         spill = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores", reports[name]))
         log(f"[build:{name}] {len(regs)} kernels, at most {max(regs)} registers, "

@@ -18,13 +18,16 @@ Three entry points of ``csrc/sw_block.cu``, one device function:
 On an H100 the block is compute-bound on paper (12*C^2 FLOP per token).
 The kernel (``csrc/sw_block.cu``) is laid out by :func:`sw_plan`: a
 consumer warpgroup owns a slab of 48 token rows (a 64-row ``wgmma`` tile);
-a CTA holds ``nw`` slabs and a producer warpgroup that feeds the weights by
-TMA through a ring of 64 x 64 tiles in shared memory, so a tile leaves L2
-once per ``nw`` slabs (the ``SW_RPS`` knob sets ``nw`` for K1 and K3, the
-counterpart of the TPU kernels' rows per stripe; a slab's arithmetic does
-not depend on its CTA, so every ``nw`` gives the same output).  The four GEMMs run on ``wgmma`` with accumulators in
-registers; the window attention runs on ``mma.sync`` a head group at a
-time.  What bounds it is measured in PERF.md.
+a persistent CTA (one per SM) walks groups of ``nw`` slabs, and a producer
+warpgroup feeds the weights by TMA through a ring of boxes of 64 x 64*nb
+in shared memory, so a box leaves L2 once per ``nw`` slabs (the ``SW_RPS``
+knob sets ``nw`` for K1 and K3, the counterpart of the TPU kernels' rows
+per stripe; a slab's arithmetic does not depend on its CTA, so every ``nw``
+gives the same output).  The four GEMMs run on ``wgmma`` m64n(64*nb) with
+accumulators in registers; the window attention runs on ``mma.sync`` a
+head group at a time; the fp32 residual waits in a scratch array the
+wrapper allocates (:func:`_scratch`).  What bounds it is measured in
+PERF.md.
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 PyTorch version (:func:`sw_block_plain`, :func:`sw_block_tokens_plain`,
@@ -205,23 +208,28 @@ def sw_block_pair_xla(x: torch.Tensor, w0: SWBlockWeights, w1: SWBlockWeights,
 
 SMEM_LIMIT = 232448      # dynamic shared memory one CTA may use on an H100
 SLAB = 48                # token rows per consumer warpgroup (csrc/sw_block.cu)
-TILE = 64                # weight tiles: 64 output rows x 64 input columns, bf16
+TILE = 64                # weight boxes: 64 input columns x 64*nb output rows, bf16
 TILE_BYTES = TILE * TILE * 2
 MAX_NW = 2               # slabs (consumer warpgroups) per CTA
 ROW_TABLE = 768          # per slab: 64 int region labels, 64 int64 row offsets
-PAIR_ARGS = 320          # static shared memory of the pair kernel (its arguments)
+STATIC_SMEM = 512        # static shared memory a kernel may add (the pair's arguments)
+X1_THREADS = SLAB // 16 * 32   # threads of a warpgroup that keep x1 values
+RING_BYTES = 96 * 1024   # the weight ring's largest size
+SMS = 132                # streaming multiprocessors of an H100 SXM, where no card says
 
 
 class SWPlan(NamedTuple):
     """Launch geometry of the sw_block kernels, in the order of the C
-    entries' ``plan`` array (the first eleven fields).  Offsets are bytes
+    entries' ``plan`` array (the first twelve fields).  Offsets are bytes
     from the 1024-aligned start of dynamic shared memory: the weight ring
-    (``stages`` tiles) at 0; slab s's A, B and X regions at ``off_slab + s *
-    slab_bytes + (0, off_b, off_x)``; per-slab row tables (region labels,
-    row offsets) at ``off_lab``; the ring's mbarriers at ``off_bar``."""
-    nw: int          # slabs per CTA
+    (``stages`` slots of ``nb`` 64 x 64 tiles) at 0; slab s's A, B and X
+    regions at ``off_slab + s * slab_bytes + (0, off_b, off_x)``; two row
+    tables per slab (region labels, row offsets; the current slab's and the
+    next one's) at ``off_lab``; the ring's mbarriers at ``off_bar``."""
+    nw: int          # slabs per CTA (consumer warpgroups)
     stages: int      # weight-ring slots
-    gw: int          # head-group width: lcm(hd, 64) columns of q, k and v
+    gw: int          # head-group width: lcm(hd, 64 * nb) columns of q, k and v
+    nb: int          # product width in 64-column tiles: wgmma m64n(64*nb)k16
     off_slab: int
     slab_bytes: int
     off_b: int
@@ -229,58 +237,75 @@ class SWPlan(NamedTuple):
     off_lab: int
     off_bar: int
     smem: int        # dynamic shared memory of a CTA, alignment slack included
-    grid: int        # CTAs
+    grid: int        # persistent CTAs: at most one per SM, at most one per group
     nslab: int       # slabs of SLAB rows over the input
 
     def as_array(self):
-        return (ctypes.c_int * 11)(*self[:11])
+        return (ctypes.c_int * 12)(*self[:12])
+
+    @property
+    def groups(self) -> int:
+        """Groups of nw slabs; CTA b takes groups b, b + grid, ..."""
+        return -(-self.nslab // self.nw)
 
 
 def _align(n: int, to: int = 1024) -> int:
     return (n + to - 1) // to * to
 
 
-def _carve(C: int, gw: int, nw: int, stages: int) -> Dict[str, int]:
-    """Shared-memory carve-up for nw slabs of width C and a ring of
-    `stages` tiles.  A and B buffers (LN and attention outputs, the GEMMs' A
-    operand): 64-column chunks of 48 rows x 128 bytes; the 16 padding rows
-    of a chunk's 64-row tile read the next 2 KB, which for the last chunk is
-    the next region of the slab (B after A, X after B).  X: the fp32
-    residual [48, C], earlier the q/k/v of one head group [3, 48, gw + 8]
-    bf16.  The output (bf16, or fp32 in the fp32 form) is stored from
-    registers and takes no shared memory."""
+def _carve(C: int, gw: int, nb: int, nw: int, stages: int) -> Dict[str, int]:
+    """Shared-memory carve-up for nw slabs of width C, products of nb tiles
+    and a ring of `stages` slots.  A and B buffers (LN and attention
+    outputs, the GEMMs' A operand): 64-column chunks of 48 rows x 128 bytes;
+    the 16 padding rows of a chunk's 64-row tile read the next 2 KB, which
+    for the last chunk is the next region of the slab (B after A, X after
+    B).  X: the q/k/v of one head group [3, 48, gw + 8] bf16.  The fp32
+    residual lives in the x1 scratch and the output (bf16, or fp32 in the
+    fp32 form) is stored from registers: neither takes shared memory."""
     a_bytes = _align(SLAB * C * 2)
-    x_bytes = _align(max(SLAB * C * 4, 3 * SLAB * (gw + 8) * 2))
+    x_bytes = _align(max(3 * SLAB * (gw + 8) * 2, 2048))
     slab = 2 * a_bytes + x_bytes
-    off_slab = stages * TILE_BYTES
+    off_slab = stages * nb * TILE_BYTES
     off_lab = off_slab + nw * slab
-    off_bar = off_lab + nw * ROW_TABLE
+    off_bar = off_lab + nw * 2 * ROW_TABLE
     return dict(off_slab=off_slab, slab_bytes=slab, off_b=a_bytes, off_x=2 * a_bytes,
                 off_lab=off_lab, off_bar=off_bar, smem=off_bar + 16 * stages + 1024)
 
 
-def _fits(C: int, gw: int, nw: int, pair: bool) -> Optional[int]:
-    """The deepest weight ring (4, 3 or 2 slots) beside `nw` slabs that fits
-    shared memory, or None."""
-    for stages in (4, 3, 2):
-        if _carve(C, gw, nw, stages)["smem"] <= SMEM_LIMIT - (PAIR_ARGS if pair else 0):
+def _fits(C: int, gw: int, nb: int, nw: int) -> Optional[int]:
+    """The deepest weight ring (at most RING_BYTES, at least 2 slots) beside
+    `nw` slabs that fits shared memory, or None."""
+    for stages in range(RING_BYTES // (nb * TILE_BYTES), 1, -1):
+        if _carve(C, gw, nb, nw, stages)["smem"] <= SMEM_LIMIT - STATIC_SMEM:
             return stages
     return None
 
 
-def sw_plan(C: int, heads: int, N: int, nwin: int, pair: bool = False) -> SWPlan:
-    """The kernels' plan for `nwin` windows of N tokens at width C: the
-    ``SW_RPS`` knob's slabs per CTA, and where that is empty two slabs where
-    both fit beside the ring, else one (always one for the pair kernel,
-    whose persistent loop needs the registers); the deepest ring (up to 4
-    slots) that fits.  The grid covers every slab; the slabs past the input
-    (in a ragged last CTA) run on zeros and write nothing.  A knob value
-    that does not fit raises ValueError."""
+def _widths(C: int, hd: int):
+    """Product widths nb (tiles of 64 columns) that the widths allow, the
+    widest first, each with its head-group width."""
+    for nb in (2, 1):
+        gw = math.lcm(hd, TILE * nb)
+        if C % gw == 0:
+            yield nb, gw
+
+
+def sw_plan(C: int, heads: int, N: int, nwin: int, pair: bool = False,
+            sms: int = SMS) -> SWPlan:
+    """The kernels' plan for `nwin` windows of N tokens at width C on a card
+    of `sms` SMs: the ``SW_RPS`` knob's slabs per CTA, and where that is
+    empty two slabs where both fit beside a ring, else one (always one for
+    the pair kernel); the widest products that fit beside them; the
+    deepest ring that fits (up to RING_BYTES).  The grid is persistent: one
+    CTA per SM, or one per group of slabs where there are fewer groups; the
+    slabs past the input (in a ragged last group) run on zeros and write
+    nothing.  A knob value that does not fit raises ValueError."""
     hd = C // heads if heads > 0 and C % heads == 0 else 0
     if C % 64 or C > 512 or not hd or hd % 16 or hd > 64 or N not in (16, 48) or nwin <= 0:
         raise NotImplementedError(f"sw_block kernel: C={C} heads={heads} N={N} windows={nwin}")
-    gw = math.lcm(hd, TILE)
-    fit = [n for n in range(1, 1 + (1 if pair else MAX_NW)) if _fits(C, gw, n, pair)]
+    shapes = {n: [(nb, gw) for nb, gw in _widths(C, hd) if _fits(C, gw, nb, n)]
+              for n in range(1, 1 + (1 if pair else MAX_NW))}
+    fit = [n for n, s in shapes.items() if s]
     if not fit:
         raise NotImplementedError(f"sw_block kernel: C={C} hd={hd} does not fit shared memory")
     rps = knobs.get("SW_RPS")
@@ -292,10 +317,23 @@ def sw_plan(C: int, heads: int, N: int, nwin: int, pair: bool = False) -> SWPlan
             kernel = "sw_block_pair" if pair else "sw_block and sw_block_tokens"
             raise ValueError(f"SW_RPS={rps!r} does not fit {kernel} at C={C} hd={hd}; "
                              f"slabs per CTA that fit: {', '.join(map(str, fit))}")
-    stages = _fits(C, gw, nw, pair)
+    nb, gw = shapes[nw][0]
+    stages = _fits(C, gw, nb, nw)
     nslab = -(-nwin * N // SLAB)
-    return SWPlan(nw=nw, stages=stages, gw=gw, grid=-(-nslab // nw), nslab=nslab,
-                  **_carve(C, gw, nw, stages))
+    return SWPlan(nw=nw, stages=stages, gw=gw, nb=nb, grid=min(sms, -(-nslab // nw)),
+                  nslab=nslab, **_carve(C, gw, nb, nw, stages))
+
+
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _scratch(plan: SWPlan, C: int, device: torch.device) -> torch.Tensor:
+    """The x1 scratch of a launch: C / 2 fp32 values for each of X1_THREADS
+    threads of each consumer warpgroup of the grid (L2-resident while it
+    runs)."""
+    return torch.empty(plan.grid * plan.nw * X1_THREADS * C // 2, dtype=torch.float32,
+                       device=device)
 
 
 _P = ctypes.c_void_p
@@ -339,8 +377,8 @@ def _check_weights(what: str, x: torch.Tensor, w: SWBlockWeights, N: int) -> Non
                                       "(C, C) contiguous on x's device")
     for t in vecs:
         if (t.dtype != torch.float32 or tuple(t.shape) != (C,)
-                or not t.is_contiguous() or t.device != x.device):
-            raise NotImplementedError(f"{what} kernel: vectors must be fp32 (C,)")
+                or not t.is_contiguous() or t.device != x.device or t.data_ptr() % 16):
+            raise NotImplementedError(f"{what} kernel: vectors must be 16-byte aligned fp32 (C,)")
     rb = w.rel_bias
     if (rb.dtype != torch.float32 or tuple(rb.shape) != (heads, N, N)
             or not rb.is_contiguous() or rb.device != x.device):
@@ -371,11 +409,11 @@ def _check_5d(what: str, x: torch.Tensor, w: SWBlockWeights, shift) -> None:
     _check_weights(what, x, w, T * wh * ww)
 
 
-def _pointers(x: torch.Tensor, out: torch.Tensor, w: SWBlockWeights):
-    """The kernel's table of 19 device pointers, in the order
+def _pointers(x: torch.Tensor, out: torch.Tensor, x1s: torch.Tensor, w: SWBlockWeights):
+    """The kernel's table of 20 device pointers, in the order
     csrc/sw_block.cu reads it."""
-    return (ctypes.c_void_p * 19)(*(t.data_ptr() for t in (
-        x, out, w.norm1_w, w.norm1_b, w.wq, w.bq, w.wk, w.bk, w.wv, w.bv, w.wp, w.bp,
+    return (ctypes.c_void_p * 20)(*(t.data_ptr() for t in (
+        x, out, x1s, w.norm1_w, w.norm1_b, w.wq, w.bq, w.wk, w.bk, w.wv, w.bv, w.wp, w.bp,
         w.norm2_w, w.norm2_b, w.w1, w.b1, w.w2, w.b2, w.rel_bias)))
 
 
@@ -420,10 +458,11 @@ def launch_5d(lib: ctypes.CDLL, x: torch.Tensor, w: SWBlockWeights,
     xb, f32 = _io(x)
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    plan = sw_plan(C, w.num_heads, T * wh * ww, B * (H // wh) * (W // ww))
+    plan = sw_plan(C, w.num_heads, T * wh * ww, B * (H // wh) * (W // ww), sms=_sms(x.device))
     code = lib.sw_block_launch(
-        _pointers(xb, out, w), plan.as_array(), B, T, H, W, C, w.num_heads, wh, ww,
-        int(shift[0]), int(shift[1]), f32, float((C // w.num_heads) ** -0.5), stream)
+        _pointers(xb, out, _scratch(plan, C, x.device), w), plan.as_array(), B, T, H, W, C,
+        w.num_heads, wh, ww, int(shift[0]), int(shift[1]), f32,
+        float((C // w.num_heads) ** -0.5), stream)
     _build.check(code, "sw_block launch")
     return out
 
@@ -473,9 +512,10 @@ def _sw_block_tokens(x: torch.Tensor, w: SWBlockWeights, mask,
     xb, f32 = _io(x)
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    plan = sw_plan(C, w.num_heads, N, Mw)
+    plan = sw_plan(C, w.num_heads, N, Mw, sms=_sms(x.device))
     code = _lib().sw_block_tokens_launch(
-        _pointers(xb, out, w), plan.as_array(), None if mask is None else mask.data_ptr(),
+        _pointers(xb, out, _scratch(plan, C, x.device), w), plan.as_array(),
+        None if mask is None else mask.data_ptr(),
         Mw, N, C, w.num_heads, nW, f32, float((C // w.num_heads) ** -0.5), stream)
     _build.check(code, "sw_block_tokens launch")
     sw_block_tokens.launches += 1
@@ -520,10 +560,12 @@ def _sw_block_pair(x: torch.Tensor, w0: SWBlockWeights, w1: SWBlockWeights,
     scratch = torch.empty_like(xb)      # block 0's result, bf16 (block 1's input)
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    plan = sw_plan(C, w0.num_heads, T * wh * ww, B * (H // wh) * (W // ww), pair=True)
+    plan = sw_plan(C, w0.num_heads, T * wh * ww, B * (H // wh) * (W // ww), pair=True,
+                   sms=_sms(x.device))
+    x1s = _scratch(plan, C, x.device)
     code = _lib().sw_block_pair_launch(
-        _pointers(xb, scratch, w0), _pointers(scratch, out, w1), plan.as_array(), B, T, H, W, C,
-        w0.num_heads, wh, ww, int(shift[0]), int(shift[1]), f32,
+        _pointers(xb, scratch, x1s, w0), _pointers(scratch, out, x1s, w1), plan.as_array(),
+        B, T, H, W, C, w0.num_heads, wh, ww, int(shift[0]), int(shift[1]), f32,
         float((C // w0.num_heads) ** -0.5), stream)
     _build.check(code, "sw_block_pair launch")
     sw_block_pair.launches += 1

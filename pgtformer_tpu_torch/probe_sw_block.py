@@ -2,13 +2,18 @@
 
 Builds ``csrc/sw_block.cu`` a second time with ``-DSW_PROBE`` (into
 ``build/kernels/libsw_block-SW_PROBE.so``): thread 0 of CTA 0 then adds the
-clock cycles of each phase of its slab pass to device counters; the normal
-build has no probe.  At each of the serving step's three layer shapes
-(shifted) it times the normal build (CUDA events, 10 launches after a
-warm-up), then runs the probed build once and prints the cycles of LN1, the
-q/k/v GEMMs, the attention, proj, LN2, fc1 and fc2, and, inside the GEMMs,
-the cycles spent waiting for weight tiles, issuing products and releasing
-slots, and waiting for the last product of a chunk::
+clock cycles of each phase of its slab passes to counters in shared memory
+(a clock read and a shared-memory add at each phase boundary) and hands
+them to device counters when its passes are done; the normal build has no
+probe.  At each of the serving step's three layer shapes (shifted) it times
+the normal build (CUDA events, 10 launches after a warm-up), then runs the
+probed build once and prints the cycles of one slab pass, averaged over the
+passes of CTA 0 (a persistent CTA walks many): the wait for the slab's
+rows, LN1, the q/k/v GEMMs, the attention, proj, LN2, fc1, the request
+for the next slab's rows and fc2, and, inside the GEMMs, the
+cycles spent waiting for weight boxes, issuing products, waiting for the
+products of a k-step (before its slot is released) and for the last
+product of a chunk, and in the epilogues::
 
     python -m pgtformer_tpu_torch.probe_sw_block [--json PATH]
 """
@@ -20,15 +25,19 @@ import ctypes
 import json
 import sys
 
-PHASES = {0: "LN1", 1: "q/k/v GEMMs", 2: "attention", 3: "proj", 4: "LN2", 5: "fc1",
-          6: "fc2"}
-GEMM_PARTS = {8: "waiting for weight tiles", 9: "issuing products, releasing slots",
-              10: "waiting for a chunk's last product"}
+PHASES = {7: "waiting for the slab's rows", 0: "LN1", 1: "q/k/v GEMMs", 2: "attention",
+          3: "proj", 4: "LN2", 5: "fc1", 11: "requesting the next slab's rows", 6: "fc2"}
+GEMM_PARTS = {8: "waiting for weight boxes", 9: "issuing products",
+              14: "waiting for a k-step's products", 10: "waiting for a chunk's last product",
+              16: "q/k/v epilogues", 17: "proj epilogues", 18: "fc1 epilogues (erf GELU)",
+              19: "fc2 epilogues"}
+PASSES = 15
+COUNTERS = 24
 SHAPES = [(8, 3, 128, 128, 256), (8, 3, 64, 64, 256), (8, 3, 32, 32, 512)]
 
 
 def read(lib) -> list:
-    buf = (ctypes.c_ulonglong * 16)()
+    buf = (ctypes.c_ulonglong * COUNTERS)()
     if lib.sw_block_probe_read(buf) != 0:
         raise RuntimeError("sw_block_probe_read failed")
     return list(buf)
@@ -74,16 +83,18 @@ def main(argv=None) -> int:
         sb.launch_5d(probed, x, w, (2, 2))
         torch.cuda.synchronize()
         cyc = read(probed)
-        total = sum(cyc[k] for k in PHASES)
-        row = {"shape": list(shape), "ms": ms, "cycles": total,
-               "phases": {PHASES[k]: cyc[k] for k in PHASES},
-               "gemm_parts": {GEMM_PARTS[k]: cyc[k] for k in GEMM_PARTS}}
+        passes = max(1, cyc[PASSES])
+        per = {k: cyc[k] / passes for k in list(PHASES) + list(GEMM_PARTS)}
+        total = sum(per[k] for k in PHASES)
+        row = {"shape": list(shape), "ms": ms, "cycles": total, "passes": cyc[PASSES],
+               "phases": {PHASES[k]: per[k] for k in PHASES},
+               "gemm_parts": {GEMM_PARTS[k]: per[k] for k in GEMM_PARTS}}
         results.append(row)
-        print(f"[probe] x{list(shape)} shift(2, 2): {row['ms']:.4f} ms; CTA 0, one slab pass: "
-              f"{total} cycles = " + ", ".join(f"{n} {c} ({c / total:.1%})"
-                                               for n, c in row["phases"].items())
-              + "; inside the GEMMs: " + ", ".join(f"{n} {c}" for n, c in row["gemm_parts"].items()),
-              flush=True)
+        print(f"[probe] x{list(shape)} shift(2, 2): {row['ms']:.4f} ms; CTA 0, one slab pass "
+              f"(mean of {cyc[PASSES]}): {total:.0f} cycles = "
+              + ", ".join(f"{n} {c:.0f} ({c / total:.1%})" for n, c in row["phases"].items())
+              + "; inside the GEMMs: "
+              + ", ".join(f"{n} {c:.0f}" for n, c in row["gemm_parts"].items()), flush=True)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(results, f, indent=1)

@@ -98,8 +98,9 @@ def _block_weights(C, heads, T, seed):
 
 @pytest.mark.parametrize("shape,shift", [
     ((8, 3, 128, 128, 256), (0, 0)), ((8, 3, 128, 128, 256), (2, 2)),
-    ((8, 3, 64, 64, 256), (2, 2)), ((8, 3, 32, 32, 512), (0, 0)),
-    ((8, 3, 32, 32, 512), (2, 2)), ((2, 3, 16, 16, 64), (2, 2))])
+    ((8, 3, 64, 64, 256), (0, 0)), ((8, 3, 64, 64, 256), (2, 2)),
+    ((8, 3, 32, 32, 512), (0, 0)), ((8, 3, 32, 32, 512), (2, 2)),
+    ((2, 3, 16, 16, 64), (2, 2))])
 def test_sw_block_kernel_matches_plain(shape, shift):
     dev = _card()
     heads = 8 if shape[-1] >= 256 else 4
@@ -137,6 +138,44 @@ def test_sw_block_kernel_ragged(shape, heads, shift):
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= 2e-2 * ref.float().abs().max().item(), err
     assert torch.equal(sw_block(x, w, shift), out)            # no atomics
+
+
+# Persistent CTAs that walk several groups of slabs (the next slab's rows
+# requested during a pass), with a ragged last group: 529 windows at C=256
+# (265 groups of two slabs, the last one's second slab past the input), 361
+# at C=512 (one slab a group), and T=1 at a serving width (N=16).
+PERSISTENT_K1 = [((1, 3, 92, 92, 256), 8, (2, 2)), ((1, 3, 92, 92, 256), 8, (0, 0)),
+                 ((1, 3, 76, 76, 512), 8, (2, 2)), ((8, 1, 64, 64, 256), 8, (2, 2)),
+                 ((8, 1, 32, 32, 512), 8, (0, 0))]
+
+
+@pytest.mark.parametrize("shape,heads,shift", PERSISTENT_K1)
+def test_sw_block_kernel_persistent_grid(shape, heads, shift):
+    from pgtformer_tpu_torch.ops.sw_block import sw_plan
+    dev = _card()
+    B, T, H, W, C = shape
+    plan = sw_plan(C, heads, T * 16, B * (H // 4) * (W // 4),
+                   sms=torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert plan.groups > plan.grid                    # CTAs walk several groups
+    w = _block_weights(C, heads, T, seed=11).to(dev).kernel_weights(dev)
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(12)).to(dev, torch.bfloat16)
+    out = sw_block(x, w, shift)
+    ref = sw_block_plain(x, w, shift)
+    assert torch.isfinite(out).all()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 2e-2 * ref.float().abs().max().item(), err
+
+
+def test_sw_block_kernel_repeats_bit_for_bit():
+    """30 launches at the largest serving shape give the same bits: every
+    slab's arithmetic is fixed, whichever CTA and warpgroup run it."""
+    dev = _card()
+    w = _block_weights(256, 8, 3, seed=13).to(dev).kernel_weights(dev)
+    x = torch.randn((8, 3, 128, 128, 256), generator=torch.Generator().manual_seed(14)).to(
+        dev, torch.bfloat16)
+    first = sw_block(x, w, (2, 2))
+    for _ in range(29):
+        assert torch.equal(sw_block(x, w, (2, 2)), first)
 
 
 @pytest.mark.parametrize("masked", [False, True])
