@@ -13,20 +13,22 @@ Phases, in order; any failure exits non-zero:
  3. each kernel's wrapper against its plain PyTorch version on the card at
     the shapes its path gives it, with its time, the plain version's time,
     the bound from shapes and, where one PyTorch call computes the same
-    function, that call's time as a yardstick (the port never calls it):
+    function, that call's time as a yardstick (the port never calls it),
+    each bound from benchmark/roofline.py:
     K1 sw_block (also at one and two slabs per CTA, SW_RPS=1 and 2, bit-equal
-    and timed), K3 sw_block_tokens, K4 sw_block_pair (also bit-equal to two
-    K1 launches), K2/K6 dense_mha in both layouts (two launches and the two
-    layouts bit-equal, achieved TFLOP/s and share of the bound; edge cases:
-    partial tiles, D=32 and 16, strongly negative and sharp logits), K5
-    nearest_code (rate of agreement, every disagreement a near-tie in fp64,
-    ragged shapes, a codebook of near-twins, an exact tie), K7
-    gn_silu_conv3x3 in its four forms at 8 x 512 x 512 (TFLOP/s and share of
-    the bound; 30 launches bit-equal there and at ragged shapes) and K8
-    subpixel_up_conv3x3 at its four shapes (output and emitted statistics,
-    ragged shapes, a strided batch; the stock Upsample under both SUBPIXEL
-    plans against it, and their fp32 gradients against each other), each
-    beside the stock PyTorch sequence for the same function;
+    and timed, and at a ragged C=512 shape), K3 sw_block_tokens, K4
+    sw_block_pair (also bit-equal to two K1 launches), K2/K6 dense_mha in
+    both layouts (two launches and the two layouts bit-equal, achieved
+    TFLOP/s and share of the bound), K5 nearest_code (rate of agreement,
+    every disagreement a near-tie in fp64, the training shape, a ragged
+    shape, a codebook of near-twins), K7 gn_silu_conv3x3 in its four forms
+    at 8 x 512 x 512 (TFLOP/s and share of the bound; 30 launches bit-equal
+    there; a plain conv and a strided batch) and K8 subpixel_up_conv3x3 at
+    its four shapes (output and emitted statistics, a strided batch; the
+    stock Upsample under both SUBPIXEL plans against it, and their fp32
+    gradients against each other), each beside the stock PyTorch sequence
+    for the same function; the kernels' other edge cases are
+    tests/test_torch_kernels_cuda.py's;
  3b. the GroupNorm (+ SiLU) kernel pair (`phase_group_norm`, replaces no TPU
     kernel) at every GroupNorm shape of one serving call of each benchmark
     cell (a RELEASE_PGTFORMER step of 8 frames, a CodeFormer forward on 16
@@ -111,8 +113,8 @@ Phases, in order; any failure exits non-zero:
     LPIPS VGG, GAN from step 0, 1 warm-up + 10 timed steps each (median,
     min and max step ms); asserts finite
     losses, moved parameters, EMA and stage-I codebook, untouched frozen
-    modules and teacher, and exact launches per step (TRAIN_PER_STEP, the one
-    table every training phase reads: I 22 K1 + 1 K5; III 22 K1 + 9 K6 + 1
+    modules and teacher, and exact launches per step (LAUNCHES, the one
+    table every phase reads: I 22 K1 + 1 K5; III 22 K1 + 9 K6 + 1
     K5, the teacher on the module path as in JAX); prints `[train:I]` / `[train:III]` lines with step
     ms, peak memory, the losses and the card's name and power limit;
  9b. the use_pallas plans (`phase_train_plans`): stage I at full width with
@@ -121,7 +123,7 @@ Phases, in order; any failure exits non-zero:
     fp32 (the JAX package's default plan) and True in bf16, each through
     `bench_train_step.bench` (its seeded trainers, no LPIPS): best of two
     rounds of three steps (CUDA events) after a warm-up, peak memory, exact
-    launches per step (False: no K1/K6, 1 K5; True: TRAIN_PER_STEP);
+    launches per step (False: no K1/K6, 1 K5; True: LAUNCHES);
     `bench_train_step --mode both --iters 2` and
     `profile_step --code` once each; the batch degradations on a [8, 512,
     512, 3] batch on the card (shape, range, determinism per seed, noise
@@ -136,7 +138,7 @@ Phases, in order; any failure exits non-zero:
     ("auto-resumed from step 4", the schedulers at 6, the loader past its 4
     batches); stage III for 3 steps from stage I's step-6 exports (teacher,
     student, discriminator; merge_pretrained's counts); exact launches per
-    training step and, apart, per validation forward (TRAIN_PER_STEP a step;
+    training step and, apart, per validation forward (LAUNCHES a step;
     I: 22 K1 + 1 K5, III: 22 K1 + 9 K6 a validation forward); the
     teacher and the frozen modules bit-identical; validation's saved frames,
     computed while the live parameters were moved far from their EMA,
@@ -237,14 +239,18 @@ import gc
 import hashlib
 import json
 import math
+import os
 import re
 import subprocess
 import sys
 import time
 
-H100_BF16_FLOPS = 989e12     # dense bf16 tensor-core peak, H100 SXM
+# The kernel table's peaks and bounds are the benchmark's roofline.  Its
+# directory goes last on the path, so none of its module names shadows another.
+sys.path.append(os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmark"))
+from roofline import bound_ms, mha_bound, mha_flops, sw_block_bound, sw_block_flops  # noqa: E402
+
 H100_FP32_FLOPS = 67e12      # fp32 peak outside the tensor cores, H100 SXM
-H100_BYTES_PER_S = 3.35e12   # HBM3 bandwidth, H100 SXM
 
 K1_TOL = 2e-2   # max|kernel - plain| <= K1_TOL * max|plain|: bf16 rounding of
                 # every intermediate in the plain version vs fp32 residual/LN
@@ -343,10 +349,13 @@ def graph_ms(fn, iters: int, replays: int = 3) -> float:
     return ms
 
 
-def bound_ms(flops: float, nbytes: float, peak_flops: float = H100_BF16_FLOPS):
-    t_ops = flops / peak_flops * 1e3
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+def timing_row(ms: float, plain_ms: float, library_ms, bound, flops: float, **extra) -> dict:
+    """A row of the kernel table: the kernel's, its plain version's and, where
+    one PyTorch call computes the same function, that call's ms (else None),
+    against `bound` = (ms, what binds) from the roofline; `flops` operations."""
+    bms, by = bound
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms, bound_by=by,
+                tflops=flops / ms / 1e9, bound_share=bms / ms, **extra)
 
 
 def _wrappers():
@@ -370,15 +379,51 @@ def _plan(model, use_pallas: bool):
     return model
 
 
+# Kernel launches of one forward of each model and plan run at full width;
+# every phase scales its row by its steps, chunks or forwards.  A PGTFormer
+# forward (the serving and file-path step, each rank's step, the eval and
+# stage-III validation forwards) runs its 22 shifted-window blocks on K1 and
+# the code transformer's 9 layers on K6; a TDCRQVAE3 forward (stage I's
+# validation too) 22 K1 and one K5 lookup.  A training step launches its
+# forwards' kernels (the backwards launch none); the stage II-IV teacher runs
+# the module path, as JAX builds it without use_pallas, so its quantizer's K5
+# is the one K5 of a stage-III step.  The module path (use_pallas=False, either
+# stage, its training step or validation forward) launches K5 alone.
+LAUNCHES = {
+    "pgtformer": dict(sw_block=22, dense_mha_bnhd=9),
+    "pgtformer:tokens": dict(sw_block_tokens=22, dense_mha_bnhd=9),
+    "pgtformer:pair": dict(sw_block_pair=11, dense_mha_bnhd=9),
+    "pgtformer:bhnd": dict(sw_block=22, dense_mha_bhnd=9),
+    "pgtformer:fused_tail": dict(sw_block=22, dense_mha_bnhd=9, subpixel_up_conv3x3=1,
+                                 gn_silu_conv3x3=4),
+    "pgtformer:fused_up": dict(sw_block=22, dense_mha_bnhd=9, subpixel_up_conv3x3=4),
+    "tdcrqvae3": dict(sw_block=22, vq_nearest=1),
+    "tdcrqvae3:fused_up": dict(sw_block=22, vq_nearest=1, subpixel_up_conv3x3=4),
+    "get_codes:8_clips": dict(sw_block=8, vq_nearest=1),
+    "train:I": dict(sw_block=22, vq_nearest=1),
+    "train:III": dict(sw_block=22, dense_mha_bnhd=9, vq_nearest=1),
+    "module": dict(vq_nearest=1),
+}
+
+
+def launches(key: str, n: int = 1) -> dict:
+    """LAUNCHES[key] over n forwards or steps."""
+    return {name: v * n for name, v in LAUNCHES[key].items()}
+
+
 def reset_counts():
     for fn in _wrappers().values():
         fn.launches = 0
 
 
+def _launch_counts() -> dict:
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
 def expect_counts(what: str, **want) -> dict:
     """Read every launch count; exactly the named kernels were launched,
     each exactly as often as named."""
-    got = {name: fn.launches for name, fn in _wrappers().items()}
+    got = _launch_counts()
     expected = {name: want.get(name, 0) for name in got}
     if got != expected:
         raise SystemExit(f"{what}: launch counts {got}, expected {expected}")
@@ -414,17 +459,37 @@ def phase_build():
             f"{spill} bytes spilled")
 
 
-def _sw_block_weights(C: int, heads: int, T: int, seed: int):
+def _block_module(C: int, T: int, seed: int):
+    """A shifted-window block (8 heads, 4x4 windows) with non-trivial fp32
+    parameters on the card: the master weights of the training path."""
     import torch
     from pgtformer_tpu_torch.nn.blocks import SWTransformerBlock, init_weights
     g = torch.Generator().manual_seed(seed)
-    blk = SWTransformerBlock(C, heads, T, (4, 4), (0, 0), mlp_ratio=1.0)
-    init_weights(blk, g)
+    blk = init_weights(SWTransformerBlock(C, 8, T, (4, 4), (0, 0), mlp_ratio=1.0), g)
     with torch.no_grad():
         for p in blk.parameters():      # non-trivial biases and norm affines
             if p.dim() == 1:
                 p.add_(torch.randn(p.shape, generator=g) * 0.1)
-    return blk.cuda().kernel_weights(torch.device("cuda"))
+    return blk.cuda()
+
+
+def _sw_block_weights(C: int, T: int, seed: int):
+    import torch
+    return _block_module(C, T, seed).kernel_weights(torch.device("cuda"))
+
+
+def _tokens(x, shift):
+    """x [B, T, H, W, C] as K3 takes it: the window tokens of x rolled by
+    -shift, the shift's mask on the card (None unshifted) and the windows a
+    frame."""
+    import torch
+    from pgtformer_tpu_torch.ops.window import shifted_window_mask, window_partition
+    B, T, H, W, C = x.shape
+    if not any(shift):
+        return window_partition(x, (4, 4)).contiguous(), None, (H // 4) * (W // 4)
+    rolled = torch.roll(x, (-shift[0], -shift[1]), dims=(2, 3))
+    mask = torch.as_tensor(shifted_window_mask(T, H, W, (4, 4), shift), device="cuda")
+    return window_partition(rolled, (4, 4)).contiguous(), mask, (H // 4) * (W // 4)
 
 
 def _compare(name: str, out, ref, tol: float):
@@ -442,26 +507,9 @@ def _compare(name: str, out, ref, tol: float):
 K1_CASES = [((8, 3, 128, 128, 256), (0, 0), 3), ((8, 3, 128, 128, 256), (2, 2), 3),
             ((8, 3, 64, 64, 256), (0, 0), 3), ((8, 3, 64, 64, 256), (2, 2), 3),
             ((8, 3, 32, 32, 512), (0, 0), 5), ((8, 3, 32, 32, 512), (2, 2), 5)]
-# 3 windows at C=256: 3 slabs at two per CTA, so the last CTA's second slab
-# lies past the input; and 7 windows of N=16 at C=512: 3 slabs of three
-# windows (one per CTA), the last slab holding one window
-K1_RAGGED = [((1, 3, 4, 12, 256), (2, 2)), ((1, 1, 4, 28, 512), (2, 2))]
-
-
-def _sw_block_flops(shape, blocks: int = 1) -> float:
-    B, T, H, W, C = shape
-    return blocks * B * T * H * W * (12 * C * C + 4 * T * 16 * C)
-
-
-def _sw_block_bound(shape, blocks: int = 1, mask_bytes: int = 0):
-    """Bound of `blocks` SW blocks in one launch: x read once and written
-    once, each block's weights, bias table (and the mask array) read once."""
-    B, T, H, W, C = shape
-    M = B * T * H * W
-    N = T * 16
-    flops = _sw_block_flops(shape, blocks)
-    nbytes = 2 * M * C * 2 + blocks * (6 * C * C * 2 + 10 * C * 4 + 8 * N * N * 4) + mask_bytes
-    return bound_ms(flops, nbytes)
+# 7 windows of N=16 at C=512: 3 slabs of three windows (one per CTA), the
+# last slab holding one window
+K1_RAGGED = ((1, 1, 4, 28, 512), (2, 2))
 
 
 def _case_input(i: int, shape):
@@ -475,34 +523,34 @@ def phase_k1(iters: int):
     from pgtformer_tpu_torch.ops.sw_block import sw_block, sw_block_plain
     rows, worst = [], 0.0
     for i, (shape, shift, per_step) in enumerate(K1_CASES):
-        w = _sw_block_weights(shape[-1], 8, shape[1], seed=100 + i)
+        w = _sw_block_weights(shape[-1], shape[1], seed=100 + i)
         x = _case_input(i, shape)
         out = sw_block(x, w, shift)
         ref = sw_block_plain(x, w, shift)
         torch.cuda.synchronize()
         err, scale = _compare(f"K1 {shape} {shift}", out, ref, K1_TOL)
-        ms = time_ms(lambda: sw_block(x, w, shift), iters)
-        plain = time_ms(lambda: sw_block_plain(x, w, shift), max(1, iters // 4), warmup=1)
-        bms, by = _sw_block_bound(shape)
-        tflops = _sw_block_flops(shape) / ms / 1e9
+        row = timing_row(time_ms(lambda: sw_block(x, w, shift), iters),
+                         time_ms(lambda: sw_block_plain(x, w, shift), max(1, iters // 4),
+                                 warmup=1),
+                         None, sw_block_bound(shape), sw_block_flops(shape),
+                         shape=list(shape), shift=list(shift), per_step=per_step,
+                         max_abs_err=err)
         log(f"[k1] x{list(shape)} shift{shift}: max|d|={err:.3e} (max|ref|={scale:.3e}, "
-            f"tol {K1_TOL}*max|ref|) kernel_ms={ms:.4f} ({tflops:.1f} TFLOP/s, "
-            f"{bms / ms:.3f} of the bound) plain_ms={plain:.4f} bound_ms={bms:.4f} ({by}) OK")
+            f"tol {K1_TOL}*max|ref|) kernel_ms={row['ms']:.4f} ({row['tflops']:.1f} TFLOP/s, "
+            f"{row['bound_share']:.3f} of the bound) plain_ms={row['plain_ms']:.4f} "
+            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) OK")
         worst = max(worst, err)
-        rows.append(dict(shape=list(shape), shift=list(shift), per_step=per_step,
-                         ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=err,
-                         tflops=tflops))
-    for i, (shape, shift) in enumerate(K1_RAGGED):
-        w = _sw_block_weights(shape[-1], 8, shape[1], seed=150 + i)
-        x = _case_input(50 + i, shape)
-        out = sw_block(x, w, shift)
-        err, scale = _compare(f"K1 ragged {shape}", out, sw_block_plain(x, w, shift), K1_TOL)
-        if not torch.equal(sw_block(x, w, shift), out):
-            raise SystemExit(f"K1 ragged {shape}: two launches differ")
-        log(f"[k1] ragged x{list(shape)} shift{shift}: max|d|={err:.3e} "
-            f"(max|ref|={scale:.3e}, tol {K1_TOL}*max|ref|), two launches bit-equal OK")
-        worst = max(worst, err)
-    return rows, worst, _k1_slabs_per_cta(iters)
+        rows.append(row)
+    shape, shift = K1_RAGGED
+    w = _sw_block_weights(shape[-1], shape[1], seed=151)
+    x = _case_input(51, shape)
+    out = sw_block(x, w, shift)
+    err, scale = _compare(f"K1 ragged {shape}", out, sw_block_plain(x, w, shift), K1_TOL)
+    if not torch.equal(sw_block(x, w, shift), out):
+        raise SystemExit(f"K1 ragged {shape}: two launches differ")
+    log(f"[k1] ragged x{list(shape)} shift{shift}: max|d|={err:.3e} "
+        f"(max|ref|={scale:.3e}, tol {K1_TOL}*max|ref|), two launches bit-equal OK")
+    return rows, max(worst, err), _k1_slabs_per_cta(iters)
 
 
 def _k1_slabs_per_cta(iters: int) -> dict:
@@ -515,7 +563,7 @@ def _k1_slabs_per_cta(iters: int) -> dict:
     ms = {}
     try:
         for i, (shape, shift, _) in enumerate(K1_CASES[:2]):
-            w = _sw_block_weights(shape[-1], 8, shape[1], seed=100 + i)
+            w = _sw_block_weights(shape[-1], shape[1], seed=100 + i)
             x = _case_input(i, shape)
             outs = {}
             for nw in ("1", "2"):
@@ -525,7 +573,7 @@ def _k1_slabs_per_cta(iters: int) -> dict:
             if not torch.equal(outs["1"], outs["2"]):
                 raise SystemExit(f"K1 {shape} {shift}: one and two slabs per CTA differ")
         shape, shift, _ = K1_CASES[4]
-        w = _sw_block_weights(shape[-1], 8, shape[1], seed=104)
+        w = _sw_block_weights(shape[-1], shape[1], seed=104)
         knobs.set_knob("SW_RPS", "2")
         try:
             sw_block(_case_input(4, shape), w, shift)
@@ -549,37 +597,30 @@ def phase_k3(iters: int):
     import torch
     from pgtformer_tpu_torch.ops.sw_block import (
         sw_block, sw_block_tokens, sw_block_tokens_plain)
-    from pgtformer_tpu_torch.ops.window import shifted_window_mask, window_partition
     rows, worst = [], 0.0
     for i, (shape, shift, per_step) in enumerate(K1_CASES):
-        B, T, H, W, C = shape
-        w = _sw_block_weights(C, 8, T, seed=100 + i)
+        w = _sw_block_weights(shape[-1], shape[1], seed=100 + i)
         x = _case_input(i, shape)
-        shifted = any(shift)
-        rolled = torch.roll(x, (-shift[0], -shift[1]), dims=(2, 3)) if shifted else x
-        tok = window_partition(rolled, (4, 4)).contiguous()
-        nW = (H // 4) * (W // 4)
-        mask = (torch.as_tensor(shifted_window_mask(T, H, W, (4, 4), shift), device="cuda")
-                if shifted else None)
+        tok, mask, nW = _tokens(x, shift)
         out = sw_block_tokens(tok, w, mask, nW)
         ref = sw_block_tokens_plain(tok, w, mask, nW)
         torch.cuda.synchronize()
         err, scale = _compare(f"K3 {shape} {shift}", out, ref, K1_TOL)
         # the same windows through K1 (one device function): expected equal
-        k1_tok = window_partition(
-            torch.roll(sw_block(x, w, shift), (-shift[0], -shift[1]), dims=(2, 3)), (4, 4))
-        same = bool(torch.equal(out, k1_tok))
-        ms = time_ms(lambda: sw_block_tokens(tok, w, mask, nW), iters)
-        plain = time_ms(lambda: sw_block_tokens_plain(tok, w, mask, nW),
-                        max(1, iters // 4), warmup=1)
-        bms, by = _sw_block_bound(shape, mask_bytes=0 if mask is None else mask.numel() * 4)
+        same = bool(torch.equal(out, _tokens(sw_block(x, w, shift), shift)[0]))
+        row = timing_row(time_ms(lambda: sw_block_tokens(tok, w, mask, nW), iters),
+                         time_ms(lambda: sw_block_tokens_plain(tok, w, mask, nW),
+                                 max(1, iters // 4), warmup=1),
+                         None, sw_block_bound(shape, mask_bytes=0 if mask is None
+                                              else mask.numel() * 4),
+                         sw_block_flops(shape), shape=list(tok.shape), shift=list(shift),
+                         per_step=per_step, max_abs_err=err, bit_equal_to_k1=same)
         log(f"[k3] tokens{list(tok.shape)} of x{list(shape)} shift{shift}: max|d|={err:.3e} "
             f"(max|ref|={scale:.3e}, tol {K1_TOL}*max|ref|) bit_equal_to_k1={same} "
-            f"kernel_ms={ms:.4f} plain_ms={plain:.4f} bound_ms={bms:.4f} ({by}) OK")
+            f"kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) OK")
         worst = max(worst, err)
-        rows.append(dict(shape=list(tok.shape), shift=list(shift), per_step=per_step, ms=ms,
-                         plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=err,
-                         bit_equal_to_k1=same))
+        rows.append(row)
     return rows, worst
 
 
@@ -595,8 +636,8 @@ def phase_k4(iters: int):
     rows, worst = [], 0.0
     half = (2, 2)
     for i, (shape, per_step) in enumerate(K4_CASES):
-        w0 = _sw_block_weights(shape[-1], 8, shape[1], seed=200 + i)
-        w1 = _sw_block_weights(shape[-1], 8, shape[1], seed=300 + i)
+        w0 = _sw_block_weights(shape[-1], shape[1], seed=200 + i)
+        w1 = _sw_block_weights(shape[-1], shape[1], seed=300 + i)
         x = _case_input(10 + i, shape)
         two = lambda: sw_block(sw_block(x, w0, (0, 0)), w1, half)
         out = sw_block_pair(x, w0, w1, half)
@@ -607,33 +648,22 @@ def phase_k4(iters: int):
             n = int((out != ref2).sum().item())
             raise SystemExit(f"K4 {shape}: {n} elements differ from two K1 launches")
         err, scale = _compare(f"K4 {shape}", out, plain_out, K1_TOL)
-        ms = time_ms(lambda: sw_block_pair(x, w0, w1, half), iters)
-        two_ms = time_ms(two, iters)
-        plain = time_ms(lambda: sw_block_pair_plain(x, w0, w1, half),
-                        max(1, iters // 4), warmup=1)
-        bms, by = _sw_block_bound(shape, blocks=2)
+        row = timing_row(time_ms(lambda: sw_block_pair(x, w0, w1, half), iters),
+                         time_ms(lambda: sw_block_pair_plain(x, w0, w1, half),
+                                 max(1, iters // 4), warmup=1),
+                         None, sw_block_bound(shape, blocks=2), sw_block_flops(shape, 2),
+                         shape=list(shape), per_step=per_step,
+                         two_k1_launches_ms=time_ms(two, iters), max_abs_err=err)
         log(f"[k4] x{list(shape)} pair: bit-equal to two K1 launches; max|d|={err:.3e} "
-            f"(max|ref|={scale:.3e}, tol {K1_TOL}*max|ref|) kernel_ms={ms:.4f} "
-            f"two_k1_launches_ms={two_ms:.4f} plain_ms={plain:.4f} bound_ms={bms:.4f} ({by}) OK")
+            f"(max|ref|={scale:.3e}, tol {K1_TOL}*max|ref|) kernel_ms={row['ms']:.4f} "
+            f"two_k1_launches_ms={row['two_k1_launches_ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) OK")
         worst = max(worst, err)
-        rows.append(dict(shape=list(shape), per_step=per_step, ms=ms, two_k1_launches_ms=two_ms,
-                         plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=err))
+        rows.append(row)
     return rows, worst
 
 
-# (label, B, H, N, D, kind) held to K2_TOL in both layouts besides the
-# deployed shape: partial query and key tiles (N not a multiple of 128, and
-# N=8: one partial tile of each), D=32 (scale 2^-2.5 is no power of two) and
-# D=16; "negative" makes every logit about -9*sqrt(D), so an unmasked
-# zero-filled key (logit 0) would take the softmax; "sharp" multiplies the
-# logits by 30, so the running max moves by far from tile to tile.
-MHA_EDGE_CASES = [("N=200", 1, 2, 200, 64, "normal"), ("N=136", 2, 2, 136, 64, "normal"),
-                  ("N=8", 1, 2, 8, 64, "normal"), ("D=32", 2, 4, 768, 32, "normal"),
-                  ("D=16", 2, 4, 768, 16, "normal"), ("negative", 1, 2, 200, 64, "negative"),
-                  ("sharp", 2, 2, 520, 64, "sharp")]
-
-
-def mha_operands(B: int, H: int, N: int, D: int, kind: str, seed: int):
+def mha_operands(B: int, H: int, N: int, D: int, seed: int):
     """The serving step's operands on the card: q/k are halves of one packed
     [B, N, 2C] projection, v its own [B, N, C]; returned as that packed
     projection and v."""
@@ -641,12 +671,6 @@ def mha_operands(B: int, H: int, N: int, D: int, kind: str, seed: int):
     C = H * D
     g = torch.Generator(device="cuda").manual_seed(seed)
     qk = torch.randn((B, N, 2 * C), generator=g, device="cuda") * 1.5
-    if kind == "negative":
-        qk = qk * 0.2
-        qk[..., :C] += 3.0
-        qk[..., C:] -= 3.0
-    elif kind == "sharp":
-        qk[..., :C] *= 30.0
     vp = torch.randn((B, N, C), generator=g, device="cuda")
     return qk.to(torch.bfloat16), vp.to(torch.bfloat16)
 
@@ -684,40 +708,30 @@ def _mha_check(label: str, qk, vp, H: int):
 def phase_mha(iters: int):
     """K6 (bnhd) and K2 (bhnd) at the code transformer's shape, each against
     its plain version, bit-equal across two launches and across the two
-    layouts; SDPA on the same operands as the yardstick; then the edge
-    cases of MHA_EDGE_CASES."""
+    layouts; SDPA on the same operands as the yardstick."""
     import torch.nn.functional as F
     from pgtformer_tpu_torch.ops.dense_mha import (
         dense_mha, dense_mha_plain, dense_mha_plain_bnhd)
     B, H, N, D = 8, 8, 3072, 64
-    C = H * D
     scale = D ** -0.5
-    qk, vp = mha_operands(B, H, N, D, "normal", seed=7)
-    flops = 4 * B * H * N * N * D
-    nbytes = 4 * B * N * C * 2
-    bms, by = bound_ms(flops, nbytes)
+    qk, vp = mha_operands(B, H, N, D, seed=7)
     checked = _mha_check("[8, 3072, 8, 64]", qk, vp, H)
     res = {}
     for layout, plain_fn in (("bnhd", dense_mha_plain_bnhd), ("bhnd", dense_mha_plain)):
         q, k, v = _mha_views(qk, vp, H, layout)
         _, err, mag = checked[layout]
-        ms = time_ms(lambda: dense_mha(q, k, v, scale=scale, layout=layout), iters)
-        plain = time_ms(lambda: plain_fn(q, k, v, scale), max(1, iters // 4), warmup=1)
         hq, hk, hv = (a if layout == "bhnd" else a.transpose(1, 2) for a in (q, k, v))
-        lib = time_ms(lambda: F.scaled_dot_product_attention(hq, hk, hv, scale=scale), iters)
+        row = res[layout] = timing_row(
+            time_ms(lambda: dense_mha(q, k, v, scale=scale, layout=layout), iters),
+            time_ms(lambda: plain_fn(q, k, v, scale), max(1, iters // 4), warmup=1),
+            time_ms(lambda: F.scaled_dot_product_attention(hq, hk, hv, scale=scale), iters),
+            mha_bound(B, N, H, D), mha_flops(B, N, H, D), max_abs_err=err)
         log(f"[mha:{layout}] q/k/v {list(q.shape)} (views of packed projections): "
             f"max|d|={err:.3e} (max|ref|={mag:.3e}, tol {K2_TOL}*max|ref|), two launches "
-            f"bit-equal, bnhd == bhnd; kernel_ms={ms:.4f} ({flops / ms / 1e9:.1f} TFLOP/s, "
-            f"{bms / ms:.3f} of the bound) plain_ms={plain:.4f} sdpa_ms={lib:.4f} "
-            f"bound_ms={bms:.4f} ({by}) OK")
-        res[layout] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
-                           max_abs_err=err, tflops=flops / ms / 1e9)
-    for i, (label, b, h, n, d, kind) in enumerate(MHA_EDGE_CASES):
-        checked = _mha_check(label, *mha_operands(b, h, n, d, kind, seed=20 + i), h)
-        log(f"[mha:edge] {label} [B={b}, H={h}, N={n}, D={d}] ({kind}): "
-            + ", ".join(f"{lay} max|d|={e:.3e} (max|ref|={m:.3e})"
-                        for lay, (_, e, m) in checked.items())
-            + f", tol {K2_TOL}*max|ref|, two launches bit-equal, bnhd == bhnd OK")
+            f"bit-equal, bnhd == bhnd; kernel_ms={row['ms']:.4f} ({row['tflops']:.1f} TFLOP/s, "
+            f"{row['bound_share']:.3f} of the bound) plain_ms={row['plain_ms']:.4f} "
+            f"sdpa_ms={row['library_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
+            f"({row['bound_by']}) OK")
     return res
 
 
@@ -761,44 +775,36 @@ def _k5_check(what, xs, cs, need_rate=True, tag="k5"):
 
 def phase_k5(iters: int):
     """K5 at the deployed shape (8 clips x 3 frames x 32x32 latents against
-    the 1024 x 512 codebook), a ragged shape and an exact tie."""
+    the 1024 x 512 codebook), the training shape, a ragged one and a
+    codebook of near-twins."""
     import torch
     from pgtformer_tpu_torch.ops.vq import nearest_code, nearest_code_plain
     N, n, D = 24576, 1024, 512
     g = torch.Generator(device="cuda").manual_seed(11)
     x = torch.randn((N, D), generator=g, device="cuda")
     codes = torch.randn((n, D), generator=g, device="cuda")
-    check = _k5_check
 
-    n_diff, abs_gap, gap = check("deployed shape", x, codes)
-    check("training shape (1 clip x 3 frames)", x[:TRAIN_VQ_ROWS], codes)
-    check("ragged N and n", x[:1000], codes[:1000].contiguous())
-    check("ragged D", x[:257, :36].contiguous(), codes[:100, :36].contiguous())
+    n_diff, abs_gap, gap = _k5_check("deployed shape", x, codes)
+    _k5_check("training shape (1 clip x 3 frames)", x[:TRAIN_VQ_ROWS], codes)
+    _k5_check("ragged N and n", x[:1000], codes[:1000].contiguous())
     # every code has a twin one fp32 ulp away: each row's two best distances
     # are a near-tie, so kernel and plain may part ways, but only by rounding
     twins = torch.cat([codes[:n // 2], codes[:n // 2] * (1.0 + 2.0 ** -23)])
-    check("near-tie stress (codebook of twins)", x[:4096], twins, need_rate=False)
-    tied = codes.clone()
-    tied[900] = tied[130]       # a later tile of 128 codes,
-    tied[200] = tied[130]       # another thread of the same tile,
-    tied[131] = tied[130]       # and the same thread's next code
-    near = tied[130][None] + 0.01 * torch.randn((64, D), generator=g, device="cuda")
-    picked = nearest_code(near, tied)
-    if not bool((picked == 130).all()):
-        raise SystemExit(f"K5 exact tie: picked {picked.unique().tolist()}, expected 130")
-    log("[k5] exact tie (codes 130 = 131 = 200 = 900): lowest index wins OK")
+    _k5_check("near-tie stress (codebook of twins)", x[:4096], twins, need_rate=False)
 
-    ms = time_ms(lambda: nearest_code(x, codes), iters)
-    plain = time_ms(lambda: nearest_code_plain(x, codes), iters)
     csq = (codes * codes).sum(-1)
-    lib = time_ms(lambda: torch.addmm(csq, x, codes.T, alpha=-2.0).argmin(-1), iters)
-    bms, by = bound_ms(2.0 * N * n * D, (N * D + n * D) * 4 + N * 8, H100_FP32_FLOPS)
-    log(f"[k5] x[{N},{D}] codes[{n},{D}] fp32: kernel_ms={ms:.4f} ("
-        f"{2.0 * N * n * D / ms / 1e9:.1f} TFLOP/s, {bms / ms:.3f} of the bound) plain_ms={plain:.4f} "
-        f"addmm_argmin_ms={lib:.4f} (fp32 matmul, TF32 off) bound_ms={bms:.4f} ({by} at the "
+    row = timing_row(time_ms(lambda: nearest_code(x, codes), iters),
+                     time_ms(lambda: nearest_code_plain(x, codes), iters),
+                     time_ms(lambda: torch.addmm(csq, x, codes.T, alpha=-2.0).argmin(-1), iters),
+                     bound_ms(2.0 * N * n * D, (N * D + n * D) * 4 + N * 8, H100_FP32_FLOPS),
+                     2.0 * N * n * D, max_abs_err=abs_gap, rows_differing=n_diff,
+                     worst_fp64_rel_gap=gap)
+    log(f"[k5] x[{N},{D}] codes[{n},{D}] fp32: kernel_ms={row['ms']:.4f} ({row['tflops']:.1f} "
+        f"TFLOP/s, {row['bound_share']:.3f} of the bound) plain_ms={row['plain_ms']:.4f} "
+        f"addmm_argmin_ms={row['library_ms']:.4f} (fp32 matmul, TF32 off) "
+        f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']} at the "
         f"{H100_FP32_FLOPS / 1e12:.0f} TFLOP/s fp32 peak)")
-    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
-                max_abs_err=abs_gap, rows_differing=n_diff, worst_fp64_rel_gap=gap)
+    return row
 
 
 def _compare_stats(name: str, st, ref):
@@ -840,22 +846,10 @@ K7_FORMS = [("128->64", 128, 0, False), ("64->64 + 1x1 shortcut from 128", 64, 1
             ("64->64", 64, 0, False), ("64->64 + residual", 64, 0, True)]
 
 
-def _k7_repeats(name: str, fn, out, st):
-    """K7_REPEATS launches of fn bit-equal to (out, st): no atomics, and no
-    race between a ring slot's last reads and its refill (which shows only
-    with many tiles per CTA)."""
-    import torch
-    for _ in range(K7_REPEATS - 1):
-        o2, s2 = fn()
-        if not (torch.equal(o2, out) and torch.equal(s2, st)):
-            raise SystemExit(f"K7 {name}: {K7_REPEATS} runs on the same operands differ")
-
-
 def phase_k7(iters: int):
-    """K7 in the fused tail's four forms at 8 x 512 x 512, then ragged shapes
-    (N=1, H and W no multiples of the tile), a plain conv (no activation) and
-    a strided batch; K7_REPEATS launches bit-equal at every form and ragged
-    shape."""
+    """K7 in the fused tail's four forms at 8 x 512 x 512, K7_REPEATS launches
+    bit-equal at each; then a plain conv (no activation) and a strided
+    batch."""
     import torch
     import torch.nn.functional as F
     from pgtformer_tpu_torch.ops.fused_conv import gn_silu_conv3x3, gn_silu_conv3x3_plain
@@ -869,7 +863,12 @@ def phase_k7(iters: int):
         torch.cuda.synchronize()
         err, mag = _compare(f"K7 {name}", out, ref, K7_TOL)
         st_err = _compare_stats(f"K7 {name}", st, ref_st)
-        _k7_repeats(name, lambda: gn_silu_conv3x3(x, ab, k, bias, **kw), out, st)
+        # no atomics, and no race between a ring slot's last reads and its
+        # refill (which shows only with many tiles per CTA)
+        for _ in range(K7_REPEATS - 1):
+            o2, s2 = gn_silu_conv3x3(x, ab, k, bias, **kw)
+            if not (torch.equal(o2, out) and torch.equal(s2, st)):
+                raise SystemExit(f"K7 {name}: {K7_REPEATS} runs on the same operands differ")
         ms = time_ms(lambda: gn_silu_conv3x3(x, ab, k, bias, **kw), iters)
         ms_bare = time_ms(lambda: gn_silu_conv3x3(x, ab, k, bias, emit_stats=False, **kw), iters)
         # the same launch without the activation (a plain conv): what the
@@ -892,34 +891,22 @@ def phase_k7(iters: int):
                 o = o + nchw(kw["residual"])
             return o
 
-        lib = time_ms(stock, iters)
         flops = 2.0 * N * H * W * 64 * (9 * C + Cs)
         nbytes = (N * H * W * (C + 64 + Cs + (64 if residual else 0)) * 2
                   + (9 * C + Cs) * 64 * 2 + 2 * N * C * 4 + 2 * N * 64 * 4 + 64 * 8)
-        bms, by = bound_ms(flops, nbytes)
-        tflops = flops / ms * 1e-9
+        row = timing_row(ms, plain, time_ms(stock, iters), bound_ms(flops, nbytes), flops,
+                         form=name, shape=[N, H, W, C], per_step=1, without_stats_ms=ms_bare,
+                         without_activation_ms=ms_conv, max_abs_err=err, stats_err=st_err)
         log(f"[k7] {name}: x[{N},{H},{W},{C}] max|d|={err:.3e} (max|ref|={mag:.3e}, tol "
             f"{K7_TOL}*max|ref|) stats_err={st_err:.3e} (tol {K7_STATS_TOL}) "
             f"{K7_REPEATS} launches bit-equal kernel_ms={ms:.4f} without_stats_ms={ms_bare:.4f} "
             f"without_stats_or_activation_ms={ms_conv:.4f} plain_ms={plain:.4f} "
-            f"stock_sequence_ms={lib:.4f} bound_ms={bms:.4f} ({by}) "
-            f"{tflops:.1f} TFLOP/s = {bms / ms:.3f} of the bound OK")
+            f"stock_sequence_ms={row['library_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
+            f"({row['bound_by']}) {row['tflops']:.1f} TFLOP/s = {row['bound_share']:.3f} of the "
+            f"bound OK")
         worst = max(worst, err)
-        rows.append(dict(form=name, shape=[N, H, W, C], per_step=1, ms=ms,
-                         without_stats_ms=ms_bare, without_activation_ms=ms_conv,
-                         plain_ms=plain,
-                         library_ms=lib, bound_ms=bms, bound_by=by, max_abs_err=err,
-                         stats_err=st_err, tflops=tflops, bound_share=bms / ms))
+        rows.append(row)
         del x, ab, k, kw, out, ref
-    for i, (name, C, Cs, residual) in enumerate(K7_FORMS):
-        x, ab, _, k, bias, kw = _k7_operands(50 + i, 1, 37, 53, C, Cs, residual)
-        out, st = gn_silu_conv3x3(x, ab, k, bias, **kw)
-        ref, ref_st = gn_silu_conv3x3_plain(x, ab, k, bias, **kw)
-        err, _ = _compare(f"K7 ragged {name}", out, ref, K7_TOL)
-        st_err = _compare_stats(f"K7 ragged {name}", st, ref_st)
-        _k7_repeats(f"ragged {name}", lambda: gn_silu_conv3x3(x, ab, k, bias, **kw), out, st)
-        log(f"[k7] ragged x[1,37,53,{C}] {name}: max|d|={err:.3e} stats_err={st_err:.3e} "
-            f"{K7_REPEATS} launches bit-equal OK")
     x, _, _, k, bias, _ = _k7_operands(60, 2, 24, 40, 128, 0, False)
     out, st = gn_silu_conv3x3(x, None, k, bias, emit_stats=False)
     err, _ = _compare("K7 plain conv", out, gn_silu_conv3x3_plain(x, None, k, bias)[0], K7_TOL)
@@ -991,7 +978,7 @@ def _upsample_plans(x, k3, bias, k8_out, iters: int) -> dict:
 
 def phase_k8(iters: int):
     """K8 at the four upsample shapes of the serving step, with and without
-    statistics, then ragged shapes and a strided batch."""
+    statistics, then a strided batch."""
     import torch
     import torch.nn.functional as F
     from pgtformer_tpu_torch.ops.fused_conv import (
@@ -1019,38 +1006,30 @@ def phase_k8(iters: int):
                                        b16, padding=1), iters)
         flops = 2.0 * N * H * W * 4 * 4 * C * C
         nbytes = N * H * W * C * 2 * 5 + 16 * C * C * 2 + C * 4
-        bms, by = bound_ms(flops, nbytes)
         plans = _upsample_plans(x, k3, bias, out, iters)
         # every work item (one pixel tile x 64 output channels x one output
         # row phase: one statistics partial each) reads its 64 columns of
         # the eight phase matrices of its row phase from L2
         items = N * _up_lib().subpixel_up_conv3x3_tiles(H, W) * (C // 64)
         wbytes = items * 8 * C * 64 * 2
-        tflops = flops / ms * 1e-9
         feed = wbytes / ms * 1e-9
+        row = timing_row(ms, plain, lib, bound_ms(flops, nbytes), flops, shape=list(shape),
+                         per_step=per_up, per_step_fused_tail=per_tail, with_stats_ms=ms_st,
+                         max_abs_err=err, stats_err=st_err, l2_weight_gb=wbytes / 1e9,
+                         weight_feed_tb_s=feed, upsample_plans=plans)
         log(f"[k8] x{list(shape)}: max|d|={err:.3e} (max|ref|={mag:.3e}, tol {K7_TOL}*max|ref|) "
             f"stats_err={st_err:.3e} (tol {K7_STATS_TOL}) kernel_ms={ms:.4f} "
             f"with_stats_ms={ms_st:.4f} plain_ms={plain:.4f} interpolate_conv_ms={lib:.4f} "
-            f"bound_ms={bms:.4f} ({by}) {tflops:.1f} TFLOP/s = {bms / ms:.3f} of the bound; "
+            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) {row['tflops']:.1f} TFLOP/s = "
+            f"{row['bound_share']:.3f} of the bound; "
             f"L2 weight reads {wbytes / 1e9:.3f} GB/launch = {feed:.3f} TB/s OK; the stock "
             f"Upsample (SUBPIXEL): dilated_ms={plans['dilated_ms']:.4f} "
             f"quad_ms={plans['quad_ms']:.4f}, max|d| vs K8 {plans['max_abs_err']:.3e}; fp32 "
             f"backward, dilated vs quad: worst max|d|/max|ref| {plans['grad_rel_err']:.3e} "
             f"(tol {GRAD_TOL}) OK")
         worst = max(worst, err)
-        rows.append(dict(shape=list(shape), per_step=per_up, per_step_fused_tail=per_tail, ms=ms,
-                         with_stats_ms=ms_st, plain_ms=plain, library_ms=lib, bound_ms=bms,
-                         bound_by=by, max_abs_err=err, stats_err=st_err, tflops=tflops,
-                         bound_share=bms / ms, l2_weight_gb=wbytes / 1e9, weight_feed_tb_s=feed,
-                         upsample_plans=plans))
+        rows.append(row)
         del x, out, ref, bare
-    for i, shape in enumerate([(1, 13, 21, 128), (1, 9, 37, 64)]):
-        x, k3, bias = _k8_operands(80 + i, shape)
-        out, st = subpixel_up_conv3x3(x, k3, bias)
-        ref, ref_st = subpixel_up_conv3x3_plain(x, k3, bias)
-        err, _ = _compare(f"K8 ragged {shape}", out, ref, K7_TOL)
-        st_err = _compare_stats(f"K8 ragged {shape}", st, ref_st)
-        log(f"[k8] ragged x{list(shape)}: max|d|={err:.3e} stats_err={st_err:.3e} OK")
     x, k3, bias = _k8_operands(90, (2, 16, 24, 128))
     frames = torch.stack([x + 1, x, x - 1], dim=1)
     mid = frames[:, 1:2].reshape(2, 16, 24, 128)
@@ -1105,8 +1084,7 @@ def phase_serving(smi: str = "", n_chunks: int = 5):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     outs, step_ms = _serve(r, frames, n_chunks, B)
-    counts = expect_counts("default serving step", sw_block=22 * n_chunks,
-                           dense_mha_bnhd=9 * n_chunks)
+    counts = expect_counts("default serving step", **launches("pgtformer", n_chunks))
     peak = torch.cuda.max_memory_allocated()
     hook.remove()
     for o in outs:
@@ -1144,40 +1122,29 @@ def phase_variants(serve: dict, smi: str = "", n_chunks: int = 3):
             if isinstance(m, MultiHeadSelfAttention):
                 m.mha_layout = layout
 
-    def default_counts(n):
-        return dict(sw_block=22 * n, dense_mha_bnhd=9 * n)
-
-    # name: (select, expected launches, rule against the default step: "lsb"
+    # name: (select, its LAUNCHES row, rule against the default step: "lsb"
     # (VARIANT_LSB), "rounding" (ROUNDING_LSB) or "bits" (its out_sha256))
     plans = {
-        "tokens": (lambda: knobs.set_knob("SW_KERNEL", "tokens"),
-                   dict(sw_block_tokens=22 * n_chunks, dense_mha_bnhd=9 * n_chunks), "lsb"),
-        "pair": (lambda: knobs.set_knob("SW_PAIR", "1"),
-                 dict(sw_block_pair=11 * n_chunks, dense_mha_bnhd=9 * n_chunks), "lsb"),
-        "bhnd": (lambda: set_layout("bhnd"),
-                 dict(sw_block=22 * n_chunks, dense_mha_bhnd=9 * n_chunks), "lsb"),
-        "sw_rps_1": (lambda: knobs.set_knob("SW_RPS", "1"), default_counts(serve["steps"]),
-                     "bits"),
-        "subpixel_quad": (lambda: knobs.set_knob("SUBPIXEL", "quad"), default_counts(n_chunks),
-                          "rounding"),
-        "fuse_einsum": (lambda: knobs.set_knob("FUSE_TPATH", "einsum"),
-                        default_counts(n_chunks), "rounding"),
-        "fused_tail": (lambda: knobs.set_knob("FUSED_TAIL", "1"),
-                       dict(sw_block=22 * n_chunks, dense_mha_bnhd=9 * n_chunks,
-                            subpixel_up_conv3x3=n_chunks, gn_silu_conv3x3=4 * n_chunks),
+        "tokens": (lambda: knobs.set_knob("SW_KERNEL", "tokens"), "pgtformer:tokens", "lsb"),
+        "pair": (lambda: knobs.set_knob("SW_PAIR", "1"), "pgtformer:pair", "lsb"),
+        "bhnd": (lambda: set_layout("bhnd"), "pgtformer:bhnd", "lsb"),
+        "sw_rps_1": (lambda: knobs.set_knob("SW_RPS", "1"), "pgtformer", "bits"),
+        "subpixel_quad": (lambda: knobs.set_knob("SUBPIXEL", "quad"), "pgtformer", "rounding"),
+        "fuse_einsum": (lambda: knobs.set_knob("FUSE_TPATH", "einsum"), "pgtformer",
+                        "rounding"),
+        "fused_tail": (lambda: knobs.set_knob("FUSED_TAIL", "1"), "pgtformer:fused_tail",
                        "rounding"),
-        "fused_up": (lambda: knobs.set_knob("FUSED_TAIL", "up"),
-                     dict(sw_block=22 * n_chunks, dense_mha_bnhd=9 * n_chunks,
-                          subpixel_up_conv3x3=4 * n_chunks), "rounding"),
+        "fused_up": (lambda: knobs.set_knob("FUSED_TAIL", "up"), "pgtformer:fused_up",
+                     "rounding"),
     }
     res = {}
-    for name, (select, want, rule) in plans.items():
+    for name, (select, row, rule) in plans.items():
         n = serve["steps"] if rule == "bits" else n_chunks
         try:
             select()
             reset_counts()
             outs, step_ms = _serve(r, frames, n, B)
-            counts = expect_counts(f"serving step [{name}]", **want)
+            counts = expect_counts(f"serving step [{name}]", **launches(row, n))
         finally:
             knobs.reset()
             set_layout("bnhd")
@@ -1289,7 +1256,7 @@ def phase_autoencoder(serve: dict):
         reset_counts()
         out, loss, codes = vae(x)
         torch.cuda.synchronize()
-        counts = expect_counts("TDCRQVAE3 forward", sw_block=22, vq_nearest=1)
+        counts = expect_counts("TDCRQVAE3 forward", **launches("tdcrqvae3"))
         peak = torch.cuda.max_memory_allocated()
         if (out.shape != (2 * cfg.tf, res, res, 3) or not bool(torch.isfinite(out).all())
                 or not bool(torch.isfinite(loss))):
@@ -1301,7 +1268,7 @@ def phase_autoencoder(serve: dict):
         again = vae.get_codes(x)
         dec = vae.decode_code(again)
         torch.cuda.synchronize()
-        expect_counts("TDCRQVAE3 get_codes + decode_code", sw_block=22, vq_nearest=1)
+        expect_counts("TDCRQVAE3 get_codes + decode_code", **launches("tdcrqvae3"))
         if not torch.equal(again, codes):
             raise SystemExit("TDCRQVAE3.get_codes differs from the forward's codes")
         d = (dec.float() - out.float()).abs()
@@ -1330,14 +1297,13 @@ def phase_autoencoder(serve: dict):
             reset_counts()
             out_up, _, codes_up = vae(x)
             torch.cuda.synchronize()
-            expect_counts("TDCRQVAE3 forward [FUSED_TAIL=up]", sw_block=22, vq_nearest=1,
-                          subpixel_up_conv3x3=4)
+            expect_counts("TDCRQVAE3 forward [FUSED_TAIL=up]", **launches("tdcrqvae3:fused_up"))
             up_ms = time_ms(lambda: vae(x), 3, warmup=0)
             knobs.set_knob("FUSED_TAIL", "1")
             reset_counts()
             out_1, _, _ = vae(x)
             torch.cuda.synchronize()
-            expect_counts("TDCRQVAE3 forward [FUSED_TAIL=1]", sw_block=22, vq_nearest=1)
+            expect_counts("TDCRQVAE3 forward [FUSED_TAIL=1]", **launches("tdcrqvae3"))
     finally:
         knobs.reset()
     d_up = (out_up.float() - out.float()).abs()
@@ -1364,7 +1330,7 @@ def phase_autoencoder(serve: dict):
         reset_counts()
         c8 = model.get_codes(x8)
         torch.cuda.synchronize()
-        counts8 = expect_counts("PGTFormer.get_codes", sw_block=8, vq_nearest=1)
+        counts8 = expect_counts("PGTFormer.get_codes", **launches("get_codes:8_clips"))
         peak8 = torch.cuda.max_memory_allocated()
         if (c8.shape != (8 * cfg.tf, 32, 32, 1) or int(c8.min()) < 0
                 or int(c8.max()) >= n_embed):
@@ -1399,12 +1365,11 @@ def phase_small_model():
     x = np.random.default_rng(3).uniform(0, 1, (2, 3, 32, 32, 3)).astype(np.float32)
     xc = torch.from_numpy(x)
     xg = xc.cuda().to(torch.bfloat16)
-    rel = lambda a, b: ((a.float().cpu() - b).norm() / b.norm()).item()
     with torch.inference_mode():
         _, logits_c, lq_c = cpu(xc)
         _, logits_g, lq_g = gpu(xg)
         _, logits_16, _ = cpu16(xc.to(torch.bfloat16))
-        lq_err, logit_err = rel(lq_g, lq_c), rel(logits_g, logits_c)
+        lq_err, logit_err = _rel(lq_g, lq_c), _rel(logits_g, logits_c)
         codes_c = logits_c.argmax(-1)
         agree = (logits_g.float().cpu().argmax(-1) == codes_c).float().mean().item()
         agree16 = (logits_16.float().argmax(-1) == codes_c).float().mean().item()
@@ -1736,9 +1701,9 @@ def phase_secondary(smi: str):
     import copy
     import torch
     t0 = time.perf_counter()
-    checked = _mha_check("[4, 256, 8, 64]", *mha_operands(4, 8, 256, 64, "normal", seed=31), 8)
+    qk, vp = mha_operands(4, 8, 256, 64, seed=31)
+    checked = _mha_check("[4, 256, 8, 64]", qk, vp, 8)
     out_bnhd = checked["bnhd"][0]
-    qk, vp = mha_operands(4, 8, 256, 64, "normal", seed=31)
     from pgtformer_tpu_torch.ops.dense_mha import dense_mha_plain_bnhd
     q, k, v = _mha_views(qk, vp, 8, "bnhd")
     ref = dense_mha_plain_bnhd(q, k, v, 64 ** -0.5)
@@ -1852,13 +1817,6 @@ TRAIN_WARMUP, TRAIN_TIMED = 1, 10    # steps of phase_train: warm-up, then timed
 # trainable tensors, not on every one.
 EMA_MOVED_SHARE = 0.9
 TRAIN_RES = 512
-# Exact launches per training step of the kernels' plan (use_pallas=True,
-# train_cli --pallas), forwards only: the backwards launch none.  The stage
-# II-IV teacher runs the module path, as JAX builds it without use_pallas:
-# its quantizer's K5 is the one K5 of a stage-III step.  Every training phase
-# (phase_train, phase_train_loop, phase_multi, phase_train_plans) reads this.
-TRAIN_PER_STEP = {"I": dict(sw_block=22, vq_nearest=1),
-                  "III": dict(sw_block=22, dense_mha_bnhd=9, vq_nearest=1)}
 # the kernels' shapes on the training path: one clip of 3 frames at 512^2
 TRAIN_K1_SHAPES = [(1, 3, 128, 128, 256), (1, 3, 64, 64, 256), (1, 3, 32, 32, 512)]
 TRAIN_VQ_ROWS = 3 * 32 * 32
@@ -1887,20 +1845,6 @@ def _compare_grads(name: str, got, ref, names):
     return worst
 
 
-def _block_module(C: int, T: int, seed: int):
-    """A block with non-trivial fp32 parameters on the card: the master
-    weights of the training path."""
-    import torch
-    from pgtformer_tpu_torch.nn.blocks import SWTransformerBlock, init_weights
-    g = torch.Generator().manual_seed(seed)
-    blk = init_weights(SWTransformerBlock(C, 8, T, (4, 4), (0, 0), mlp_ratio=1.0), g)
-    with torch.no_grad():
-        for p in blk.parameters():
-            if p.dim() == 1:
-                p.add_(torch.randn(p.shape, generator=g) * 0.1)
-    return blk.cuda()
-
-
 def _block_grads(fn, x, cot, blocks):
     """(output, [grad of x, then of every parameter of `blocks`]) of one
     forward + backward of fn(x, *live weights)."""
@@ -1924,7 +1868,6 @@ def phase_train_grad(iters: int = 3):
     import torch
     from pgtformer_tpu_torch.ops import dense_mha as dm
     from pgtformer_tpu_torch.ops import sw_block as sw
-    from pgtformer_tpu_torch.ops.window import shifted_window_mask, window_partition
     k1_rows, res = [], {}
 
     def check(tag, kernel_fn, plain_fn, x, blocks, counter, tol):
@@ -1955,12 +1898,8 @@ def phase_train_grad(iters: int = 3):
         k1_rows.append(dict(shape=list(shape), shift=list(shift), per_step=per_step, **row))
 
     shape = (8, 3, 64, 64, 256)
-    B, T, H, W, C = shape
-    blk = _block_module(C, T, seed=750)
-    tok = window_partition(torch.roll(_case_input(80, shape), (-2, -2), dims=(2, 3)),
-                           (4, 4)).contiguous()
-    mask = torch.as_tensor(shifted_window_mask(T, H, W, (4, 4), (2, 2)), device="cuda")
-    nW = (H // 4) * (W // 4)
+    blk = _block_module(shape[-1], shape[1], seed=750)
+    tok, mask, nW = _tokens(_case_input(80, shape), (2, 2))
     res["sw_block_tokens"] = check(
         f"K3 tokens{list(tok.shape)}", lambda xx, w: sw.sw_block_tokens(xx, w, mask, nW),
         lambda xx, w: sw.sw_block_tokens_plain(xx, w, mask, nW), tok, [blk],
@@ -1984,10 +1923,7 @@ def phase_train_grad(iters: int = 3):
                         _case_input(90 + 2 * i + any(shift), shape), [blk], "sw_block", K1_TOL)
             train_rows.append(dict(kernel="sw_block", shape=list(shape), shift=list(shift), **row))
         blk = _block_module(C, T, seed=780 + i)
-        tok = window_partition(torch.roll(_case_input(96 + i, shape), (-2, -2), dims=(2, 3)),
-                               (4, 4)).contiguous()
-        mask = torch.as_tensor(shifted_window_mask(T, H, W, (4, 4), (2, 2)), device="cuda")
-        nW = (H // 4) * (W // 4)
+        tok, mask, nW = _tokens(_case_input(96 + i, shape), (2, 2))
         row = check(f"K3 tokens{list(tok.shape)} (training)",
                     lambda xx, w, m=mask, n=nW: sw.sw_block_tokens(xx, w, m, n),
                     lambda xx, w, m=mask, n=nW: sw.sw_block_tokens_plain(xx, w, m, n),
@@ -2000,7 +1936,7 @@ def phase_train_grad(iters: int = 3):
                     _case_input(99 + i, shape), [b0, b1], "sw_block_pair", K1_TOL)
         train_rows.append(dict(kernel="sw_block_pair", shape=list(shape), **row))
 
-    qk, vp = mha_operands(1, 8, 3072, 64, "normal", seed=82)
+    qk, vp = mha_operands(1, 8, 3072, 64, seed=82)
     for layout, plain, counter in (("bnhd", dm.dense_mha_plain_bnhd, "dense_mha_bnhd"),
                                    ("bhnd", dm.dense_mha_plain, "dense_mha_bhnd")):
         q, k, v = (a.detach().clone().requires_grad_() for a in _mha_views(qk, vp, 8, layout))
@@ -2114,7 +2050,7 @@ def phase_train(smi: str):
     p0 = _clone_params(state.g.params.items())
     e0 = {n: t.clone() for n, t in state.g.ema_params.items()}
     c0 = {n: t.detach().clone() for n, t in state.g.codebook.items()}
-    state, ms1, peak1, losses1 = _train("I", tr, state, gt, smi, TRAIN_PER_STEP["I"])
+    state, ms1, peak1, losses1 = _train("I", tr, state, gt, smi, LAUNCHES["train:I"])
     trainable = {n for n, p in state.g.params.items() if p.requires_grad}
     moved = _moved(p0, state.g.params.items())
     ema_moved = {n for n, t in state.g.ema_params.items() if not torch.equal(e0[n], t)}
@@ -2127,7 +2063,7 @@ def phase_train(smi: str):
     log(f"[train:I] all {len(trainable)} parameters, the EMA of {len(ema_moved & trainable)} "
         f"of them and the {len(c0)} codebook buffers moved OK")
     out["I"] = dict(step_ms=ms1, peak_gib=peak1 / 2 ** 30, losses=losses1,
-                    per_step=TRAIN_PER_STEP["I"])
+                    per_step=LAUNCHES["train:I"])
     del tr, state, p0, e0, c0
     torch.cuda.empty_cache()
 
@@ -2144,7 +2080,7 @@ def phase_train(smi: str):
     buffers0 = {n: b.detach().clone() for n, b in tr.model.named_buffers()}
     e0 = {n: t.clone() for n, t in state.g.ema_params.items()}
     c0 = _clone_params(state.g.codebook.items())
-    per_step = TRAIN_PER_STEP["III"]
+    per_step = LAUNCHES["train:III"]
     state, ms3, peak3, losses3 = _train("III", tr, state, {"lq": lq, "gt": gt}, smi, per_step)
     trainable = {n for n, p in state.g.params.items() if p.requires_grad}
     frozen = set(state.g.params) - trainable
@@ -2173,19 +2109,10 @@ def phase_train(smi: str):
 
 LOOP_RES = 512            # the seeded VFHQ tree's frames
 LOOP_VAL_SAMPLES = 3      # val/GT: 1 clip x 3 frames, inter_space 1
-LOOP_PER_VAL = {"I": dict(sw_block=22, vq_nearest=1),        # TDCRQVAE3 forward
-                "III": dict(sw_block=22, dense_mha_bnhd=9)}  # PGTFormer forward
-# JAX's default training command (neither --bf16 nor --pallas): fp32 on the
-# module path, K5 alone, per training step and per validation forward
-LOOP_MODULE_PER_STEP = LOOP_MODULE_PER_VAL = dict(vq_nearest=1)
 LOOP_FROZEN = ("quantizer", "decoder", "conditionnet", "post_quant_conv")
 LOOP_METRIC_KEYS = {"I": {"l_pix", "l_percep", "l_quant", "l_g_gan", "l_g_total", "l_d"},
                     "III": {"l_token", "l_feat", "l_pix", "l_percep", "l_g_gan", "l_g_total",
                             "l_d"}}
-
-
-def _launch_counts() -> dict:
-    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 class _LoopObserver:
@@ -2278,8 +2205,9 @@ def _loop_run(tag: str, stage: str, argv, obs_steps: int, smi: str, expect_resum
     got = _launch_counts()
     val = {k: sum(v[k] for v in obs.val_launches) for k in got}
     n_val = len(obs.val_launches) * LOOP_VAL_SAMPLES
-    per_step = TRAIN_PER_STEP[stage] if per_step is None else per_step
-    per_val = LOOP_PER_VAL[stage] if per_val is None else per_val
+    per_step = LAUNCHES[f"train:{stage}"] if per_step is None else per_step
+    if per_val is None:         # the validation forward: TDCRQVAE3's or PGTFormer's
+        per_val = LAUNCHES["tdcrqvae3" if stage == "I" else "pgtformer"]
     want_val = {k: per_val.get(k, 0) * n_val for k in got}
     want_train = {k: per_step.get(k, 0) * obs_steps for k in got}
     train = {k: got[k] - val[k] for k in got}
@@ -2500,7 +2428,7 @@ def phase_train_loop(smi: str):
         reset_counts()
         r.prime(frames[0])
         served = r.restore_chunk(frames[1:9]).cpu().numpy()
-        counts = expect_counts("serving stage III's export", sw_block=22, dense_mha_bnhd=9)
+        counts = expect_counts("serving stage III's export", **launches("pgtformer"))
         if served.dtype != np.uint8 or served.shape != (8, LOOP_RES, LOOP_RES, 3):
             raise SystemExit(f"[train_loop:serve] frames {served.dtype} {served.shape}")
         log(f"[train_loop:serve] net_g_3.pth through VideoRestorer.restore_chunk: 8 frames "
@@ -2514,7 +2442,7 @@ def phase_train_loop(smi: str):
         obs, steps, t4, r4 = _loop_run(
             "I:fp32", "I", ["-opt", ymls["I"], "--exp-dir", exp32, "--total-iter", "2",
                             "--data-root", train, "--val-data-root", val], 2, smi,
-            per_step=LOOP_MODULE_PER_STEP, per_val=LOOP_MODULE_PER_VAL)
+            per_step=LAUNCHES["module"], per_val=LAUNCHES["module"])
         plans = [m for m in obs.records if m.startswith("plan:")]
         if (plans != ["plan: pallas: false, dtype float32"] or [r["step"] for r in steps] != [1, 2]
                 or (t4.get("pallas"), t4.get("dtype")) != (False, "float32")
@@ -2553,7 +2481,6 @@ def phase_train_loop(smi: str):
 EVAL_RES = 512
 EVAL_CLIPS, EVAL_FRAMES = 2, 5     # the seeded VFHQ-Test tree: GT/<clip>/%08d.png
 EVAL_BATCH = 4
-EVAL_PER_FORWARD = dict(sw_block=22, dense_mha_bnhd=9)
 # the eval forward's kernel shapes: its batches of 4 clips and the tails of 2
 EVAL_K1_SHAPES = [(b, 3, h, h, c) for b in (4, 2) for h, c in ((128, 256), (64, 256), (32, 512))]
 EVAL_MHA_BATCHES = (4, 2)      # K6 at [B, 3072, 8, 64]
@@ -2668,8 +2595,7 @@ def _eval_run(tag: str, argv, n_samples: int, smi: str):
         rc = eval_cli.main(argv)
     wall = time.perf_counter() - t0
     forwards = len(obs.batch_ms)
-    counts = expect_counts(f"[eval:{tag}] eval_cli.main", **{
-        k: v * forwards for k, v in EVAL_PER_FORWARD.items()})
+    counts = expect_counts(f"[eval:{tag}] eval_cli.main", **launches("pgtformer", forwards))
     peak = torch.cuda.max_memory_allocated() - resident
     text = out.getvalue()
     for line in text.splitlines():
@@ -2702,7 +2628,7 @@ def _eval_run(tag: str, argv, n_samples: int, smi: str):
         f"{per['rest']:.4f}; peak device memory {peak / 2 ** 30:.2f} GiB above the "
         f"{resident / 2 ** 30:.2f} GiB resident before it; "
         f"launches {{{', '.join(f'{k}: {v}' for k, v in counts.items() if v)}}} "
-        f"({', '.join(f'{v}/forward' for v in EVAL_PER_FORWARD.values())}); card: {smi}")
+        f"({', '.join(f'{v}/forward' for v in LAUNCHES['pgtformer'].values())}); card: {smi}")
     return dict(wall_s=wall, setup_s=setup, samples=n_samples, forwards=forwards,
                 batch_ms=obs.batch_ms, batch_sizes=obs.batch_sizes,
                 batch4_ms_median=statistics.median(full) if full else None,
@@ -2721,7 +2647,7 @@ def _eval_kernel_checks():
     for i, shape in enumerate(EVAL_K1_SHAPES):
         for shift in ((0, 0), (2, 2)):
             j = 400 + 2 * i + any(shift)
-            w = _sw_block_weights(shape[-1], 8, shape[1], seed=j)
+            w = _sw_block_weights(shape[-1], shape[1], seed=j)
             x = _case_input(j, shape)
             err, mag = _compare(f"K1 {shape} {shift} (eval)", sw_block(x, w, shift),
                                 sw_block_plain(x, w, shift), K1_TOL)
@@ -2731,8 +2657,7 @@ def _eval_kernel_checks():
                              max_abs_err=err, max_abs_ref=mag))
     for i, b in enumerate(EVAL_MHA_BATCHES):
         shape = [b, 3072, 8, 64]
-        checked = _mha_check(f"{shape} (eval)", *mha_operands(b, 8, 3072, 64, "normal",
-                                                              seed=420 + i), 8)
+        checked = _mha_check(f"{shape} (eval)", *mha_operands(b, 8, 3072, 64, seed=420 + i), 8)
         _, err, mag = checked["bnhd"]
         log(f"[eval:kernels] K6 dense_mha_bnhd {shape}: max|d|={err:.3e} (max|ref|={mag:.3e}, "
             f"tol {K2_TOL}*max|ref|); bhnd max|d|={checked['bhnd'][1]:.3e}, two launches "
@@ -2918,7 +2843,6 @@ VIDEO_FRAMES = 192
 VIDEO_STEPS = 24
 VIDEO_FPS = 25.0
 VIDEO_FPS_TOL = 0.01     # |fps(output) - fps(input)| as the reader reports them
-VIDEO_PER_STEP = dict(sw_block=22, dense_mha_bnhd=9)
 VIDEO_YUV_LSB = 1        # written planes vs _rgb_to_yuv420 of the step's float output on the CPU
 VIDEO_LUMA_TOL = 3.0     # mean |luma(decoded yuv420 file) - luma(restored frames)|, as JAX's test
 VIDEO_COPY_SHARE = 0.25  # each chunk's host copy ends within this share of a step after its step
@@ -3076,8 +3000,8 @@ def _video_case(tag, r, src, backend, readback, inflight, codec, root, smi, step
         with _TimedEvents() as ev:
             reset_counts()
             stats = r.restore_video(src, out, frame_callback=cb, codec=codec)
-            counts = expect_counts(f"[video:{tag}] restore_video", **{
-                k: v * VIDEO_STEPS for k, v in VIDEO_PER_STEP.items()})
+            counts = expect_counts(f"[video:{tag}] restore_video",
+                                   **launches("pgtformer", VIDEO_STEPS))
     finally:
         pipeline._open_writer = real_open_writer
     peak = torch.cuda.max_memory_allocated() - resident
@@ -3165,8 +3089,8 @@ def _video_inflight_sweep(r, src, root, smi, depths=(1, 2, 3, 3, 2, 1)):
         r.inflight = depth
         reset_counts()
         st = r.restore_video(src, os.path.join(root, "sweep.mp4"))
-        expect_counts(f"[video:inflight] restore_video(inflight={depth})", **{
-            k: v * VIDEO_STEPS for k, v in VIDEO_PER_STEP.items()})
+        expect_counts(f"[video:inflight] restore_video(inflight={depth})",
+                      **launches("pgtformer", VIDEO_STEPS))
         rates.setdefault(depth, []).append((st["fps"], st["steady_fps"]))
     log(f"[video:inflight] restore_video(opencv, rgb, no callback), {VIDEO_FRAMES} frames, "
         f"depths in the order {depths}: "
@@ -3206,8 +3130,7 @@ def _video_cli(src, root, smi, native_ok):
             rc = cli.main(["-i", src, "-o", os.path.join(root, "cli.mp4"), "--codec", "mpeg4",
                            "--encode-quality-check"])
         wall = time.perf_counter() - t0
-        counts = expect_counts("[video:cli] cli.main", **{
-            k: v * VIDEO_STEPS for k, v in VIDEO_PER_STEP.items()})
+        counts = expect_counts("[video:cli] cli.main", **launches("pgtformer", VIDEO_STEPS))
     finally:
         cli.quality_check, vmaf.VmafScorer.update = real_qc, real_update
     lines = text.getvalue().splitlines()
@@ -3247,8 +3170,7 @@ def _video_cli_fp32(src, root, smi, ref):
         rc = cli.main(["-i", src, "-o", os.path.join(root, "cli_fp32.mp4"), "--codec", "mpeg4",
                        "--fp32", "--dump-frames", dump])
     wall = time.perf_counter() - t0
-    counts = expect_counts("[video:cli_fp32] cli.main --fp32", **{
-        k: v * VIDEO_STEPS for k, v in VIDEO_PER_STEP.items()})
+    counts = expect_counts("[video:cli_fp32] cli.main --fp32", **launches("pgtformer", VIDEO_STEPS))
     for line in text.getvalue().splitlines():
         log(f"[video:cli_fp32] | {line}")
     names = sorted(os.listdir(dump)) if os.path.isdir(dump) else []
@@ -3385,7 +3307,6 @@ def phase_video(smi: str, serve: dict):
 
 MULTI_B = 8                   # the serving chunk: Bl = 4 windows a rank at two ranks
 MULTI_CHUNKS = 3
-MULTI_SERVE_PER_STEP = dict(sw_block=22, dense_mha_bnhd=9)    # per rank and step
 MULTI_TRAIN_STEPS = 2
 MULTI_LOSS_TOL = 5e-2         # |loss(ranks) - loss(one process)| <= this * max(|ref|, 0.1),
                               # the card test's bf16 step tolerance
@@ -3407,7 +3328,7 @@ def _multi_group(rank: int, world: int, store: str, backend: str):
 
 
 def _launches() -> dict:
-    return {name: fn.launches for name, fn in _wrappers().items() if fn.launches}
+    return {name: v for name, v in _launch_counts().items() if v}
 
 
 def _multi_serve_rank(rank: int, world: int, store: str, backend: str, frames):
@@ -3592,7 +3513,7 @@ def _multi_serving(tag: str, backend: str, world: int, frames, ref, serve: dict,
                          timeout_s=MULTI_TIMEOUT_S)
     wall = time.perf_counter() - t0
     for k, r in enumerate(res):
-        want = {n: v * MULTI_CHUNKS for n, v in MULTI_SERVE_PER_STEP.items()}
+        want = launches("pgtformer", MULTI_CHUNKS)          # per rank
         if r["counts"] != want:
             raise SystemExit(f"[multi:{tag}] rank {k} launched {r['counts']}, expected {want}")
     got = res[0]["frames"]
@@ -3647,7 +3568,7 @@ def _multi_training(tag: str, backend: str, kind: str, ref_first, smi: str):
         shutil.rmtree(root, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
-    want = TRAIN_PER_STEP[kind]          # per rank and step
+    want = LAUNCHES[f"train:{kind}"]          # per rank and step
     for i in range(MULTI_TRAIN_STEPS):
         digests = [r["steps"][i]["digest"] for r in res]
         if len(set(digests)) != 1:
@@ -3755,8 +3676,6 @@ FP32_CHUNKS = 4          # fp32 serving: prime + this many steps (the first one 
 FP32_AGREE = 0.9         # fp32 vs bf16 serving: share of predicted codes that agree
                          # (bf16 alone flips ~2.7% of random-weight codes, phase 7)
 PLAN_ROUNDS, PLAN_STEPS = 2, 3     # training plans: best of two rounds of three steps
-PLAN_PER_STEP = {False: dict(vq_nearest=1), True: TRAIN_PER_STEP["I"]}
-PLAN_PER_STEP_III = {False: dict(vq_nearest=1), True: TRAIN_PER_STEP["III"]}
 # the small geometry in fp32, card (kernels' fp32 forms) against the CPU's fp32
 # module path: between the fp32 reading (lq 6.6e-3, logits 5.7e-3, forced-code
 # out 1.4e-3) and the bf16 one (phase_small_model: 1.38e-2, 1.32e-2, 2.7e-3),
@@ -3781,21 +3700,15 @@ def _fp32_kernels(iters: int):
     from pgtformer_tpu_torch.ops.sw_block import (
         sw_block, sw_block_pair, sw_block_pair_plain, sw_block_plain, sw_block_tokens,
         sw_block_tokens_plain)
-    from pgtformer_tpu_torch.ops.window import shifted_window_mask, window_partition
     bf = torch.bfloat16
     rows = {"sw_block": [], "sw_block_tokens": [], "sw_block_pair": []}
 
     def bound32(shape, blocks=1, mask_bytes=0):
-        # fp32 in and out: the bf16 bound's activation bytes doubled
-        B, T, H, W, C = shape
-        fl = _sw_block_flops(shape, blocks)
-        nb = 2 * B * T * H * W * C * 4 + blocks * (6 * C * C * 2 + 10 * C * 4
-                                                  + 8 * (T * 16) ** 2 * 4) + mask_bytes
-        return bound_ms(fl, nb)
+        # fp32 in and out: the bf16 bound plus as many activation bytes again
+        return sw_block_bound(shape, blocks, mask_bytes + 2 * math.prod(shape) * 2)
 
     for i, (shape, shift, per_step) in enumerate(K1_CASES):
-        B, T, H, W, C = shape
-        w = _sw_block_weights(C, 8, T, seed=100 + i)
+        w = _sw_block_weights(shape[-1], shape[1], seed=100 + i)
         x = _case_input(i, shape).float()
         out = sw_block(x, w, shift)
         err, mag = _compare(f"K1 fp32 {shape} {shift}", out, sw_block_plain(x, w, shift), K1_TOL)
@@ -3807,17 +3720,11 @@ def _fp32_kernels(iters: int):
         rows["sw_block"].append(dict(shape=list(shape), shift=list(shift), per_step=per_step,
                                      ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
                                      max_abs_err=err))
-        shifted = any(shift)
-        tok = window_partition(torch.roll(x, (-shift[0], -shift[1]), dims=(2, 3)) if shifted
-                               else x, (4, 4)).contiguous()
-        nW = (H // 4) * (W // 4)
-        mask = (torch.as_tensor(shifted_window_mask(T, H, W, (4, 4), shift), device="cuda")
-                if shifted else None)
+        tok, mask, nW = _tokens(x, shift)
         k3 = sw_block_tokens(tok, w, mask, nW)
         err3, _ = _compare(f"K3 fp32 {shape} {shift}", k3,
                            sw_block_tokens_plain(tok, w, mask, nW), K1_TOL)
-        k1_tok = window_partition(torch.roll(out, (-shift[0], -shift[1]), dims=(2, 3)), (4, 4))
-        if not torch.equal(k3, k1_tok):
+        if not torch.equal(k3, _tokens(out, shift)[0]):
             raise SystemExit(f"K3 fp32 {shape}: differs from K1 on the same windows")
         ms3 = time_ms(lambda: sw_block_tokens(tok, w, mask, nW), iters)
         plain3 = time_ms(lambda: sw_block_tokens_plain(tok, w, mask, nW), 1, warmup=1)
@@ -3830,8 +3737,8 @@ def _fp32_kernels(iters: int):
             f"{ms:.4f} plain_ms={plain:.4f} bound_ms={bms:.4f} ({by}); K3 max|d|={err3:.3e}, "
             f"bit-equal to K1, kernel_ms={ms3:.4f} OK")
     for i, (shape, per_step) in enumerate(K4_CASES):
-        w0 = _sw_block_weights(shape[-1], 8, shape[1], seed=200 + i)
-        w1 = _sw_block_weights(shape[-1], 8, shape[1], seed=300 + i)
+        w0 = _sw_block_weights(shape[-1], shape[1], seed=200 + i)
+        w1 = _sw_block_weights(shape[-1], shape[1], seed=300 + i)
         x = _case_input(10 + i, shape).float()
         out = sw_block_pair(x, w0, w1, (2, 2))
         if not torch.equal(out, sw_block(sw_block(x, w0, (0, 0)), w1, (2, 2))):
@@ -3849,9 +3756,8 @@ def _fp32_kernels(iters: int):
             f"plain_ms={plain:.4f} bound_ms={bms:.4f} ({by}) OK")
 
     B, H, N, D = 8, 8, 3072, 64
-    qk, vp = (a.float() for a in mha_operands(B, H, N, D, "normal", seed=7))
-    flops = 4 * B * H * N * N * D
-    bms, by = bound_ms(flops, 4 * B * N * H * D * 4)
+    qk, vp = (a.float() for a in mha_operands(B, H, N, D, seed=7))
+    bms, by = bound_ms(mha_flops(B, N, H, D), 4 * B * N * H * D * 4)     # fp32 q, k, v, out
     mha, outs = {}, {}
     for layout, plain_fn, name in (("bnhd", dense_mha_plain_bnhd, "dense_mha_bnhd"),
                                    ("bhnd", dense_mha_plain, "dense_mha_bhnd")):
@@ -3891,7 +3797,6 @@ def _fp32_small_model():
     cpu_k = _plan(copy.deepcopy(cpu), True)
     xc = torch.from_numpy(np.random.default_rng(3).uniform(0, 1, (2, 3, 32, 32, 3))
                           .astype(np.float32))
-    rel = lambda a, b: ((a.float().cpu() - b).norm() / b.norm()).item()
     with torch.inference_mode():
         _, logits_c, lq_c = cpu(xc)
         _, logits_g, lq_g = gpu(xc.cuda())
@@ -3901,7 +3806,7 @@ def _fp32_small_model():
         agree_k = (logits_k.argmax(-1) == codes_c).float().mean().item()
         out_c = cpu.restore_from_codes(xc, codes_c)
         out_g = gpu.restore_from_codes(xc.cuda(), codes_c.cuda()).cpu()
-    lq_err, logit_err = rel(lq_g, lq_c), rel(logits_g, logits_c)
+    lq_err, logit_err = _rel(lq_g, lq_c), _rel(logits_g, logits_c)
     out_err = ((out_g - out_c).abs().mean() / out_c.abs().max()).item()
     ok = (lq_err <= FP32_SMALL_LQ_TOL and logit_err <= FP32_SMALL_LOGIT_TOL
           and out_g.dtype == logits_g.dtype == torch.float32
@@ -3939,7 +3844,7 @@ def phase_fp32(smi: str, serve: dict):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     outs, step_ms = _serve(r, frames, n, B)
-    counts = expect_counts("fp32 serving step", sw_block=22 * n, dense_mha_bnhd=9 * n)
+    counts = expect_counts("fp32 serving step", **launches("pgtformer", n))
     peak = torch.cuda.max_memory_allocated()
     d = np.concatenate([np.abs(a.cpu().numpy().astype(np.int16) - b.cpu().numpy())
                         for a, b in zip(outs, serve["outs"][:n])])
@@ -4055,7 +3960,7 @@ def _checkpoint_round_trip(serve: dict):
     r = VideoRestorer(sd, RELEASE_PGTFORMER, w=1.0, batch_windows=8, dtype=torch.bfloat16,
                       device="cuda")
     outs, _ = _serve(r, serve["frames"], serve["steps"], 8)
-    digest = hashlib.sha256(b"".join(o.cpu().numpy().tobytes() for o in outs)).hexdigest()[:16]
+    digest = _digest(outs)
     if digest != serve["digest"]:
         raise SystemExit(f"[ckpt] served from the round trip: out_sha256={digest}, the serving "
                          f"step's {serve['digest']}")
@@ -4081,14 +3986,14 @@ def phase_train_plans(smi: str, serve: dict):
     t0 = time.perf_counter()
     f32, b16 = torch.float32, torch.bfloat16
     runs = {}
-    for stage, plans, per_step in (
-            ("I", ((False, f32), (True, f32), (False, b16), (True, b16)), PLAN_PER_STEP),
-            ("III", ((False, f32), (True, b16)), PLAN_PER_STEP_III)):
+    for stage, plans in (("I", ((False, f32), (True, f32), (False, b16), (True, b16))),
+                         ("III", ((False, f32), (True, b16)))):
         tr, state, batch = bench_train_step.build(stage, plans[0][0], plans[0][1],
                                                   torch.device("cuda"), TRAIN_RES, 1)
         for use, dt in plans:
             tag = f"{stage}:{'pallas' if use else 'xla'}:{str(dt)[6:]}"
-            state, runs[tag] = _plan_steps(tag, tr, state, batch, use, dt, per_step[use], smi)
+            per_step = LAUNCHES[f"train:{stage}" if use else "module"]
+            state, runs[tag] = _plan_steps(tag, tr, state, batch, use, dt, per_step, smi)
         del tr, state, batch
         gc.collect()
         torch.cuda.empty_cache()
@@ -4100,7 +4005,7 @@ def phase_train_plans(smi: str, serve: dict):
         with open(os.path.join(d, "bench.json")) as f:
             bench = json.load(f)
         for rec in bench["runs"]:
-            if rec["launches_per_step"] != PLAN_PER_STEP[rec["pallas"]]:
+            if rec["launches_per_step"] != LAUNCHES["train:I" if rec["pallas"] else "module"]:
                 raise SystemExit(f"bench_train_step launches {rec['launches_per_step']}")
         torch.cuda.empty_cache()
         log("[train_plans:profile] profile_step --code --steps 2")
@@ -4130,55 +4035,56 @@ def _bf16_ulps(a, b):
     return (ordered(a) - ordered(b)).abs()
 
 
-class _GnRecorder:
-    """Wraps the GroupNorm modules' kernel entry: counts the calls of each
-    (shape, batch stride, silu) and keeps the first call's input."""
+def _record_call(tag: str, name: str, key, keep, run_call):
+    """One call of `run_call`, after a warm-up that builds and caches, with
+    nn/blocks.py's kernel entry `name` wrapped: returns (launches a call,
+    {key(*args): calls}, {key(*args): keep(*args) of its first call}); the
+    entry's launches must be the calls seen."""
+    import torch
+    import pgtformer_tpu_torch.nn.blocks as blocks
+    fn, calls, kept = getattr(blocks, name), {}, {}
 
-    def __init__(self):
-        import pgtformer_tpu_torch.nn.blocks as blocks
-        self.blocks, self.fn = blocks, blocks.group_norm_silu
-        self.calls, self.inputs, self.on = {}, {}, False
-        blocks.group_norm_silu = self
+    def wrapped(*a, **kw):
+        k = key(*a, **kw)
+        calls[k] = calls.get(k, 0) + 1
+        if k not in kept:
+            kept[k] = keep(*a, **kw)
+        return fn(*a, **kw)
 
-    def __call__(self, x, weight, bias, silu=False, groups=32, eps=1e-6):
-        if self.on:
-            key = (tuple(x.shape), x.stride(0), bool(silu))
-            self.calls[key] = self.calls.get(key, 0) + 1
-            self.inputs.setdefault(key, x)
-        return self.fn(x, weight, bias, silu, groups, eps)
-
-    def remove(self):
-        self.blocks.group_norm_silu = self.fn
+    run_call()
+    torch.cuda.synchronize()
+    n0 = fn.launches
+    setattr(blocks, name, wrapped)
+    try:
+        run_call()
+        torch.cuda.synchronize()
+    finally:
+        setattr(blocks, name, fn)
+    per_call = fn.launches - n0
+    if per_call != sum(calls.values()):
+        raise SystemExit(f"[{tag}] {per_call} launches, {sum(calls.values())} calls seen")
+    return per_call, calls, kept
 
 
 def _gn_cell(tag: str, run_call, iters: int, smi: str) -> dict:
-    """The GroupNorm kernel at every shape of one call of `run_call`:
+    """The GroupNorm kernel at every shape of one call of `run_call`, on the
+    call's own inputs (the first of each shape, batch stride and silu):
     launches a call, bf16 ulps from its plain version, two launches
     bit-equal, kernel / plain / library time against the bound (x read once
     and y written once in bf16), each summed over the call's shapes."""
     import torch
     import torch.nn.functional as F
     from pgtformer_tpu_torch.ops.group_norm import group_norm_silu, group_norm_silu_plain
-    rec = _GnRecorder()
-    try:
-        run_call()                      # warm-up: builds and caches
-        torch.cuda.synchronize()
-        n0 = group_norm_silu.launches
-        rec.on = True
-        run_call()
-        torch.cuda.synchronize()
-        rec.on = False
-        per_call = group_norm_silu.launches - n0
-    finally:
-        rec.remove()
-    if per_call != sum(rec.calls.values()):
-        raise SystemExit(f"[gn:{tag}] {per_call} launches, {sum(rec.calls.values())} calls seen")
+    per_call, calls, inputs = _record_call(
+        f"gn:{tag}", "group_norm_silu",
+        lambda x, w, b, silu=False, groups=32, eps=1e-6: (tuple(x.shape), x.stride(0), bool(silu)),
+        lambda x, *_: x, run_call)
     g = torch.Generator(device="cuda").manual_seed(7)
     rows, tot = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, elements=0,
                          within_1ulp=0, max_ulp=0)
-    by_elements = sorted(rec.calls.items(), key=lambda kv: -kv[1] * math.prod(kv[0][0]))
+    by_elements = sorted(calls.items(), key=lambda kv: -kv[1] * math.prod(kv[0][0]))
     for (shape, stride0, silu), n in by_elements:
-        x = rec.inputs[(shape, stride0, silu)]
+        x = inputs[(shape, stride0, silu)]
         C = shape[-1]
         w = 1.0 + 0.3 * torch.randn(C, device="cuda", generator=g)
         b = 0.2 * torch.randn(C, device="cuda", generator=g)
@@ -4199,23 +4105,22 @@ def _gn_cell(tag: str, run_call, iters: int, smi: str) -> dict:
         xc = x.permute(0, 3, 1, 2)
         lib = graph_ms(lambda: (F.silu(F.group_norm(xc, 32, w16, b16, 1e-6)) if silu
                                 else F.group_norm(xc, 32, w16, b16, 1e-6)), iters)
-        bms, _ = bound_ms(0.0, 2 * 2 * x.numel())
-        row = dict(shape=list(shape), batch_stride=stride0, silu=silu, per_call=n, ms=ms,
-                   host_loop_ms=loop, plain_ms=plain, library_ms=lib, bound_ms=bms,
-                   bound_share=bms / ms, max_ulp=int(ulps.max()),
-                   share_within_1ulp=within / x.numel())
+        row = timing_row(ms, plain, lib, bound_ms(0.0, 2 * 2 * x.numel()), 0.0,
+                         shape=list(shape), batch_stride=stride0, silu=silu, per_call=n,
+                         host_loop_ms=loop, max_ulp=int(ulps.max()),
+                         share_within_1ulp=within / x.numel())
         rows.append(row)
         log(f"[gn:{tag}] x{list(shape)} stride0={stride0} silu={int(silu)} x{n} a call: "
             f"max_ulp={row['max_ulp']} within_1ulp={row['share_within_1ulp']:.6f} repeat "
             f"bit-equal; kernel_ms={ms:.4f} (host loop {loop:.4f}) plain_ms={plain:.4f} lib_ms="
-            f"{lib:.4f} bound_ms={bms:.4f} = {bms / ms:.3f} of the bound")
-        for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("bound_ms", bms)):
-            tot[k] += n * v
+            f"{lib:.4f} bound_ms={row['bound_ms']:.4f} = {row['bound_share']:.3f} of the bound")
+        for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            tot[k] += n * row[k]
         tot["elements"] += n * x.numel()
         tot["within_1ulp"] += n * within
         tot["max_ulp"] = max(tot["max_ulp"], row["max_ulp"])
         del out, again, ref, ulps
-    rec.inputs.clear()
+    inputs.clear()
     share = tot["within_1ulp"] / tot["elements"]
     bound_share = tot["bound_ms"] / tot["ms"]
     log(f"[gn:{tag}] a call: {per_call} launches of group_norm_silu ({2 * per_call} kernels), "
@@ -4230,32 +4135,51 @@ def _gn_cell(tag: str, run_call, iters: int, smi: str) -> dict:
                 bound_share=bound_share, **tot)
 
 
-def phase_group_norm(smi: str, iters: int = 10) -> dict:
-    """The GroupNorm (+ SiLU) kernel at every shape of one serving call of
-    the benchmark's two cells: a PGTFormer step (RELEASE_PGTFORMER 512x512,
-    8 new frames, seeded weights) and a CodeFormer forward on 16 faces
-    (w=0.5, AdaIN), both bf16; then the PGTFormer step's frames with the
-    kernel against the same step on the plain norms."""
+def _video_call(n: int):
+    """(restorer, frames, call): one call of the video cell, a PGTFormer
+    step (RELEASE_PGTFORMER 512x512, B=8 new frames, seeded weights, bf16),
+    primed on seeded frames; each call serves the next of n chunks."""
     import numpy as np
     import torch
-    import pgtformer_tpu_torch.nn.blocks as blocks
     from pgtformer_tpu_torch.config import RELEASE_PGTFORMER
-    from pgtformer_tpu_torch.models.codeformer import CodeFormer
-    from pgtformer_tpu_torch.ops.group_norm import group_norm_silu_plain
     from pgtformer_tpu_torch.pipeline import VideoRestorer
     B = 8
     res = RELEASE_PGTFORMER.vqvae.ddconfig.resolution
     r = VideoRestorer(None, RELEASE_PGTFORMER, w=1.0, batch_windows=B,
                       dtype=torch.bfloat16, device="cuda", seed=0)
-    frames = np.random.default_rng(0).integers(0, 256, (3 * B + 1, res, res, 3), dtype=np.uint8)
+    frames = np.random.default_rng(0).integers(0, 256, (n * B + 1, res, res, 3), dtype=np.uint8)
     r.reset()
     r.prime(frames[0])
-    step = iter(range(3))
+    step = iter(range(n))
+    return r, frames, lambda: r.restore_chunk(frames[1 + next(step) * B:][:B])
 
-    def video_call():
-        i = next(step)
-        return r.restore_chunk(frames[1 + i * B:1 + (i + 1) * B])
 
+def _faces_call():
+    """One call of the faces cell: a CodeFormer forward on 16 seeded 512x512
+    faces (w=0.5, AdaIN), seeded weights, bf16."""
+    import torch
+    from pgtformer_tpu_torch.models.codeformer import CodeFormer
+    cf = CodeFormer(use_pallas=True, generator=torch.Generator().manual_seed(3))
+    cf = cf.to("cuda", torch.bfloat16).eval()
+    faces = torch.rand((16, 512, 512, 3), device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(4)).mul(2).sub(1).to(torch.bfloat16)
+
+    def call():
+        with torch.inference_mode():
+            return cf(faces, w=0.5, adain=True)[0]
+    return call
+
+
+def phase_group_norm(smi: str, iters: int = 10) -> dict:
+    """The GroupNorm (+ SiLU) kernel at every shape of one serving call of
+    the benchmark's two cells (`_video_call`, `_faces_call`); then the
+    PGTFormer step's frames with the kernel against the same step on the
+    plain norms."""
+    import torch
+    import pgtformer_tpu_torch.nn.blocks as blocks
+    from pgtformer_tpu_torch.ops.group_norm import group_norm_silu_plain
+    B = 8
+    r, frames, video_call = _video_call(3)
     out = {"pgt-video-b8": _gn_cell("video", video_call, iters, smi)}
     # the same clip on the plain norms: the restored frames' difference
     kernel, served = blocks.group_norm_silu, []
@@ -4272,77 +4196,36 @@ def phase_group_norm(smi: str, iters: int = 10) -> dict:
     out["video_frames_lsb"] = dict(mean=float(d.mean()), max=int(d.max()))
     log(f"[gn:video] 16 restored frames, kernel norms against plain norms: mean "
         f"{d.mean().item():.4f} LSB, max {int(d.max())} LSB")
-    del r
+    del r, video_call
     torch.cuda.empty_cache()
-    cf = CodeFormer(use_pallas=True, generator=torch.Generator().manual_seed(3))
-    cf = cf.to("cuda", torch.bfloat16).eval()
-    faces = torch.rand((16, 512, 512, 3), device="cuda", generator=torch.Generator(
-        device="cuda").manual_seed(4)).mul(2).sub(1).to(torch.bfloat16)
-
-    def faces_call():
-        with torch.inference_mode():
-            return cf(faces, w=0.5, adain=True)[0]
-
-    out["codeformer-faces-b16"] = _gn_cell("faces", faces_call, iters, smi)
-    del cf
+    out["codeformer-faces-b16"] = _gn_cell("faces", _faces_call(), iters, smi)
     torch.cuda.empty_cache()
     return out
 
 
-class _BiasRecorder:
-    """Wraps the convs' bias entry in nn/blocks.py: counts the calls of each
-    (shape, batch stride, bias dtype, residual batch stride) and keeps a
-    copy of the first call's operands (h before the kernel writes it)."""
-
-    def __init__(self):
-        import pgtformer_tpu_torch.nn.blocks as blocks
-        self.blocks, self.fn = blocks, blocks.bias_add
-        self.calls, self.inputs, self.on = {}, {}, False
-        blocks.bias_add = self
-
-    def __call__(self, h, bias, residual=None):
-        if self.on:
-            key = (tuple(h.shape), h.stride(0), str(bias.dtype).split(".")[-1],
-                   None if residual is None else residual.stride(0))
-            self.calls[key] = self.calls.get(key, 0) + 1
-            if key not in self.inputs:
-                self.inputs[key] = (h.clone(), residual)
-        return self.fn(h, bias, residual)
-
-    def remove(self):
-        self.blocks.bias_add = self.fn
-
-
 def _bias_cell(tag: str, run_call, iters: int, smi: str) -> dict:
     """The bias kernel at every biased conv's output of one call of
-    `run_call`, on the call's own activations and a seeded bias: launches a
-    call (one a conv), bit-equal to ATen's broadcast `add_` on the
-    channels-last output (then `residual + h` where the call folds one),
-    kernel / plain / ATen device times (CUDA graphs) against the bound (h
-    read and written, the residual read, in bf16), summed over the call."""
+    `run_call`, on the call's own activations (a copy of the first h of each
+    shape, batch stride, bias dtype and residual batch stride, before the
+    kernel writes it) and a seeded bias: launches a call (one a conv),
+    bit-equal to ATen's broadcast `add_` on the channels-last output (then
+    `residual + h` where the call folds one), kernel / plain / ATen device
+    times (CUDA graphs) against the bound (h read and written, the residual
+    read, in bf16), summed over the call."""
     import torch
     from pgtformer_tpu_torch.ops.bias_add import bias_add, bias_add_plain
-    rec = _BiasRecorder()
-    try:
-        run_call()                      # warm-up: builds and caches
-        torch.cuda.synchronize()
-        n0 = bias_add.launches
-        rec.on = True
-        run_call()
-        torch.cuda.synchronize()
-        rec.on = False
-        per_call = bias_add.launches - n0
-    finally:
-        rec.remove()
-    if per_call != sum(rec.calls.values()):
-        raise SystemExit(f"[bias:{tag}] {per_call} launches, {sum(rec.calls.values())} calls seen")
+    per_call, calls, inputs = _record_call(
+        f"bias:{tag}", "bias_add",
+        lambda h, b, residual=None: (tuple(h.shape), h.stride(0), str(b.dtype).split(".")[-1],
+                                     None if residual is None else residual.stride(0)),
+        lambda h, b, residual=None: (h.clone(), residual), run_call)
     g = torch.Generator(device="cuda").manual_seed(11)
     rows = []
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, elements=0, bytes=0,
                host_loop_ms=0.0)
-    for key, n in sorted(rec.calls.items(), key=lambda kv: -kv[1] * math.prod(kv[0][0])):
+    for key, n in sorted(calls.items(), key=lambda kv: -kv[1] * math.prod(kv[0][0])):
         shape, _, bdt, _ = key
-        h0, r = rec.inputs[key]
+        h0, r = inputs[key]
         C = shape[-1]
         b = torch.randn(C, device="cuda", generator=g).to(getattr(torch, bdt))
         b16 = b.to(torch.bfloat16)
@@ -4363,22 +4246,20 @@ def _bias_cell(tag: str, run_call, iters: int, smi: str) -> dict:
         plain = graph_ms(lambda: bias_add_plain(work, b, r), iters)
         lib = graph_ms(lambda: aten(work), iters)
         nbytes = (4 if r is None else 6) * h0.numel()
-        bms, _ = bound_ms(0.0, nbytes)
-        row = dict(shape=list(shape), bias=bdt, residual=r is not None, per_call=n, ms=ms,
-                   host_loop_ms=loop, plain_ms=plain, library_ms=lib, bound_ms=bms,
-                   bound_share=bms / ms, tb_per_s=nbytes / ms / 1e9)
+        row = timing_row(ms, plain, lib, bound_ms(0.0, nbytes), 0.0, shape=list(shape),
+                         bias=bdt, residual=r is not None, per_call=n, host_loop_ms=loop,
+                         tb_per_s=nbytes / ms / 1e9)
         rows.append(row)
         log(f"[bias:{tag}] h{list(shape)} bias {bdt} residual={int(r is not None)} x{n} a call: "
             f"bit-equal to ATen, repeat bit-equal; kernel_ms={ms:.4f} (host loop {loop:.4f}) "
-            f"plain_ms={plain:.4f} aten_ms={lib:.4f} bound_ms={bms:.4f} = {bms / ms:.3f} of the "
-            f"bound, {row['tb_per_s']:.2f} TB/s")
-        for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("bound_ms", bms),
-                     ("host_loop_ms", loop)):
-            tot[k] += n * v
+            f"plain_ms={plain:.4f} aten_ms={lib:.4f} bound_ms={row['bound_ms']:.4f} = "
+            f"{row['bound_share']:.3f} of the bound, {row['tb_per_s']:.2f} TB/s")
+        for k in ("ms", "plain_ms", "library_ms", "bound_ms", "host_loop_ms"):
+            tot[k] += n * row[k]
         tot["elements"] += n * h0.numel()
         tot["bytes"] += n * nbytes
         del got, again, want, work
-    rec.inputs.clear()
+    inputs.clear()
     bound_share = tot["bound_ms"] / tot["ms"]
     log(f"[bias:{tag}] a call: {per_call} launches of bias_add, {len(rows)} shapes, "
         f"{tot['elements'] / 1e9:.3f} G elements, {tot['bytes'] / 1e9:.2f} GB; kernel "
@@ -4392,37 +4273,11 @@ def _bias_cell(tag: str, run_call, iters: int, smi: str) -> dict:
 
 def phase_bias_add(smi: str, iters: int = 10) -> dict:
     """The convs' bias kernel at every biased conv of one serving call of
-    the benchmark's two cells (the calls of `phase_group_norm`): a
-    PGTFormer step (RELEASE_PGTFORMER 512x512, 8 new frames, seeded
-    weights) and a CodeFormer forward on 16 faces (w=0.5, AdaIN), bf16."""
-    import numpy as np
+    the benchmark's two cells (`_video_call`, `_faces_call`)."""
     import torch
-    from pgtformer_tpu_torch.config import RELEASE_PGTFORMER
-    from pgtformer_tpu_torch.models.codeformer import CodeFormer
-    from pgtformer_tpu_torch.pipeline import VideoRestorer
-    B = 8
-    res = RELEASE_PGTFORMER.vqvae.ddconfig.resolution
-    r = VideoRestorer(None, RELEASE_PGTFORMER, w=1.0, batch_windows=B,
-                      dtype=torch.bfloat16, device="cuda", seed=0)
-    frames = np.random.default_rng(0).integers(0, 256, (2 * B + 1, res, res, 3), dtype=np.uint8)
-    r.reset()
-    r.prime(frames[0])
-    step = iter(range(2))
-    out = {"pgt-video-b8": _bias_cell(
-        "video", lambda: r.restore_chunk(frames[1 + next(step) * B:][:B]), iters, smi)}
-    del r
+    out = {"pgt-video-b8": _bias_cell("video", _video_call(2)[2], iters, smi)}
     torch.cuda.empty_cache()
-    cf = CodeFormer(use_pallas=True, generator=torch.Generator().manual_seed(3))
-    cf = cf.to("cuda", torch.bfloat16).eval()
-    faces = torch.rand((16, 512, 512, 3), device="cuda", generator=torch.Generator(
-        device="cuda").manual_seed(4)).mul(2).sub(1).to(torch.bfloat16)
-
-    def faces_call():
-        with torch.inference_mode():
-            return cf(faces, w=0.5, adain=True)[0]
-
-    out["codeformer-faces-b16"] = _bias_cell("faces", faces_call, iters, smi)
-    del cf
+    out["codeformer-faces-b16"] = _bias_cell("faces", _faces_call(), iters, smi)
     torch.cuda.empty_cache()
     return out
 
@@ -4442,7 +4297,7 @@ def _entry(name, source, replaces, rows, err, launches, **extra):
             "bound_ms": _mix(rows, "bound_ms"),
             "bound_by": ("operations" if all(r["bound_by"] == "operations" for r in rows)
                          else "bytes"),
-            "library_ms": _mix(rows, "library_ms") if "library_ms" in rows[0] else None,
+            "library_ms": None if rows[0]["library_ms"] is None else _mix(rows, "library_ms"),
             "cases": rows, **extra}
 
 
